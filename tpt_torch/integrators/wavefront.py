@@ -1,0 +1,346 @@
+"""Wavefront integrator: RayGen -> per bounce [TraceExtension -> Logic ->
+Shade -> TraceShadow] over one path pool.
+
+Counterpart of `tpt/integrators/wavefront.py` for the BRUTE_FORCE and
+BVH_PALLAS backends, with the same carry tuple, the same per-lane RNG
+stream and the same stage arithmetic, so one bounce fed the same carry
+gives the same result in both packages (tests).
+
+The frame is one loop over bounces in eager PyTorch. What the JAX
+package adds around it to work around the TPU — split per-bounce
+dispatch for the device watchdog, adaptive-pool compile rungs, buffer
+donation — is not ported; the adaptive pool is bit-equal to the fixed
+pool, so the results are the same. With a packet backend the pool is
+re-sorted by ray-coherence key before every extension cast after the
+first (dead lanes last), which on the GPU keeps a warp's rays on
+similar traversal paths; pixel order is restored once per frame.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import RayCastBackend, RenderConfig
+from ..core import rng
+from ..core.camera import Camera, generate_camera_rays
+from ..core.mathutil import (EPSILON, PDF_DIRAC_DELTA, perspective_look_at,
+                             power_heuristic, project_to_screen_uv)
+from ..core.vec import Vec3, where as vwhere
+from ..materials import bsdf
+from ..scene.lights import sample_light
+from ..scene.structs import SceneData
+from .common import (Raycaster, apply_russian_roulette, fetch_hit_surface,
+                     make_raycaster)
+
+
+@dataclass(frozen=True)
+class GBuffers:
+    """First-bounce buffers (per pixel)."""
+
+    depth: torch.Tensor      # [N] f32, -1000 = sky
+    normal: Vec3             # [N] geometric normal
+    mat_id: torch.Tensor     # [N] int32, -1 = sky
+    albedo: Vec3             # [N] basecolor
+    motion_u: torch.Tensor   # [N] pixel-space motion vector
+    motion_v: torch.Tensor
+
+    @staticmethod
+    def zeros(n: int, device) -> "GBuffers":
+        return GBuffers(
+            depth=torch.full((n,), -1000.0, device=device),
+            normal=Vec3.zeros((n,), device),
+            mat_id=torch.full((n,), -1, dtype=torch.int32, device=device),
+            albedo=Vec3.ones((n,), device),
+            motion_u=torch.zeros((n,), device=device),
+            motion_v=torch.zeros((n,), device=device),
+        )
+
+
+@dataclass(frozen=True)
+class FrameOutput:
+    direct: Vec3     # [N] NEE radiance
+    indirect: Vec3   # [N] BSDF/emissive radiance
+    gbuf: GBuffers
+    rays_traced: torch.Tensor  # 0-dim int64 (extension + shadow rays)
+
+
+# RenderConfig knobs of the TPU kernels and their dispatch (packet shape,
+# sweep and treelet pipelines, sort cadence): the port reads none of them,
+# so a value other than the default is refused rather than ignored
+_TPU_KNOBS = tuple(f.name for f in fields(RenderConfig)
+                   if f.name.startswith(("trav_", "sweep_", "treelet_"))
+                   ) + ("sort_every",)
+
+
+def _unsupported(cfg: RenderConfig) -> Optional[str]:
+    """The RenderConfig options this slice does not implement."""
+    if cfg.backend not in (RayCastBackend.BRUTE_FORCE, RayCastBackend.BVH_PALLAS):
+        return f"backend {cfg.backend.name}"
+    default = RenderConfig()
+    for name in _TPU_KNOBS:
+        if getattr(cfg, name) != getattr(default, name):
+            return name
+    if cfg.nearfield_frac > 0.0:
+        return "nearfield_frac"
+    if cfg.heavy_shading_iters:
+        return "heavy_shading_iters"
+    if cfg.debug_no_shadow:
+        return "debug_no_shadow"
+    return None
+
+
+def _sort_pool(scene: SceneData, cfg: RenderConfig, carry_slice):
+    """Re-sort the live path pool by ray-coherence key (stable; dead lanes
+    get the max key and gather at the tail)."""
+    from . import raysort
+
+    world_lo, world_inv = raysort.world_bounds(scene.mesh)
+    (ori, direction, throughput, last_pdf, state, alive, direct,
+     indirect, pixel_idx) = carry_slice
+    key = raysort.coherence_key(ori, direction, world_lo, world_inv,
+                                mode=cfg.sort_key)
+    key = torch.where(alive, key, 1 << 30)
+    perm = torch.sort(key, stable=True).indices
+    g = lambda a: a[perm]
+    gv = lambda v: Vec3(v.x[perm], v.y[perm], v.z[perm])
+    return (gv(ori), gv(direction), gv(throughput), g(last_pdf), g(state),
+            g(alive), gv(direct), gv(indirect), g(pixel_idx))
+
+
+def unsort_by_pixel(pixel_idx, direct: Vec3, indirect: Vec3):
+    """Restore pixel order (pixel_idx is a permutation of each sample
+    batch; the stable sort keeps a pixel's samples in pool order)."""
+    perm = torch.sort(pixel_idx, stable=True).indices
+    gv = lambda v: Vec3(v.x[perm], v.y[perm], v.z[perm])
+    return gv(direct), gv(indirect)
+
+
+def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
+                 cfg: RenderConfig, view_proj, prev_view_proj, depth: int,
+                 carry):
+    """One wavefront bounce over the full path pool (`depth` is the bounce
+    number, 0 for camera rays)."""
+    w, h = cam.resolution
+    has_lights = scene.lights.num_lights > 0
+    if scene.env.enabled:
+        raise NotImplementedError("environment maps are not ported yet")
+    do_sort = cfg.sort_bounce_rays and cfg.backend.is_packet
+
+    (ori, direction, throughput, last_pdf, state, alive,
+     direct, indirect, pixel_idx, gbuf, rays) = carry
+    n = ori.shape[0]
+    dev = ori.device
+    first = depth == 0
+
+    if do_sort and not first:
+        (ori, direction, throughput, last_pdf, state, alive, direct,
+         indirect, pixel_idx) = _sort_pool(
+            scene, cfg, (ori, direction, throughput, last_pdf, state,
+                         alive, direct, indirect, pixel_idx))
+
+    # ---- TraceExtensionRay stage: dead lanes get t_max = -1 -------------
+    ext_tmax = torch.where(alive, 3.4e38, -1.0)
+    hit = raycaster.closest_hit(ori, direction, ext_tmax)
+    rays = rays + alive.sum()
+
+    # ---- Logic stage ------------------------------------------------------
+    wo = -1.0 * direction
+    (mats, n_sh, ng_raw, ng, hit_matid, uu, vv) = fetch_hit_surface(
+        scene, hit.tri, hit.u, hit.v, wo)
+    point = ori + direction * hit.t
+    miss = alive & ~hit.hit_mask
+    zero3 = Vec3.zeros((n,), dev)
+
+    if first:
+        # G-buffers are per pixel: sample batch 0 is the raster-order
+        # prefix of the (not yet sorted) pool
+        npx = gbuf.depth.shape[0]
+        pre = lambda a: a[:npx]
+        vpre = lambda v: v.map(lambda c: c[:npx])
+        sky = pre(miss)
+        u_c, v_c, ok_c = project_to_screen_uv(vpre(point), view_proj)
+        u_p, v_p, ok_p = project_to_screen_uv(vpre(point), prev_view_proj)
+        moving = ~sky & ok_c & ok_p
+        gbuf = GBuffers(
+            depth=torch.where(sky, -1000.0, pre(hit.t)),
+            normal=vwhere(sky, Vec3.zeros((npx,), dev), vpre(ng_raw)),
+            mat_id=torch.where(sky, -1, pre(hit_matid)),
+            albedo=vwhere(sky, Vec3.ones((npx,), dev), vpre(mats.basecolor)),
+            motion_u=torch.where(moving, (u_c - u_p) * w, 0.0),
+            motion_v=torch.where(moving, (v_c - v_p) * h, 0.0))
+    alive = alive & hit.hit_mask
+
+    # emissive hit -> MIS -> indirect, kill
+    emissive = alive & (mats.emittance > 0.0)
+    cos_light = torch.clamp_min(n_sh.dot(wo), 0.0)
+    pdf_la = 1.0 / torch.clamp_min(scene.lights.total_area, 1e-20)
+    pdf_lsa = pdf_la * (hit.t * hit.t) / torch.clamp_min(cos_light, 1e-20)
+    no_mis = (last_pdf > 0.9 * PDF_DIRAC_DELTA) | first | (not has_lights)
+    w_emis = torch.where(
+        no_mis, 1.0,
+        torch.where(cos_light > EPSILON, power_heuristic(last_pdf, pdf_lsa), 0.0))
+    indirect = indirect + vwhere(
+        emissive, throughput * mats.basecolor * (mats.emittance * w_emis), zero3)
+    alive = alive & ~emissive
+
+    # ---- Shade stage: NEE -> TraceShadowRay --------------------------------
+    if has_lights:
+        state, lp, ln, pdf_area, ltri, le = sample_light(
+            scene.mesh, scene.lights, state)
+        # geometry measured from the OFFSET shadow origin (a shorter
+        # segment would let the light occlude its own shadow ray)
+        shadow_ori = point + ng * EPSILON
+        to_l = lp - shadow_ori
+        dist = to_l.length()
+        wi_l = to_l * (1.0 / torch.clamp_min(dist, 1e-20))
+        dist_sq = torch.clamp_min(dist * dist, 1e-6)
+        cos_surf = torch.clamp_min(n_sh.dot(wi_l), 0.0)
+        cos_l = torch.clamp_min(ln.dot(-1.0 * wi_l), 0.0)
+        front = ng.dot(wi_l) > 0.0
+        if le is None:
+            lmat = bsdf.gather_materials(scene.materials,
+                                         scene.mesh.material_ids[ltri])
+            le = lmat.basecolor * lmat.emittance
+        f = bsdf.eval_bsdf(wo, wi_l, n_sh, mats)
+        pdf_b = bsdf.pdf_bsdf(wo, wi_l, n_sh, mats)
+        pdf_l_sa = pdf_area * dist_sq / torch.clamp_min(cos_l, 1e-20)
+        w_nee = power_heuristic(pdf_l_sa, pdf_b)
+        contrib = throughput * le * f * (
+            cos_surf * cos_l / dist_sq * w_nee / pdf_area)
+        is_delta = (mats.mtype == 2) | (mats.mtype == 3)
+        nee_mask = (alive & front & ~is_delta & (cos_surf > 0.0)
+                    & (cos_l > 0.0) & (contrib.length_sq() > 0.0))
+        shadow_t = torch.where(nee_mask, dist, -1.0)  # dead shadow lanes
+        occluded = raycaster.any_hit(shadow_ori, wi_l, shadow_t)
+        rays = rays + nee_mask.sum()
+        direct = direct + vwhere(nee_mask & ~occluded, contrib, zero3)
+    else:
+        state, _ = rng.rand_float(state)
+        state, _ = rng.rand_float(state)
+        state, _ = rng.rand_float(state)
+
+    # ---- BSDF sample + path update -----------------------------------------
+    state, smp = bsdf.sample_bsdf(wo, n_sh, mats, state)
+    valid = (smp.pdf > 0.0) & (smp.attenuation.length_sq() > 0.0)
+    exiting = smp.wi.dot(ng) > 0.0
+    valid = valid & (exiting | smp.is_transmission)
+    bias_n = vwhere(exiting, ng, -1.0 * ng)
+
+    upd = alive & valid
+    throughput = vwhere(upd, throughput * smp.attenuation, throughput)
+    ori = vwhere(upd, point + bias_n * EPSILON, ori)
+    direction = vwhere(upd, smp.wi, direction)
+    last_pdf = torch.where(upd, smp.pdf, last_pdf)
+    alive = upd
+
+    throughput, alive, state = apply_russian_roulette(
+        cfg, depth, throughput, alive, state)
+
+    return (ori, direction, throughput, last_pdf, state, alive,
+            direct, indirect, pixel_idx, gbuf, rays)
+
+
+def init_carry(cfg: RenderConfig, ori: Vec3, direction: Vec3, state,
+               pixel_idx=None):
+    """The path-pool carry: (ori, direction, throughput, last_pdf, state,
+    alive, direct, indirect, pixel_idx, gbuf, rays) — tpt's layout."""
+    n = ori.shape[0]
+    dev = ori.device
+    if pixel_idx is None:
+        pixel_idx = torch.arange(n, dtype=torch.int64, device=dev)
+    return (ori, direction, Vec3.ones((n,), dev), torch.zeros((n,), device=dev),
+            state, torch.ones((n,), dtype=torch.bool, device=dev),
+            Vec3.zeros((n,), dev), Vec3.zeros((n,), dev), pixel_idx,
+            GBuffers.zeros(n // max(1, cfg.spp_batch), dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def finish_carry(cfg: RenderConfig, carry) -> FrameOutput:
+    """Unsort radiance back to pixel order (when the pool was sorted), sum
+    an spp batch per pixel, and zero non-finite values."""
+    direct, indirect, pixel_idx, gbuf, rays = (
+        carry[6], carry[7], carry[8], carry[9], carry[10])
+    spp = cfg.spp_batch
+    nan_guard = lambda v: v.map(lambda c: torch.where(torch.isfinite(c), c, 0.0))
+    if cfg.sort_bounce_rays and cfg.backend.is_packet:
+        direct, indirect = unsort_by_pixel(pixel_idx, direct, indirect)
+        if spp > 1:
+            batch_sum = lambda v: v.map(lambda c: c.reshape(-1, spp).sum(dim=1))
+            direct, indirect = batch_sum(direct), batch_sum(indirect)
+    elif spp > 1:
+        batch_sum = lambda v: v.map(lambda c: c.reshape(spp, -1).sum(dim=0))
+        direct, indirect = batch_sum(direct), batch_sum(indirect)
+    return FrameOutput(direct=nan_guard(direct), indirect=nan_guard(indirect),
+                       gbuf=gbuf, rays_traced=rays)
+
+
+def batched_raygen(cam: Camera, cfg: RenderConfig, iteration: int, device):
+    """RayGen for one frame: cfg.spp_batch jittered samples of every pixel
+    in one pool (sample s uses iteration + s)."""
+    spp = cfg.spp_batch
+    if spp == 1:
+        ori, direction, state = generate_camera_rays(cam, iteration,
+                                                     cfg.jitter, device=device)
+        return init_carry(cfg, ori, direction, state)
+    parts = [generate_camera_rays(cam, iteration + s, cfg.jitter, device=device)
+             for s in range(spp)]
+    cat3 = lambda vs: Vec3(*(torch.cat([getattr(v, ax) for v in vs])
+                             for ax in ("x", "y", "z")))
+    ori = cat3([p[0] for p in parts])
+    direction = cat3([p[1] for p in parts])
+    state = torch.cat([p[2] for p in parts])
+    pix = torch.arange(cam.num_pixels, dtype=torch.int64,
+                       device=device).repeat(spp)
+    return init_carry(cfg, ori, direction, state, pixel_idx=pix)
+
+
+def camera_view_proj(cam: Camera) -> np.ndarray:
+    w, h = cam.resolution
+    return perspective_look_at(cam.position, cam.look_at, cam.up,
+                               cam.fovy_deg, w / h)
+
+
+def trace_frame(scene: SceneData, raycaster: Raycaster, cam: Camera,
+                cfg: RenderConfig, iteration: int, view_proj=None,
+                prev_view_proj=None) -> FrameOutput:
+    """One wavefront frame (cfg.spp_batch samples per pixel): raygen, then
+    cfg.trace_depth bounces, then the pixel-order finish."""
+    reason = _unsupported(cfg)
+    if reason:
+        raise NotImplementedError(f"{reason} is not ported yet")
+    vp = camera_view_proj(cam) if view_proj is None else view_proj
+    prev = vp if prev_view_proj is None else prev_view_proj
+    carry = batched_raygen(cam, cfg, iteration, scene.device)
+    for depth in range(cfg.trace_depth):
+        carry = _bounce_body(scene, raycaster, cam, cfg, vp, prev, depth, carry)
+    return finish_carry(cfg, carry)
+
+
+def render(scene: SceneData, cam: Camera, cfg: RenderConfig,
+           iterations: Optional[int] = None, start_iter: int = 1,
+           raycaster: Optional[Raycaster] = None) -> np.ndarray:
+    """Headless accumulate-and-average on the scene's device: returns the
+    [H, W, 3] float32 image. Pass `raycaster` to read its `capped` count
+    afterwards."""
+    iters = iterations if iterations is not None else cfg.iterations
+    w, h = cam.resolution
+    if iters <= 0:
+        return np.zeros((h, w, 3), np.float32)
+    if raycaster is None:
+        raycaster = make_raycaster(scene, cfg)
+    dev = scene.device
+    acc_d = Vec3.zeros((cam.num_pixels,), dev)
+    acc_i = Vec3.zeros((cam.num_pixels,), dev)
+    spp = cfg.spp_batch
+    total = 0
+    for it in range(start_iter, start_iter + iters, spp):
+        out = trace_frame(scene, raycaster, cam, cfg, it)
+        acc_d = acc_d + out.direct
+        acc_i = acc_i + out.indirect
+        total += spp
+    img = ((acc_d + acc_i) * (1.0 / total)).stacked().reshape(h, w, 3)
+    return img.cpu().numpy()
