@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the wavefront integrator on the wide-BVH
-kernels K2 (closest hit) and K1 (any hit) — at full size: the
-139k-triangle `fireplace_like` bench interior at 1920x1080, depth 8. One
-line per phase (name, seconds, key numbers):
+Drives the port's two main paths at full size on the 139k-triangle
+`fireplace_like` bench interior at 1920x1080, depth 8: the wavefront
+integrator on the wide-BVH kernels K2 (closest hit) and K1 (any hit)
+(BVH_PALLAS), and the bench's own BVH_SWEEP configuration, whose bounces
+after the first run the dense treelet scan K3, the bin sort, the demand
+sweep K4 and a K2 tail. One line per phase (name, seconds, key numbers):
 
   device     nvidia-smi name and power limit, torch and CUDA versions
-  build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu and g++ of the
-             native SAH builder, from the sources in this checkout
-  scene      host scene, SAH BVH and wide pack, uploaded to the card
+  build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu and
+             tpt_torch/csrc/sweep.cu and g++ of the native SAH builder,
+             all at once, from the sources in this checkout
+  scene      host scene, SAH BVH, wide pack, treelet cut and sweep tables
+             (chunk_align 8, as bench.py builds them), uploaded to the card
   kernels    K2/K1 against their plain PyTorch versions on 262,144 live
              rays (camera primaries and one real diffuse bounce of the
              render, and the NEE shadow rays of both bounces), then on all
@@ -23,6 +27,22 @@ line per phase (name, seconds, key numbers):
   agreement  the same scene at 240x135, 2 iterations, through the kernels
              and through the plain versions: the images must agree to the
              golden-image tolerance of tests/test_golden.py
+  sweep_kernels
+             the bench configuration's pools (spp_batch 4: 8,294,400 lanes):
+             K3 against its plain version on every lane of the unsorted
+             bounce-1 pool, K4 on every lane of the bin-sorted bounce-1 pool
+             and on 262,144 lanes (whole blocks) of the bounce-4 pool, both
+             bit for bit; the final sweep_cast_sorted hits against K2 on
+             every lane of bounce 1 (t bit-equal, triangles up to equal-t
+             ties); CUDA-event timings, bounds, union sizes, tail share
+  sweep_render
+             wavefront.render in the bench configuration (BVH_SWEEP, depth
+             8, spp_batch 4, sweep_unroll 8) at 1080p, with all launch
+             counters zeroed just before and read just after; frame ms,
+             Mpaths/s, and one frame split by stage with CUDA events
+  sweep_agreement
+             BVH_SWEEP at 240x135 through the kernels, through the plain
+             versions and against the BVH_PALLAS render
 
 Then one JSON line describing each ported kernel, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Any failed check raises, so the
@@ -50,6 +70,12 @@ AGREE_RES = (240, 135)
 AGREE_ITERS = 2
 N_COMPARE = 262_144       # rays held against the plain versions, per kernel
 TIMING_REPS = 7
+# bench.py:264-266: BVH_SWEEP, depth 8, spp_batch 4, sweep_unroll 8 on
+# tables built with chunk_align 8
+SWEEP_ALIGN = 8
+SWEEP_KNOBS = dict(trace_depth=DEPTH, spp_batch=4, sweep_unroll=8)
+SWEEP_FRAMES = 4          # frames of the timed sweep render
+SWEEP_BOUNCES = (1, 4)    # pools whose K4 result is held against plain
 # tolerances of the kernel-vs-plain comparison (the kernel is built without
 # multiply-add contraction and walks the same order, so these have slack)
 T_RTOL = 1e-4
@@ -68,6 +94,7 @@ PEAK_F32_INSTR_S = 67e12 / 2
 # counted from the kernel source; the kernels count the tests they do
 OPS_PER_SLAB = 25
 OPS_PER_TRI = 52
+TAIL_TRI_MISMATCH_MAX = 1e-4   # of live lanes: equal-t ties between treelets
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -86,6 +113,20 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def timed_once(fn):
+    """(fn(), its CUDA-event time in ms), without a warm-up: for the plain
+    versions, whose one run on a full pool is also their comparison."""
+    import torch
+
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -250,6 +291,353 @@ def check_k1(label: str, res_k, res_p, t_max) -> float:
     return float((ok.float() - op.float()).abs().max())
 
 
+class Patch:
+    """Swaps module attributes and puts them back (the sweep path calls
+    its kernels and stages through their modules, so a run can time them
+    or route them to the plain versions)."""
+
+    def __init__(self):
+        self._undo = []
+
+    def set(self, mod, attr, value) -> None:
+        self._undo.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, value)
+
+    def restore(self) -> None:
+        while self._undo:
+            mod, attr, value = self._undo.pop()
+            setattr(mod, attr, value)
+
+
+def plain_kernels() -> Patch:
+    """Route K1-K4 to their plain PyTorch versions (on the card)."""
+    from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.bvh import sweep as sw
+
+    p = Patch()
+    p.set(sw, "dense_scan", sw.dense_scan_plain)
+    p.set(sw, "sweep8_closest_hit", sw.sweep8_closest_hit_plain)
+    p.set(pt, "packet_closest_hit_wide", pt.closest_hit_wide_plain)
+    p.set(pt, "packet_any_hit_wide", pt.any_hit_wide_plain)
+    return p
+
+
+class StageTimer:
+    """CUDA events around every call of the sweep path's stages."""
+
+    def __init__(self):
+        self.events = {}
+        self.patch = Patch()
+
+    def timed(self, label, fn):
+        import torch
+
+        def call(*args, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*args, **kw)
+            e.record()
+            self.events.setdefault(label, []).append((s, e))
+            return out
+
+        return call
+
+    def wrap(self, mod, attr, label):
+        self.patch.set(mod, attr, self.timed(label, getattr(mod, attr)))
+
+    def ms(self, label: str) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events.get(label, []))
+
+
+def equal_hits(label: str, a, b) -> None:
+    """Two HitRecords bit for bit (t, tri, u, v)."""
+    import torch
+
+    for f in ("t", "tri", "u", "v"):
+        x, y = getattr(a, f), getattr(b, f)
+        if not torch.equal(x, y):
+            raise RuntimeError(f"{label}: {f} differs on "
+                               f"{int((x != y).sum())} lanes")
+
+
+def whole_blocks(n: int, k: int, device):
+    """Lane indices of k // 128 whole 128-lane blocks spread over n lanes."""
+    import torch
+
+    nb = n // 128
+    blocks = torch.linspace(0, nb - 1, k // 128, device=device).long()
+    return (blocks[:, None] * 128 + torch.arange(128, device=device)).reshape(-1)
+
+
+def sweep_bound(n: int, in_bytes: int, out_bytes: int, table_bytes: int,
+                ops: int) -> tuple:
+    """(bound_ms, bound_by): bytes = n lanes in and out + tables once;
+    operations at the fp32 instruction peak."""
+    b_ms = (n * (in_bytes + out_bytes) + table_bytes) / PEAK_BYTES_S * 1e3
+    o_ms = ops / PEAK_F32_INSTR_S * 1e3
+    return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
+
+
+def sweep_phases(scene, cam, dev) -> list:
+    """The sweep_kernels, sweep_render and sweep_agreement phases; returns
+    the K3 and K4 entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.bvh import sweep as sw
+    from tpt_torch.bvh import sweepcast as tsc
+    from tpt_torch.config import RayCastBackend, RenderConfig
+    from tpt_torch.core.camera import Camera
+    from tpt_torch.core.vec import Vec3
+    from tpt_torch.integrators import common, wavefront
+
+    tables = scene.sweep
+    cfg = RenderConfig(backend=RayCastBackend.BVH_SWEEP, **SWEEP_KNOBS)
+    S, unroll = cfg.sweep_slots, cfg.sweep_unroll
+
+    # ---- sweep_kernels: the pools of one bench frame ------------------------
+    t0 = time.perf_counter()
+    grabbed = {}
+    scan_keys, bin_sort = wavefront._sweep_scan_keys, wavefront._sweep_bin_sort
+    depth_now = [0]
+
+    def grab_scan(scn, c, pool):
+        out = scan_keys(scn, c, pool)
+        if depth_now[0] == 1:
+            grabbed["scan_in"], grabbed["scan_out"] = pool, out[1]
+        return out
+
+    def grab_sort(c, pool, keys, raw):
+        out = bin_sort(c, pool, keys, raw)
+        if depth_now[0] in SWEEP_BOUNCES:
+            grabbed[depth_now[0]] = out
+        return out
+
+    patch = Patch()
+    patch.set(wavefront, "_sweep_scan_keys", grab_scan)
+    patch.set(wavefront, "_sweep_bin_sort", grab_sort)
+    try:
+        rc = common.make_raycaster(scene, cfg)
+        vp = wavefront.camera_view_proj(cam)
+        carry = wavefront.batched_raygen(cam, cfg, 1, dev)
+        for depth in range(max(SWEEP_BOUNCES) + 1):
+            depth_now[0] = depth
+            carry = wavefront._bounce_body(scene, rc, cam, cfg, vp, vp,
+                                           depth, carry)
+    finally:
+        patch.restore()
+    del carry
+    pool = grabbed["scan_in"]
+    n = pool[0].x.shape[0]
+    pre_tmax = torch.where(pool[5], 3.4e38, -1.0)
+    # K3 on every lane of the unsorted bounce-1 pool, dead lanes included
+    k3 = grabbed["scan_out"]
+    k3_plain, k3_plain_ms = timed_once(lambda: sw.dense_scan_plain(
+        tables, pool[0], pool[1], pre_tmax, slots=S))
+    for a, b, what in zip(k3, k3_plain, ("entry t", "ordinal", "thr")):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"K3 {what} differs from plain on "
+                               f"{int((a != b).sum())} of {a.numel()} values")
+    k3_err = max(float((a.float() - b.float()).abs().max())
+                 for a, b in zip(k3, k3_plain))
+    print(f"  K3 vs plain, unsorted bounce-1 pool: {n} lanes "
+          f"({int((~pool[5]).sum())} dead), bit-equal")
+    k3_ms = cuda_time_ms(lambda: sw.dense_scan(tables, pool[0], pool[1],
+                                               pre_tmax, slots=S), TIMING_REPS)
+    st3 = torch.zeros(1, dtype=torch.int64, device=dev)
+    sw.dense_scan(tables, pool[0], pool[1], pre_tmax, slots=S, stats=st3)
+    k3_bound, k3_by = sweep_bound(
+        n, 28, 8 * S + 4, tables.boxes.numel() * 4,
+        OPS_PER_SLAB * int(st3[0]))
+    del k3_plain, pool
+
+    # K4 on the bin-sorted pools: all of bounce 1, whole blocks of bounce 4
+    k4_err = 0.0
+    for b in SWEEP_BOUNCES:
+        spool, (s_o, s_t, thr) = grabbed[b]
+        ori, d = spool[0], spool[1]
+        tmax = torch.where(spool[5], 3.4e38, -1.0)
+        if b != SWEEP_BOUNCES[0]:
+            idx = whole_blocks(n, N_COMPARE, dev)
+            g = lambda a: a[idx].contiguous()
+            ori, d = Vec3(g(ori.x), g(ori.y), g(ori.z)), Vec3(g(d.x), g(d.y), g(d.z))
+            tmax, s_o, s_t = g(tmax), s_o[:, idx], s_t[:, idx]
+        hk = sw.sweep8_closest_hit(tables, ori, d, tmax, s_o, s_t, unroll=unroll)
+        hp, plain_ms = timed_once(lambda: sw.sweep8_closest_hit_plain(
+            tables, ori, d, tmax, s_o, s_t, unroll=unroll))
+        if b == SWEEP_BOUNCES[0]:
+            k4_plain_ms = plain_ms       # the whole bounce-1 pool
+        equal_hits(f"K4 bounce {b}", hk, hp)
+        k4_err = max([k4_err] + [float((getattr(hk, f) - getattr(hp, f))
+                                       .abs().max()) for f in ("t", "u", "v")])
+        print(f"  K4 vs plain, bin-sorted bounce-{b} pool: "
+              f"{tmax.numel()} lanes ({int((tmax <= 0).sum())} dead, "
+              f"{int((hk.tri >= 0).sum())} hits), bit-equal")
+    spool, (s_o, s_t, thr) = grabbed[SWEEP_BOUNCES[0]]
+    ori, d = spool[0], spool[1]
+    tmax = torch.where(spool[5], 3.4e38, -1.0)
+    sweep_call = lambda: sw.sweep8_closest_hit(tables, ori, d, tmax, s_o, s_t,
+                                               unroll=unroll)
+    k4_ms = cuda_time_ms(sweep_call, TIMING_REPS)
+    st4 = torch.zeros(3, dtype=torch.int64, device=dev)
+    raw = sw.sweep8_closest_hit(tables, ori, d, tmax, s_o, s_t, unroll=unroll,
+                                stats=st4)
+    nb = -(-n // 128)
+    union = int(st4[0]) / nb
+    resolved, _ = tsc.resolved_lanes(raw, thr)
+    live = tmax > 0
+    tail_frac = float((~resolved & live).sum()) / max(1, int(live.sum()))
+    k4_bound, k4_by = sweep_bound(
+        n, 28 + 8 * S, 16,
+        (tables.tri_f32.numel() + tables.ranges.numel()) * 4,
+        OPS_PER_TRI * int(st4[1]))
+    # the final hits of bounce 1 against K2 on the same pool
+    fin, capped = tsc.sweep_cast_sorted(scene.pack, tables, ori, d, tmax, s_o,
+                                        s_t, thr, unroll=unroll)
+    ref, capped2 = pt.packet_closest_hit_wide(scene.pack, ori, d, tmax)
+    if int(capped) or int(capped2):
+        raise RuntimeError(f"capped rays: sweep tail {int(capped)}, "
+                           f"K2 {int(capped2)}")
+    if not torch.equal(fin.t, ref.t):
+        raise RuntimeError(f"sweep cast t differs from K2 on "
+                           f"{int((fin.t != ref.t).sum())} lanes")
+    tri_diff = int((fin.tri != ref.tri).sum())
+    if tri_diff > TAIL_TRI_MISMATCH_MAX * int(live.sum()):
+        raise RuntimeError(f"sweep cast triangle differs from K2 on "
+                           f"{tri_diff} lanes")
+    mr = lambda ms: n / (ms * 1e-3) / 1e6
+    print(f"  sweep_cast_sorted vs K2, bounce-1 pool: {n} lanes, t bit-equal, "
+          f"tri differs on {tri_diff} (equal-t ties), 0 capped")
+    print(f"  K3: {k3_ms:.3f} ms ({mr(k3_ms):.1f} Mrays/s), plain "
+          f"{k3_plain_ms:.1f} ms, bound {k3_bound:.3f} ms ({k3_by}); "
+          f"slab tests {int(st3[0])}")
+    print(f"  K4: {k4_ms:.3f} ms ({mr(k4_ms):.1f} Mrays/s), plain "
+          f"{k4_plain_ms:.1f} ms, bound {k4_bound:.3f} ms ({k4_by}); "
+          f"treelet sweeps {int(st4[0])} over {nb} blocks (mean union "
+          f"{union:.2f}), tri tests {int(st4[1])}, live lanes {int(st4[2])}, "
+          f"unresolved (tail) {100 * tail_frac:.3f}% of live lanes")
+    phase("sweep_kernels", t0, lanes=n, k3_ms=f"{k3_ms:.3f}",
+          k4_ms=f"{k4_ms:.3f}", mean_union=f"{union:.2f}",
+          tail_pct=f"{100 * tail_frac:.3f}")
+    del grabbed, spool, ori, d, tmax, s_o, s_t, thr, raw, fin, ref
+
+    # ---- sweep_render: the bench configuration, the second main path -----
+    t0 = time.perf_counter()
+    rc = common.make_raycaster(scene, cfg)
+    wavefront.trace_frame(scene, rc, cam, cfg, 200)   # warm-up frame
+    torch.cuda.synchronize()
+    for counts in (pt.LAUNCHES, sw.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    tr = time.perf_counter()
+    img = wavefront.render(scene, cam, cfg,
+                           iterations=SWEEP_FRAMES * cfg.spp_batch,
+                           raycaster=rc)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - tr
+    launches = dict(pt.LAUNCHES, **sw.LAUNCHES)
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"sweep path skipped a kernel: {launches}")
+    per_frame = (DEPTH - 1) * SWEEP_FRAMES
+    if launches["dense_scan"] != per_frame or \
+            launches["sweep8_closest_hit"] != per_frame:
+        raise RuntimeError(f"expected {per_frame} K3/K4 launches: {launches}")
+    if int(rc.capped):
+        raise RuntimeError(f"sweep render had {int(rc.capped)} capped rays")
+    if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
+            or not img.mean() > 0:
+        raise RuntimeError(f"bad sweep image: shape {img.shape}, "
+                           f"mean {float(np.nanmean(img))}")
+    frame_ms = render_s * 1e3 / SWEEP_FRAMES
+    paths = cam.num_pixels * cfg.spp_batch
+    # one frame split by stage: CUDA events around each stage's calls
+    timer = StageTimer()
+    timer.wrap(wavefront, "_sweep_scan_keys", "scan (K3 + keys)")
+    timer.wrap(wavefront, "_sweep_bin_sort", "bin sort")
+    timer.wrap(sw, "sweep8_closest_hit", "sweep (K4)")
+    timer.wrap(tsc, "_tail_compact_cast", "tail (K2)")
+    inner = common.make_raycaster(scene, cfg)
+    primaries = timer.timed("primaries (K2)", inner.closest_hit)
+
+    def closest(o, dd, t_max=None, sweep_slots=None):
+        if sweep_slots is None:   # camera rays
+            return primaries(o, dd, t_max)
+        return inner.closest_hit(o, dd, t_max, sweep_slots=sweep_slots)
+
+    timed_rc = common.Raycaster(
+        closest_hit=closest, any_hit=timer.timed("shadow (K1)", inner.any_hit),
+        name="timed", capped=inner.capped)
+    s_ev = torch.cuda.Event(enable_timing=True)
+    e_ev = torch.cuda.Event(enable_timing=True)
+    try:
+        th = time.perf_counter()
+        s_ev.record()
+        wavefront.trace_frame(scene, timed_rc, cam, cfg, 201)
+        e_ev.record()
+        host_ms = (time.perf_counter() - th) * 1e3
+        e_ev.synchronize()
+    finally:
+        timer.patch.restore()
+    f_ms = s_ev.elapsed_time(e_ev)
+    split = {k: timer.ms(k) for k in timer.events}
+    split["shading and the rest"] = f_ms - sum(split.values())
+    print(f"  one frame: {f_ms:.1f} ms by CUDA events (host enqueue "
+          f"{host_ms:.1f} ms); " + "; ".join(
+              f"{k} {v:.1f} ms ({100 * v / f_ms:.1f}%)" for k, v in split.items()))
+    phase("sweep_render", t0, frame_ms=f"{frame_ms:.1f}",
+          mpaths_s=f"{paths / (frame_ms * 1e-3) / 1e6:.3f}",
+          launches=json.dumps(launches).replace(" ", ""), capped=int(rc.capped),
+          image_mean=f"{float(img.mean()):.5f}")
+
+    # ---- sweep_agreement: kernels vs plain, and vs BVH_PALLAS -------------
+    t0 = time.perf_counter()
+    small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
+                         cam.fovy_deg)
+    acfg = cfg.with_(spp_batch=1)
+    rc_k = common.make_raycaster(scene, acfg)
+    img_k = wavefront.render(scene, small, acfg, iterations=AGREE_ITERS,
+                             raycaster=rc_k)
+    patch = plain_kernels()
+    try:
+        rc_p = common.make_raycaster(scene, acfg)
+        img_p = wavefront.render(scene, small, acfg, iterations=AGREE_ITERS,
+                                 raycaster=rc_p)
+    finally:
+        patch.restore()
+    pcfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
+    rc_w = common.make_raycaster(scene, pcfg)
+    img_w = wavefront.render(scene, small, pcfg, iterations=AGREE_ITERS,
+                             raycaster=rc_w)
+    if int(rc_k.capped) or int(rc_p.capped) or int(rc_w.capped):
+        raise RuntimeError("agreement renders had capped rays")
+    out = {}
+    for label, ref in (("plain", img_p), ("pallas", img_w)):
+        close = float(np.isclose(img_k, ref, atol=5e-3, rtol=1e-3).mean())
+        mean_rel = abs(float(img_k.mean()) / float(ref.mean()) - 1.0)
+        if not (np.isfinite(img_k).all() and close > 0.97 and mean_rel <= 0.02):
+            raise RuntimeError(f"sweep render disagrees with {label}: close "
+                               f"{close}, mean rel {mean_rel}")
+        out[f"{label}_close"] = f"{close:.6f}"
+        out[f"{label}_max_abs"] = f"{float(np.abs(img_k - ref).max()):.3g}"
+    phase("sweep_agreement", t0, **out)
+
+    return [
+        dict(name="dense_scan", route="cuda", source="tpt_torch/csrc/sweep.cu",
+             replaces="tpt/bvh/pallas_sweep.py:337",
+             launches=launches["dense_scan"], max_abs_err=k3_err, ms=k3_ms,
+             plain_ms=k3_plain_ms, bound_ms=k3_bound, bound_by=k3_by,
+             library_ms=None),
+        dict(name="sweep8_closest_hit", route="cuda",
+             source="tpt_torch/csrc/sweep.cu",
+             replaces="tpt/bvh/pallas_sweep.py:623",
+             launches=launches["sweep8_closest_hit"], max_abs_err=k4_err,
+             ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound,
+             bound_by=k4_by, library_ms=None),
+    ]
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -260,6 +648,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from tpt_torch import _build
     from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.bvh import sweep as sw
     from tpt_torch.config import RayCastBackend, RenderConfig
     from tpt_torch.core.camera import Camera
     from tpt_torch.integrators import wavefront
@@ -279,8 +668,9 @@ def main() -> int:
 
     # ---- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:   # nvcc and g++ side by side
-        builds = [pool.submit(pt.build_kernels), pool.submit(native._load)]
+    with ThreadPoolExecutor(3) as pool:   # both nvcc and g++ side by side
+        builds = [pool.submit(pt.build_kernels), pool.submit(sw.build_kernels),
+                  pool.submit(native._load)]
         for b in builds:
             b.result()
     for name, log in _build.build_logs.items():
@@ -293,12 +683,15 @@ def main() -> int:
     # ---- scene --------------------------------------------------------------
     t0 = time.perf_counter()
     host = procedural.fireplace_like(resolution=RES)
-    scene = host.build(with_bvh=True, device=dev)
+    scene = host.build(with_bvh=True, sweep_chunk_align=SWEEP_ALIGN, device=dev)
     cam = host.camera
     pack = scene.pack
     phase("scene", t0, triangles=host.mesh.num_triangles,
           nodes=pack.num_nodes, tri_rows=pack.tri_f32.shape[0],
-          arity=pack.arity, cluster=pack.max_cluster)
+          arity=pack.arity, cluster=pack.max_cluster,
+          treelets=scene.sweep.num_treelets,
+          max_chunks=scene.sweep.max_chunks,
+          sweep_rows=scene.sweep.tri_f32.shape[0])
 
     # ---- kernels vs plain ---------------------------------------------------
     t0 = time.perf_counter()
@@ -363,8 +756,9 @@ def main() -> int:
           f"plain {k1_plain_ms:.1f} ms, bound {k1_bound:.3f} ms ({k1_by}); "
           f"node visits {int(stats1[0])}, slab tests {int(stats1[1])}, "
           f"tri tests {int(stats1[2])}")
-    print("  kernels: K2 packet_closest_hit_wide ported (cuda); "
-          "K1 packet_any_hit_wide ported (cuda); K3-K11 not yet ported")
+    print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
+          "K3 dense_scan, K4 sweep8_closest_hit ported (cuda); K5-K11 not "
+          "yet ported")
     phase("kernels", t0, n_compare=N_COMPARE, lanes=n_full,
           k2_ms=f"{k2_ms:.3f}", k1_ms=f"{k1_ms:.3f}")
     del rec, carry, ext, shd
@@ -374,8 +768,9 @@ def main() -> int:
     rc = make_raycaster(scene, cfg)
     wavefront.trace_frame(scene, rc, cam, cfg, 100)   # warm-up frame
     torch.cuda.synchronize()
-    for k in pt.LAUNCHES:
-        pt.LAUNCHES[k] = 0
+    for counts in (pt.LAUNCHES, sw.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     tr = time.perf_counter()
     img = wavefront.render(scene, cam, cfg, iterations=RENDER_ITERS,
                            raycaster=rc)
@@ -384,6 +779,9 @@ def main() -> int:
     launches = dict(pt.LAUNCHES)
     if min(launches.values()) == 0:
         raise RuntimeError(f"main path skipped a kernel: {launches}")
+    if any(sw.LAUNCHES.values()):
+        raise RuntimeError(f"BVH_PALLAS path launched sweep kernels: "
+                           f"{sw.LAUNCHES}")
     if int(rc.capped):
         raise RuntimeError(f"render had {int(rc.capped)} capped rays")
     import numpy as np
@@ -468,6 +866,8 @@ def main() -> int:
     phase("agreement", t0, close=f"{close:.6f}", mean_rel=f"{mean_rel:.3g}",
           max_abs=f"{float(np.abs(img_k - img_p).max()):.3g}")
 
+    sweep_kernels = sweep_phases(scene, cam, dev)
+
     kernels = [
         dict(name="packet_closest_hit_wide", route="cuda",
              source="tpt_torch/csrc/packet_wide.cu",
@@ -481,7 +881,7 @@ def main() -> int:
              launches=launches["packet_any_hit_wide"],
              max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
              bound_ms=k1_bound, bound_by=k1_by, library_ms=None),
-    ]
+    ] + sweep_kernels
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,5 @@
-"""tpt_torch's CUDA kernels (K2 closest hit, K1 any hit) on the card.
+"""tpt_torch's CUDA kernels (K2 closest hit, K1 any hit, K3 dense scan,
+K4 demand sweep) on the card, each against its plain PyTorch version.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor tpt, so it also runs on a GPU machine without
@@ -14,6 +15,9 @@ import pytest
 import torch
 
 from tpt_torch.bvh import packet_traverse as pt
+from tpt_torch.bvh import sweep as sw
+from tpt_torch.bvh import sweepcast as tsc
+from tpt_torch.bvh.treelet import SweepTables
 from tpt_torch.config import RayCastBackend, RenderConfig
 from tpt_torch.core.vec import Vec3
 from tpt_torch.integrators import common, intersect, wavefront
@@ -136,3 +140,128 @@ def test_render_on_card_matches_cpu(cornell, cuda):
     assert int(rc.capped) == 0
     assert np.isclose(gpu, cpu, atol=5e-3, rtol=1e-3).mean() > 0.97
     np.testing.assert_allclose(gpu.mean(), cpu.mean(), rtol=0.02)
+
+
+# ---------------------------------------------------------------------------
+# K3 dense scan and K4 demand sweep
+# ---------------------------------------------------------------------------
+
+def _synthetic_tables(T, seed, device, max_chunks=40):
+    """T treelets of 1..max_chunks 8-row chunks of random triangles around
+    random centres (chunk_align 1, so unroll 1), a zero pad row at each
+    treelet's end, ids = row + 1000. T = 1100 spans two of K3's
+    1024-box tiles and treelets of up to 320 rows span two of K4's
+    256-row tiles."""
+    rs = np.random.default_rng(seed)
+    chunks = rs.integers(1, max_chunks + 1, T)
+    chunks[0] = max_chunks
+    start = np.concatenate([[0], np.cumsum(chunks * 8)[:-1]])
+    tri = np.zeros((int(chunks.sum()) * 8, 16), np.float32)
+    boxes = np.zeros((T, 8), np.float32)
+    for t in range(T):
+        r0, r1 = int(start[t]), int(start[t] + chunks[t] * 8) - 1
+        c = rs.uniform(-10, 10, 3)
+        v0 = c + rs.normal(scale=1.0, size=(r1 - r0, 3))
+        e1 = rs.normal(scale=0.7, size=(r1 - r0, 3))
+        e2 = rs.normal(scale=0.7, size=(r1 - r0, 3))
+        tri[r0:r1, 0:3], tri[r0:r1, 3:6], tri[r0:r1, 6:9] = v0, e1, e2
+        tri[r0:r1, 9] = np.arange(r0, r1) + 1000
+        verts = np.concatenate([v0, v0 + e1, v0 + e2])
+        boxes[t, 0:3], boxes[t, 3:6] = verts.min(0), verts.max(0)
+    dev = lambda a: torch.from_numpy(a).to(device)
+    return SweepTables(tri_f32=dev(tri),
+                       ranges=dev(np.stack([start, chunks], 1).astype(np.int32)),
+                       boxes=dev(boxes), num_treelets=T,
+                       max_chunks=int(chunks.max()), unroll=8, chunk_align=1)
+
+
+def _adversarial_pool(n, device, seed):
+    """Random rays in and around the tables' volume, with NaN and infinite
+    origins, directions and t_max, +-0 direction components, short and
+    dead t_max, and one whole dead 128-lane block."""
+    o, d = _rays(n, [-12, -12, -12], [12, 12, 12], seed, device)
+    t_max = torch.full((n,), 3.4e38, device=device)
+    o.x[3], d.y[4], o.z[5] = float("nan"), float("nan"), float("inf")
+    d.x[6], d.y[6], d.z[6] = 0.0, -0.0, 1.0
+    d.x[7], d.y[7], d.z[7] = -0.0, -0.0, -1.0
+    d.x[8] = float("inf")
+    t_max[9], t_max[10], t_max[11] = float("nan"), 0.0, float("inf")
+    t_max[12:20] = 2.0
+    t_max[::11] = -1.0
+    t_max[256:384] = -1.0
+    return o, d, t_max
+
+
+@pytest.fixture(scope="module")
+def tables(cuda):
+    return _synthetic_tables(1100, 21, cuda)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_dense_scan_kernel_equals_plain(tables, cuda, S):
+    o, d, t_max = _adversarial_pool(4000, cuda, 22)
+    before = sw.LAUNCHES["dense_scan"]
+    stats = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = sw.dense_scan(tables, o, d, t_max, slots=S, stats=stats)
+    assert sw.LAUNCHES["dense_scan"] == before + 1
+    want = sw.dense_scan_plain(tables, o, d, t_max, slots=S)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    live = int((t_max > 0).sum())
+    assert int(stats[0]) == live * tables.num_treelets
+    assert bool((got[1][:, 256:384] == sw.NONE_ORD).all())
+    assert bool((got[1][0] != sw.NONE_ORD).any() and (got[2] < 3e38).any())
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_sweep8_kernel_equals_plain(tables, cuda, S):
+    """K4 on the bin-sorted pool of the scan's planes, with block 0's 128
+    lanes demanding 128 different treelets first."""
+    o, d, t_max = _adversarial_pool(4000, cuda, 23)
+    s_t, s_o, thr = sw.dense_scan(tables, o, d, t_max, slots=S)
+    key = tsc.bin_key(s_o, d, tables.num_treelets, S)
+    perm = tsc.bin_sort_perm([torch.where(t_max > 0, key, 1 << 30)])
+    g = lambda a: a[perm].contiguous()
+    o, d = Vec3(g(o.x), g(o.y), g(o.z)), Vec3(g(d.x), g(d.y), g(d.z))
+    t_max, s_o, s_t = g(t_max), s_o[:, perm].contiguous(), s_t[:, perm].contiguous()
+    t_max[:128] = 3.4e38
+    s_o[0, :128] = torch.arange(128, device=cuda, dtype=torch.int32) * 8
+    s_t[0, :128] = 0.0
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    before = sw.LAUNCHES["sweep8_closest_hit"]
+    got = sw.sweep8_closest_hit(tables, o, d, t_max, s_o, s_t, unroll=1,
+                                stats=stats)
+    assert sw.LAUNCHES["sweep8_closest_hit"] == before + 1
+    want = sw.sweep8_closest_hit_plain(tables, o, d, t_max, s_o, s_t, unroll=1)
+    for f in ("t", "tri", "u", "v"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(stats[0]) >= 128 and int(stats[2]) == int((t_max > 0).sum())
+    assert bool((got.tri[~(t_max > 0)] == -1).all())
+    assert float((got.tri[:128] >= 0).float().mean()) > 0.2
+
+
+def _plain_kernels(monkeypatch):
+    """Route every cast of the BVH_SWEEP path to the plain versions (they
+    are looked up through their modules at call time)."""
+    monkeypatch.setattr(sw, "dense_scan", sw.dense_scan_plain)
+    monkeypatch.setattr(sw, "sweep8_closest_hit", sw.sweep8_closest_hit_plain)
+    monkeypatch.setattr(pt, "packet_closest_hit_wide", pt.closest_hit_wide_plain)
+    monkeypatch.setattr(pt, "packet_any_hit_wide", pt.any_hit_wide_plain)
+
+
+def test_sweep_render_kernels_equal_plain(cornell, cuda, monkeypatch):
+    """A BVH_SWEEP render through K1-K4 equals the same render through
+    their plain versions on the card, bit for bit."""
+    host, data = cornell
+    cfg = RenderConfig(backend=RayCastBackend.BVH_SWEEP, trace_depth=3)
+    rc = common.make_raycaster(data, cfg)
+    before = dict(sw.LAUNCHES)
+    img_k = wavefront.render(data, host.camera, cfg, iterations=2, raycaster=rc)
+    assert all(sw.LAUNCHES[k] == before[k] + 4 for k in before)
+    _plain_kernels(monkeypatch)
+    rc_p = common.make_raycaster(data, cfg)
+    img_p = wavefront.render(data, host.camera, cfg, iterations=2,
+                             raycaster=rc_p)
+    assert sw.LAUNCHES == {k: before[k] + 4 for k in before}
+    assert int(rc.capped) == 0 and int(rc_p.capped) == 0
+    np.testing.assert_array_equal(img_k, img_p)

@@ -59,9 +59,19 @@ def scene_leaves(data) -> dict:
         pack = dict(node_f32=g(p.node_f32), node_child=g(p.node_child),
                     tri_f32=g(p.tri_f32), num_nodes=p.num_nodes,
                     num_triangles=p.num_triangles, max_cluster=p.max_cluster,
-                    arity=p.arity)
+                    arity=p.arity, top_f32=g(p.top_f32),
+                    top_child=g(p.top_child), top_tref=g(p.top_tref),
+                    top_tord=g(p.top_tord), num_top=p.num_top,
+                    num_treelets=p.num_treelets, treelet_max=p.treelet_max)
+    sweep = None
+    sw = getattr(data, "sweep", None)
+    if sw is not None:
+        sweep = dict(tri_f32=g(sw.tri_f32), ranges=g(sw.ranges),
+                     boxes=g(sw.boxes), group_boxes=g(sw.group_boxes),
+                     num_treelets=sw.num_treelets, max_chunks=sw.max_chunks,
+                     unroll=sw.unroll, chunk_align=sw.chunk_align)
     return dict(mesh=mesh, material_rows=g(data.materials.packed),
-                lights=lights, pack=pack)
+                lights=lights, pack=pack, sweep=sweep)
 
 
 def random_rays(n, lo, hi, seed):

@@ -42,20 +42,22 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
-def _digest(cmd: Sequence[str], sources: Sequence[str]) -> str:
+def _digest(cmd: Sequence[str], files: Sequence[str]) -> str:
     h = hashlib.sha256(" ".join(cmd).encode())
-    for src in sources:
+    for src in files:
         with open(src, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 
 
 def build_library(name: str, compiler: List[str], sources: Sequence[str],
-                  timeout: float) -> str:
+                  timeout: float, headers: Sequence[str] = ()) -> str:
     """Compile `sources` with `compiler + [-o out] + sources` unless a
-    library of the same sources and command exists; return its path."""
+    library of the same sources, headers and command exists; return its
+    path."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"lib{name}-{_digest(compiler, sources)}.so")
+    digest = _digest(compiler, list(sources) + list(headers))
+    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(out):
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
@@ -79,9 +81,9 @@ def build_library(name: str, compiler: List[str], sources: Sequence[str],
 
 
 def load_library(name: str, compiler: List[str], sources: Sequence[str],
-                 timeout: float) -> ctypes.CDLL:
+                 timeout: float, headers: Sequence[str] = ()) -> ctypes.CDLL:
     """build_library + ctypes.CDLL, once per process."""
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(
-            build_library(name, compiler, sources, timeout))
+            build_library(name, compiler, sources, timeout, headers))
     return _loaded[name]

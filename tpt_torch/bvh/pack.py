@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, replace
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,11 +36,24 @@ class PacketBVH:
     num_triangles: int = 0
     max_cluster: int = 8
     arity: int = 2
+    # treelet top-tree tables (bvh/treelet.py:attach_treelets); None = not
+    # attached
+    top_f32: Optional[torch.Tensor] = None    # [Ntop, width] child boxes
+    top_child: Optional[torch.Tensor] = None  # [Ntop, 16] top ids + order words
+    top_tref: Optional[torch.Tensor] = None   # [Ntop, 8] treelet root codes
+    top_tord: Optional[torch.Tensor] = None   # [Ntop, 8] treelet ordinals
+    num_top: int = 0
+    num_treelets: int = 0
+    treelet_max: int = 0
 
     def to(self, device) -> "PacketBVH":
-        return replace(self, node_f32=self.node_f32.to(device),
-                       node_child=self.node_child.to(device),
-                       tri_f32=self.tri_f32.to(device))
+        mv = lambda a: None if a is None else a.to(device)
+        return replace(self, node_f32=mv(self.node_f32),
+                       node_child=mv(self.node_child),
+                       tri_f32=mv(self.tri_f32), top_f32=mv(self.top_f32),
+                       top_child=mv(self.top_child),
+                       top_tref=mv(self.top_tref),
+                       top_tord=mv(self.top_tord))
 
     @property
     def device(self) -> torch.device:

@@ -42,6 +42,7 @@ _BIG = 3.0e38        # the TPU kernel's _INF: initial best t
 LAUNCHES = {"packet_closest_hit_wide": 0, "packet_any_hit_wide": 0}
 
 SOURCE = os.path.join(_build.PKG_DIR, "csrc", "packet_wide.cu")
+HEADERS = [os.path.join(_build.PKG_DIR, "csrc", "ray_common.cuh")]
 BUILD_TIMEOUT_S = 600.0
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -59,7 +60,7 @@ def max_steps(pack: PacketBVH) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("tpt_packet_wide",
                               [_build.find_nvcc()] + NVCC_FLAGS, [SOURCE],
-                              BUILD_TIMEOUT_S)
+                              BUILD_TIMEOUT_S, HEADERS)
     if not getattr(lib, "_tpt_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         common = [p] * 7 + [i, p, i, p, i, p, i, i]

@@ -20,7 +20,8 @@
 // cluster runs Moller-Trumbore over its triangles. The arithmetic is the
 // TPU kernel's, operation for operation, and the library is compiled with
 // -fmad=false so no multiply-add is contracted: the plain PyTorch version
-// (packet_traverse.py) gives the same bits.
+// (packet_traverse.py) gives the same bits. The ray set-up and the
+// triangle test live in ray_common.cuh, shared with the sweep kernels.
 //
 // Bounds. Per ray: a stack of STACK_DEPTH entries and at most
 // 8 * num_nodes + 8192 pops (the TPU kernel's own cap,
@@ -41,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ray_common.cuh"
+
 #define STACK_DEPTH 64
 #define BLOCK 128
 #define BIG 3.0e38f
@@ -48,32 +51,9 @@
 
 namespace {
 
-__device__ __forceinline__ float safe_inv(float d) {
-  float dd = fabsf(d) > 1e-12f ? d : (d >= 0.0f ? 1e-12f : -1e-12f);
-  return 1.0f / dd;
-}
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-  int oct;
-};
-
 __device__ __forceinline__ bool ray_finite(const Ray& r, float tm) {
   return isfinite(r.ox) && isfinite(r.oy) && isfinite(r.oz) &&
          isfinite(r.dx) && isfinite(r.dy) && isfinite(r.dz) && !isnan(tm);
-}
-
-__device__ __forceinline__ Ray load_ray(const float* ox, const float* oy,
-                                        const float* oz, const float* dx,
-                                        const float* dy, const float* dz,
-                                        int i) {
-  Ray r;
-  r.ox = ox[i]; r.oy = oy[i]; r.oz = oz[i];
-  r.dx = dx[i]; r.dy = dy[i]; r.dz = dz[i];
-  r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
-  r.oct = (r.dx >= 0.0f ? 4 : 0) + (r.dy >= 0.0f ? 2 : 0) +
-          (r.dz >= 0.0f ? 1 : 0);
-  return r;
 }
 
 // child AABB slab test against [0, limit] (pallas_traverse.py:_slab)
@@ -92,29 +72,14 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b,
   return tn <= tf;
 }
 
-// Moller-Trumbore of one tri_f32 row (pallas_traverse.py:_mt_scalar_tri)
+// Moller-Trumbore of one tri_f32 row (ray_common.cuh:mt_tri)
 __device__ __forceinline__ bool mt(const float* __restrict__ row,
                                    const Ray& r, float* t_out, float* u_out,
                                    float* v_out) {
-  float v0x = __ldg(row + 0), v0y = __ldg(row + 1), v0z = __ldg(row + 2);
-  float e1x = __ldg(row + 3), e1y = __ldg(row + 4), e1z = __ldg(row + 5);
-  float e2x = __ldg(row + 6), e2y = __ldg(row + 7), e2z = __ldg(row + 8);
-  float px = r.dy * e2z - r.dz * e2y;
-  float py = r.dz * e2x - r.dx * e2z;
-  float pz = r.dx * e2y - r.dy * e2x;
-  float det = e1x * px + e1y * py + e1z * pz;
-  bool ok = fabsf(det) > 1e-9f;
-  float inv_det = 1.0f / (ok ? det : 1.0f);
-  float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  float u = (tx * px + ty * py + tz * pz) * inv_det;
-  float qx = ty * e1z - tz * e1y;
-  float qy = tz * e1x - tx * e1z;
-  float qz = tx * e1y - ty * e1x;
-  float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  *t_out = t; *u_out = u; *v_out = v;
-  return ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-         t > 1e-4f;
+  return mt_tri(__ldg(row + 0), __ldg(row + 1), __ldg(row + 2),
+                __ldg(row + 3), __ldg(row + 4), __ldg(row + 5),
+                __ldg(row + 6), __ldg(row + 7), __ldg(row + 8), r, t_out,
+                u_out, v_out);
 }
 
 struct Tables {

@@ -1,7 +1,7 @@
 """Shared integrator machinery: the ray-cast backend seam, the hit-surface
 fetch and Russian roulette. Counterpart of `tpt/integrators/common.py`
-for this slice: the BRUTE_FORCE and BVH_PALLAS backends and untextured
-materials."""
+for the ported slices: the BRUTE_FORCE, BVH_PALLAS and BVH_SWEEP
+backends and untextured materials."""
 
 from __future__ import annotations
 
@@ -33,7 +33,9 @@ class Raycaster:
 def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
     """The backend `cfg.backend` names. The TPU packet-kernel knobs
     (trav_group, pops) have no meaning for the per-thread CUDA kernels;
-    wavefront refuses them when set."""
+    wavefront refuses them when set. A BVH_SWEEP raycaster serves both
+    the camera rays (K2) and the bin-sorted bounce pools (sweep
+    pipeline), told apart by `sweep_slots`."""
     dev = scene.device
     capped = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.backend == RayCastBackend.BRUTE_FORCE:
@@ -67,8 +69,45 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
 
         return Raycaster(closest_hit=closest, any_hit=any_hit,
                          name="bvh_pallas", capped=capped)
+    if cfg.backend == RayCastBackend.BVH_SWEEP:
+        from ..bvh.packet_traverse import (packet_any_hit_wide,
+                                           packet_closest_hit_wide)
+        from ..bvh.sweepcast import sweep_cast_sorted
+        from .intersect import FLT_MAX
+
+        pack, sweep = scene.pack, scene.sweep
+        if pack is None or sweep is None or pack.num_treelets == 0:
+            raise ValueError("BVH_SWEEP needs sweep tables "
+                             "(HostScene.build(with_bvh=True) attaches them "
+                             "to wide packs)")
+
+        def closest(o, d, t_max=None, sweep_slots=None):
+            """With sweep_slots = (s_o, s_t, thr) of a bin-sorted pool
+            (the wavefront's bounces after the first): the sweep pipeline.
+            Without: K2, as tpt's primary raycaster casts raster-order
+            camera rays (cfg.sweep_primary off)."""
+            if t_max is None:
+                t_max = torch.full((o.shape[0],), FLT_MAX, device=o.device)
+            if sweep_slots is None:
+                hit, c = packet_closest_hit_wide(pack, o, d, t_max)
+            else:
+                s_o, s_t, thr = sweep_slots
+                hit, c = sweep_cast_sorted(pack, sweep, o, d, t_max, s_o,
+                                           s_t, thr, unroll=cfg.sweep_unroll)
+            capped.add_(c)
+            return hit
+
+        def any_hit(o, d, t_max):
+            # shadow rays stay on K1 (cfg.sweep_shadow off)
+            occ, c = packet_any_hit_wide(pack, o, d, t_max)
+            capped.add_(c)
+            return occ
+
+        return Raycaster(closest_hit=closest, any_hit=any_hit,
+                         name="bvh_sweep", capped=capped)
     raise NotImplementedError(
-        f"backend {cfg.backend.name} is not ported yet (BRUTE_FORCE, BVH_PALLAS)")
+        f"backend {cfg.backend.name} is not ported yet "
+        "(BRUTE_FORCE, BVH_PALLAS, BVH_SWEEP)")
 
 
 def interpolate_surface(mesh: MeshData, tri: torch.Tensor, bu: torch.Tensor,

@@ -1,10 +1,10 @@
 """Wavefront integrator: RayGen -> per bounce [TraceExtension -> Logic ->
 Shade -> TraceShadow] over one path pool.
 
-Counterpart of `tpt/integrators/wavefront.py` for the BRUTE_FORCE and
-BVH_PALLAS backends, with the same carry tuple, the same per-lane RNG
-stream and the same stage arithmetic, so one bounce fed the same carry
-gives the same result in both packages (tests).
+Counterpart of `tpt/integrators/wavefront.py` for the BRUTE_FORCE,
+BVH_PALLAS and BVH_SWEEP backends, with the same carry tuple, the same
+per-lane RNG stream and the same stage arithmetic, so one bounce fed the
+same carry gives the same result in both packages (tests).
 
 The frame is one loop over bounces in eager PyTorch. What the JAX
 package adds around it to work around the TPU — split per-bounce
@@ -13,7 +13,11 @@ donation — is not ported; the adaptive pool is bit-equal to the fixed
 pool, so the results are the same. With a packet backend the pool is
 re-sorted by ray-coherence key before every extension cast after the
 first (dead lanes last), which on the GPU keeps a warp's rays on
-similar traversal paths; pixel order is restored once per frame.
+similar traversal paths; pixel order is restored once per frame. Under
+BVH_SWEEP that sort is the sweep's bin sort instead: the dense treelet
+scan (K3) runs on the unsorted pool and the pool sorts once by the bin
+key, carrying the scan's slot planes to the sweep cast (tpt's "wide"
+seed mode; its packed and lean modes give the same hits).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..bvh.sweep import MAX_SLOTS
 from ..config import RayCastBackend, RenderConfig
 from ..core import rng
 from ..core.camera import Camera, generate_camera_rays
@@ -68,22 +73,39 @@ class FrameOutput:
     rays_traced: torch.Tensor  # 0-dim int64 (extension + shadow rays)
 
 
+# the BVH_SWEEP knobs this port implements, each with the values that
+# give tpt's results (seed mode and tail compaction change how tpt moves
+# data on the TPU, never a hit)
+_SWEEP_KNOBS = {
+    "sweep_slots": range(1, MAX_SLOTS + 1),
+    "sweep_key_slots": (2, 3),
+    "sweep_unroll": range(1, 1 << 10),
+    "sweep_seed_mode": ("packed", "lean", "wide"),
+    "sweep_tail_compact": ("scatter", "sort"),
+}
 # RenderConfig knobs of the TPU kernels and their dispatch (packet shape,
-# sweep and treelet pipelines, sort cadence): the port reads none of them,
-# so a value other than the default is refused rather than ignored
+# treelet pipeline, the sweep variants not ported, sort cadence): the
+# port reads none of them, so a value other than the default is refused
+# rather than ignored
 _TPU_KNOBS = tuple(f.name for f in fields(RenderConfig)
                    if f.name.startswith(("trav_", "sweep_", "treelet_"))
-                   ) + ("sort_every",)
+                   and f.name not in _SWEEP_KNOBS) + ("sort_every",)
 
 
 def _unsupported(cfg: RenderConfig) -> Optional[str]:
-    """The RenderConfig options this slice does not implement."""
-    if cfg.backend not in (RayCastBackend.BRUTE_FORCE, RayCastBackend.BVH_PALLAS):
+    """The RenderConfig options the port does not implement."""
+    if cfg.backend not in (RayCastBackend.BRUTE_FORCE, RayCastBackend.BVH_PALLAS,
+                           RayCastBackend.BVH_SWEEP):
         return f"backend {cfg.backend.name}"
     default = RenderConfig()
     for name in _TPU_KNOBS:
         if getattr(cfg, name) != getattr(default, name):
             return name
+    for name, ok in _SWEEP_KNOBS.items():
+        if getattr(cfg, name) not in ok:
+            return f"{name}={getattr(cfg, name)!r}"
+    if cfg.backend == RayCastBackend.BVH_SWEEP and not cfg.sort_bounce_rays:
+        return "BVH_SWEEP without sort_bounce_rays"
     if cfg.nearfield_frac > 0.0:
         return "nearfield_frac"
     if cfg.heavy_shading_iters:
@@ -111,6 +133,42 @@ def _sort_pool(scene: SceneData, cfg: RenderConfig, carry_slice):
             g(alive), gv(direct), gv(indirect), g(pixel_idx))
 
 
+def _sweep_scan_keys(scene: SceneData, cfg: RenderConfig, carry_slice):
+    """BVH_SWEEP seed stage 1: the dense treelet scan (K3) on the unsorted
+    pool and the bin-sort keys (dead lanes keyed last)."""
+    from ..bvh.sweep import dense_scan
+    from ..bvh.sweepcast import bin_key, bin_key2
+
+    ori, direction, alive = carry_slice[0], carry_slice[1], carry_slice[5]
+    S = cfg.sweep_slots
+    T = scene.sweep.num_treelets
+    pre_tmax = torch.where(alive, 3.4e38, -1.0)
+    s_t, s_o, thr = dense_scan(scene.sweep, ori, direction, pre_tmax, slots=S)
+    two_key = cfg.sweep_key_slots >= 3 and S > 2
+    dead_last = lambda k: torch.where(alive, k, 1 << 30)
+    keys = [dead_last(bin_key(s_o, direction, T, S, with_octant=not two_key))]
+    if two_key:
+        keys.append(dead_last(bin_key2(s_o, direction, T, S)))
+    return keys, (s_t, s_o, thr)
+
+
+def _sweep_bin_sort(cfg: RenderConfig, carry_slice, keys, slots_raw):
+    """BVH_SWEEP seed stage 2: one stable pool sort by the bin key(s),
+    carrying the pool slice and the scan's slot planes. Returns (sorted
+    slice, (s_o, s_t, thr) in pool order)."""
+    from ..bvh.sweepcast import bin_sort_perm
+
+    (ori, direction, throughput, last_pdf, state, alive, direct,
+     indirect, pixel_idx) = carry_slice
+    s_t, s_o, thr = slots_raw
+    perm = bin_sort_perm(keys)
+    g = lambda a: a[perm]
+    gv = lambda v: Vec3(v.x[perm], v.y[perm], v.z[perm])
+    return ((gv(ori), gv(direction), gv(throughput), g(last_pdf), g(state),
+             g(alive), gv(direct), gv(indirect), g(pixel_idx)),
+            (s_o[:, perm], s_t[:, perm], g(thr)))
+
+
 def unsort_by_pixel(pixel_idx, direct: Vec3, indirect: Vec3):
     """Restore pixel order (pixel_idx is a permutation of each sample
     batch; the stable sort keeps a pixel's samples in pool order)."""
@@ -136,15 +194,22 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
     dev = ori.device
     first = depth == 0
 
+    cast_kw = {}
     if do_sort and not first:
+        pool = (ori, direction, throughput, last_pdf, state, alive, direct,
+                indirect, pixel_idx)
+        if cfg.backend == RayCastBackend.BVH_SWEEP:
+            keys, slots_raw = _sweep_scan_keys(scene, cfg, pool)
+            pool, cast_kw["sweep_slots"] = _sweep_bin_sort(cfg, pool, keys,
+                                                           slots_raw)
+        else:
+            pool = _sort_pool(scene, cfg, pool)
         (ori, direction, throughput, last_pdf, state, alive, direct,
-         indirect, pixel_idx) = _sort_pool(
-            scene, cfg, (ori, direction, throughput, last_pdf, state,
-                         alive, direct, indirect, pixel_idx))
+         indirect, pixel_idx) = pool
 
     # ---- TraceExtensionRay stage: dead lanes get t_max = -1 -------------
     ext_tmax = torch.where(alive, 3.4e38, -1.0)
-    hit = raycaster.closest_hit(ori, direction, ext_tmax)
+    hit = raycaster.closest_hit(ori, direction, ext_tmax, **cast_kw)
     rays = rays + alive.sum()
 
     # ---- Logic stage ------------------------------------------------------

@@ -1,8 +1,9 @@
 """Scene tables carried across from numpy arrays.
 
 `from_numpy_scene` builds the port's `SceneData` from the numpy leaves of
-a scene the JAX package built (mesh, material rows, light table and the
-wide packet-BVH tables), so tests can hand both packages the very same
+a scene the JAX package built (mesh, material rows, light table, the
+wide packet-BVH tables with their treelet top tree, and the dense-sweep
+tables), so tests can hand both packages the very same
 tables. It takes plain arrays under the JAX package's field names, never
 objects of that package, and imports nothing of it."""
 
@@ -24,6 +25,11 @@ MESH_KEYS = ("positions", "normals", "tangents", "uv_u", "uv_v", "i0", "i1",
 LIGHT_KEYS = ("tri_idx", "cdf", "areas", "total_area", "packed")
 PACK_KEYS = ("node_f32", "node_child", "tri_f32", "num_nodes",
              "num_triangles", "max_cluster", "arity")
+# optional: present when the pack carries the treelet cut
+TOP_KEYS = ("top_f32", "top_child", "top_tref", "top_tord", "num_top",
+            "num_treelets", "treelet_max")
+SWEEP_KEYS = ("tri_f32", "ranges", "boxes", "group_boxes", "num_treelets",
+              "max_chunks", "unroll", "chunk_align")
 
 
 def _need(d: Mapping, keys, what: str):
@@ -36,13 +42,16 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
                      material_rows: np.ndarray,
                      lights: Mapping[str, np.ndarray],
                      pack: Optional[Mapping] = None,
+                     sweep: Optional[Mapping] = None,
                      device: DeviceLike = None) -> SceneData:
     """SceneData on `device` from numpy arrays.
 
     mesh: MESH_KEYS, vec3 fields as [N, 3] arrays (shade_* may be None);
     material_rows: the packed [M, 16] material table;
     lights: LIGHT_KEYS (packed may be None);
-    pack: PACK_KEYS of a wide PacketBVH, or None."""
+    pack: PACK_KEYS of a wide PacketBVH, plus TOP_KEYS when it carries
+    the treelet cut (top_f32 None or absent: no cut), or None;
+    sweep: SWEEP_KEYS of the dense-sweep tables, or None."""
     dev = resolve_device(device)
     _need(mesh, MESH_KEYS, "mesh")
     _need(lights, LIGHT_KEYS, "light")
@@ -63,18 +72,41 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
         cdf=f32(lights["cdf"]), areas=f32(lights["areas"]),
         total_area=f32(lights["total_area"]).reshape(()),
         packed=None if lights["packed"] is None else f32(lights["packed"]))
+    i32 = lambda a: torch.as_tensor(np.array(a, np.int32), device=dev)
     packet = None
     if pack is not None:
         _need(pack, PACK_KEYS, "pack")
+        top = {}
+        if pack.get("top_f32") is not None:
+            _need(pack, TOP_KEYS, "pack top-tree")
+            top = dict(top_f32=f32(pack["top_f32"]),
+                       top_child=i32(pack["top_child"]),
+                       top_tref=i32(pack["top_tref"]),
+                       top_tord=i32(pack["top_tord"]),
+                       num_top=int(pack["num_top"]),
+                       num_treelets=int(pack["num_treelets"]),
+                       treelet_max=int(pack["treelet_max"]))
         packet = PacketBVH(
             node_f32=f32(pack["node_f32"]),
-            node_child=torch.as_tensor(
-                np.array(pack["node_child"], np.int32), device=dev),
+            node_child=i32(pack["node_child"]),
             tri_f32=f32(pack["tri_f32"]),
             num_nodes=int(pack["num_nodes"]),
             num_triangles=int(pack["num_triangles"]),
             max_cluster=int(pack["max_cluster"]),
-            arity=int(pack["arity"]))
+            arity=int(pack["arity"]), **top)
+    tables = None
+    if sweep is not None:
+        from ..bvh.treelet import SweepTables
+
+        _need(sweep, SWEEP_KEYS, "sweep")
+        tables = SweepTables(
+            tri_f32=f32(sweep["tri_f32"]), ranges=i32(sweep["ranges"]),
+            boxes=f32(sweep["boxes"]),
+            group_boxes=(None if sweep["group_boxes"] is None
+                         else f32(sweep["group_boxes"])),
+            num_treelets=int(sweep["num_treelets"]),
+            max_chunks=int(sweep["max_chunks"]), unroll=int(sweep["unroll"]),
+            chunk_align=int(sweep["chunk_align"]))
     return SceneData(mesh=mesh_data, materials=table, lights=light_data,
                      atlas=TextureAtlas.empty(), env=EnvMap.disabled(),
-                     pack=packet)
+                     pack=packet, sweep=tables)

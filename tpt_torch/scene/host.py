@@ -1,10 +1,10 @@
 """Host-side scene container and the upload to the device `SceneData`.
 
 Counterpart of `tpt/scene/host.py` for this slice: materials, mesh,
-camera, and `build(with_bvh=True)` with the native binned-SAH builder and
-the arity-4 wide packet pack. The port has no triangle streaming (the
-triangle table lives in GPU memory at any size), no treelet or sweep
-tables and no prep cache yet."""
+camera, and `build(with_bvh=True)` with the native binned-SAH builder,
+the arity-4 wide packet pack and, on a wide pack, the treelet cut and the
+dense-sweep tables of BVH_SWEEP. The port has no triangle streaming (the
+triangle table lives in GPU memory at any size) and no prep cache yet."""
 
 from __future__ import annotations
 
@@ -93,11 +93,15 @@ class HostScene:
         return np.array([m.emittance for m in self.materials] or [0.0], np.float32)
 
     def build(self, with_bvh: bool = False, max_cluster: int = 16,
-              packet_arity: int = 4, device: DeviceLike = None) -> SceneData:
+              packet_arity: int = 4, treelet_max_tris: int = 256,
+              sweep_chunk_align: int = 4,
+              device: DeviceLike = None) -> SceneData:
         """Upload everything to `device` (the CUDA card unless the caller
         asks for another); with_bvh builds the binned-SAH BVH with the
         native builder and collapses it into the packet pack (arity 4/8
-        wide, or 2 for the binary layout)."""
+        wide, or 2 for the binary layout). A wide pack also gets the
+        treelet cut (treelets of <= treelet_max_tris triangles) and the
+        sweep tables (chunk counts rounded to sweep_chunk_align)."""
         dev = resolve_device(device)
         mats = self.materials or [HostMaterial()]
         mat_packed = material_rows(mats)
@@ -111,19 +115,24 @@ class HostScene:
                 packed=torch.as_tensor(light_rows(self.mesh, mats, ltri),
                                        device=dev))
         mesh = finalize_mesh(self.mesh, mat_packed=mat_packed, device=dev)
-        pack = None
+        pack = sweep = None
         if with_bvh:
             from ..bvh.pack import build_packet_bvh, build_packet_bvh_wide
             from ..bvh.sah import build_sah_bvh
 
             bvh = build_sah_bvh(self.mesh)
             if packet_arity > 2:
-                pack = build_packet_bvh_wide(self.mesh, bvh,
-                                             max_cluster=max_cluster,
-                                             arity=packet_arity)
+                from ..bvh.treelet import attach_treelets, sweep_tables
+
+                pack = attach_treelets(
+                    build_packet_bvh_wide(self.mesh, bvh,
+                                          max_cluster=max_cluster,
+                                          arity=packet_arity),
+                    max_tris=treelet_max_tris)
+                sweep = sweep_tables(pack, chunk_align=sweep_chunk_align).to(dev)
             else:
                 pack = build_packet_bvh(self.mesh, bvh, max_cluster=max_cluster)
             pack = pack.to(dev)
         return SceneData(mesh=mesh, materials=table, lights=lights,
                          atlas=TextureAtlas.empty(), env=EnvMap.disabled(),
-                         pack=pack)
+                         pack=pack, sweep=sweep)

@@ -147,6 +147,7 @@ class SceneData:
     atlas: TextureAtlas
     env: EnvMap
     pack: Optional["object"] = None  # bvh.pack.PacketBVH, BVH_PALLAS
+    sweep: Optional["object"] = None  # bvh.treelet.SweepTables, BVH_SWEEP
 
     @property
     def device(self) -> torch.device:
