@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full size on the 139k-triangle
+Drives the port's three main paths at full size on the 139k-triangle
 `fireplace_like` bench interior at 1920x1080, depth 8: the wavefront
 integrator on the wide-BVH kernels K2 (closest hit) and K1 (any hit)
-(BVH_PALLAS), and the bench's own BVH_SWEEP configuration, whose bounces
+(BVH_PALLAS); the bench's own BVH_SWEEP configuration, whose bounces
 after the first run the dense treelet scan K3, the bin sort, the demand
-sweep K4 and a K2 tail. One line per phase (name, seconds, key numbers):
+sweep K4 and a K2 tail; and the engine's real-time denoised frame
+(`Renderer` with the denoiser on: a BVH_PALLAS frame, then SVGF with the
+temporal reprojection K6 and five a-trous passes K5). One line per phase
+(name, seconds, key numbers):
 
   device     nvidia-smi name and power limit, torch and CUDA versions
-  build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu and
-             tpt_torch/csrc/sweep.cu and g++ of the native SAH builder,
-             all at once, from the sources in this checkout
+  build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu,
+             tpt_torch/csrc/sweep.cu and tpt_torch/csrc/svgf.cu and g++ of
+             the native SAH library, all at once, from the sources in this
+             checkout
   scene      host scene, SAH BVH, wide pack, treelet cut and sweep tables
              (chunk_align 8, as bench.py builds them), uploaded to the card
   kernels    K2/K1 against their plain PyTorch versions on 262,144 live
@@ -43,6 +47,24 @@ sweep K4 and a K2 tail. One line per phase (name, seconds, key numbers):
   sweep_agreement
              BVH_SWEEP at 240x135 through the kernels, through the plain
              versions and against the BVH_PALLAS render
+  svgf_kernels
+             a denoised 1080p sequence (BVH_PALLAS, depth 8), 3 frames with
+             the camera turning and the SVGF history carried across the
+             turns; on the third frame K6 and K5 at each of its 5 steps
+             against their plain versions on every pixel, bit for bit;
+             CUDA-event timings (launches back to back) and bounds
+  svgf_render
+             Renderer at 1080p, denoiser on, 8 frames with the camera
+             turning a few pixels a frame, with all launch counters zeroed
+             just before and read just after (5 K5 and 1 K6 launches a
+             frame); frame ms, a moving and a resting frame split by CUDA
+             events into the trace and SVGF (K6, K5 x5, the rest), the
+             device busy share of a profiled frame, the share of pixels
+             with history, the median motion
+  svgf_agreement
+             both sequences at 240x135 through the kernels and through the
+             plain versions: each denoised frame must agree to the
+             golden-image tolerance
 
 Then one JSON line describing each ported kernel, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Any failed check raises, so the
@@ -70,6 +92,7 @@ AGREE_RES = (240, 135)
 AGREE_ITERS = 2
 N_COMPARE = 262_144       # rays held against the plain versions, per kernel
 TIMING_REPS = 7
+KERNEL_REPS = 20          # back-to-back launches of a short kernel (kernel_ms)
 # bench.py:264-266: BVH_SWEEP, depth 8, spp_batch 4, sweep_unroll 8 on
 # tables built with chunk_align 8
 SWEEP_ALIGN = 8
@@ -95,6 +118,17 @@ PEAK_F32_INSTR_S = 67e12 / 2
 OPS_PER_SLAB = 25
 OPS_PER_TRI = 52
 TAIL_TRI_MISMATCH_MAX = 1e-4   # of live lanes: equal-t ties between treelets
+# the denoised sequence: frames of the timed render, and the camera's turn
+# per frame in pixels at the image centre (the viewer's navigation)
+SVGF_FRAMES = 8
+SVGF_PAN_PX = 3.0
+# bytes a pixel moves (float32/int32 planes read once and written once)
+# and fp32 operations it needs (counted from tpt_torch/csrc/svgf.cu; exp,
+# pow and the divides counted as one each, so the bound stays a least
+# time): K5 reads 12 planes and writes 8; K6 reads 15 history and 7
+# current planes and writes 11
+ATROUS_BYTES_PX, ATROUS_OPS_PX = 80, 532
+REPROJECT_BYTES_PX, REPROJECT_OPS_PX = 132, 210
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -146,6 +180,32 @@ def cuda_time_ms(fn, reps: int) -> float:
         times.append(s.elapsed_time(e))
     times.sort()
     return times[len(times) // 2]
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Device time in ms of one fn() (a short kernel launch), by CUDA
+    events around `reps` launches that the host enqueues while the card
+    runs a sleep kernel: the events then time the kernels back to back,
+    not the host's launch overhead, which CUDA events around one short
+    launch also catch when the card waits for the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e8))              # ~100 ms at the H100's clocks
+    th = time.perf_counter()
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    host_ms = (time.perf_counter() - th) * 1e3
+    e.synchronize()
+    if host_ms > 60.0:
+        raise RuntimeError(f"enqueueing {reps} launches took {host_ms:.1f} ms, "
+                           "longer than the sleep that hides it")
+    return s.elapsed_time(e) / reps
 
 
 class Recorder:
@@ -310,11 +370,14 @@ class Patch:
 
 
 def plain_kernels() -> Patch:
-    """Route K1-K4 to their plain PyTorch versions (on the card)."""
+    """Route K1-K6 to their plain PyTorch versions (on the card)."""
     from tpt_torch.bvh import packet_traverse as pt
     from tpt_torch.bvh import sweep as sw
+    from tpt_torch.denoise import reproject, stencil, svgf
 
     p = Patch()
+    p.set(stencil, "atrous", stencil.atrous_plain)
+    p.set(reproject, "reproject", svgf._reproject_taps)
     p.set(sw, "dense_scan", sw.dense_scan_plain)
     p.set(sw, "sweep8_closest_hit", sw.sweep8_closest_hit_plain)
     p.set(pt, "packet_closest_hit_wide", pt.closest_hit_wide_plain)
@@ -638,6 +701,336 @@ def sweep_phases(scene, cam, dev) -> list:
     ]
 
 
+def panned(cam, k: int):
+    """The camera turned about its up axis by k * SVGF_PAN_PX pixels at
+    the image centre (the viewer's look navigation)."""
+    import math
+
+    import numpy as np
+
+    h = cam.resolution[1]
+    angle = (k * SVGF_PAN_PX * 2.0 * math.tan(math.radians(cam.fovy_deg) / 2.0)
+             / h)
+    axis = np.asarray(cam.true_up)
+    v = np.asarray(cam.look_at) - np.asarray(cam.position)
+    c, s_ = math.cos(angle), math.sin(angle)
+    rot = v * c + np.cross(axis, v) * s_ + axis * axis.dot(v) * (1.0 - c)
+    return cam.moved(look_at=tuple(np.asarray(cam.position) + rot))
+
+
+def svgf_sequence(renderer, cam, frames: int) -> list:
+    """The Renderer's `frames` denoised frames, the camera turning before
+    each after the first (the engine, like tpt's, clears the SVGF history
+    on every move)."""
+    out = []
+    for k in range(frames):
+        if k:
+            renderer.move_camera(panned(cam, k))
+        out.append(renderer.frame())
+    return out
+
+
+def carried_sequence(scene, cam, cfg, frames: int, on_frame=None) -> list:
+    """`frames` denoised frames with the camera turning before each after
+    the first, through wavefront.trace_frame and svgf.run_svgf with the
+    SVGF history carried across the moves (the motion vectors bridge
+    them, as run_svgf is built to do); on_frame(k) runs before frame k.
+    Returns the [H, W, 3] images on the device."""
+    from tpt_torch.core.vec import Vec3
+    from tpt_torch.denoise import svgf
+    from tpt_torch.integrators import common, wavefront
+
+    w, h = cam.resolution
+    rc = common.make_raycaster(scene, cfg)
+    state = svgf.SVGFState.zeros(h, w, scene.device)
+    plane = lambda a: a.reshape(h, w)
+    p3 = lambda v: Vec3(plane(v.x), plane(v.y), plane(v.z))
+    prev, imgs = None, []
+    for k in range(frames):
+        c = panned(cam, k)
+        vp = wavefront.camera_view_proj(c)
+        if on_frame is not None:
+            on_frame(k)
+        out = wavefront.trace_frame(scene, rc, c, cfg, 1 + k, view_proj=vp,
+                                    prev_view_proj=vp if prev is None else prev)
+        prev, g = vp, out.gbuf
+        rgb, state = svgf.run_svgf(
+            cfg.svgf, state, p3(out.direct), p3(out.indirect), p3(g.albedo),
+            plane(g.depth), p3(g.normal), plane(g.mat_id), plane(g.motion_u),
+            plane(g.motion_v))
+        imgs.append(rgb.stacked())
+    return imgs
+
+
+def svgf_phases(scene, cam, dev) -> list:
+    """The svgf_kernels, svgf_render and svgf_agreement phases; returns
+    the K5 and K6 entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from tpt_torch import Renderer
+    from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.bvh import sweep as sw
+    from tpt_torch.config import RayCastBackend, RenderConfig
+    from tpt_torch.core.camera import Camera
+    from tpt_torch.denoise import reproject, stencil, svgf
+    from tpt_torch.integrators import wavefront
+
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH,
+                       denoiser_on=True)
+    sig = (cfg.svgf.sigma_z, cfg.svgf.sigma_n, cfg.svgf.sigma_l)
+    npx = cam.num_pixels
+
+    # ---- svgf_kernels: K5/K6 inputs of the third frame of a sequence -------
+    t0 = time.perf_counter()
+    grabbed = {"atrous": []}
+    record = [False]
+    patch = Patch()
+
+    def grab_reproject(*args):
+        if record[0]:
+            grabbed["reproject"] = args
+        return kernel_reproject(*args)
+
+    def grab_atrous(*args):
+        if record[0]:
+            grabbed["atrous"].append(args)
+        return kernel_atrous(*args)
+
+    kernel_reproject, kernel_atrous = reproject.reproject, stencil.atrous
+    patch.set(reproject, "reproject", grab_reproject)
+    patch.set(stencil, "atrous", grab_atrous)
+    try:
+        carried_sequence(scene, cam, cfg, 3,
+                         on_frame=lambda k: record.__setitem__(0, k == 2))
+    finally:
+        patch.restore()
+
+    def compare(label, got, want) -> tuple:
+        """(max abs err, mismatching pixels) of two plane lists; raises
+        unless bit-equal (NaN equal to NaN)."""
+        err, bad = 0.0, 0
+        for a, b in zip(got, want):
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            bad += int((~same).sum())
+            d = (a - b).abs()
+            err = max(err, float(torch.where(same, 0.0, d).nan_to_num(
+                nan=float("inf")).max()))
+        if bad:
+            raise RuntimeError(f"{label}: kernel differs from plain on {bad} "
+                               f"values, max abs err {err}")
+        return err, bad
+
+    flat = lambda o: [o[0].x, o[0].y, o[0].z, o[1], o[2].x, o[2].y, o[2].z,
+                      o[3]]
+    r_args = grabbed["reproject"]
+    sums, wsum = reproject.reproject(*r_args)
+    (psums, pw), k6_plain_ms = timed_once(
+        lambda: svgf._reproject_taps(*r_args))
+    k6_err, _ = compare("K6", [sums[k] for k in svgf.DATA_KEYS] + [wsum],
+                        [psums[k] for k in svgf.DATA_KEYS] + [pw])
+    carried_share = float((wsum > 1e-4).float().mean())
+    print(f"  K6 vs plain, frame 3: {npx} pixels x 11 planes bit-equal "
+          f"(0 mismatching), {100 * carried_share:.2f}% of pixels with "
+          f"history weight > 1e-4 (history carried across the moves)")
+    k6_ms = kernel_ms(lambda: reproject.reproject(*r_args), KERNEL_REPS)
+    k5_err, k5_ms_steps, k5_plain_steps = 0.0, [], []
+    if [a[6] for a in grabbed["atrous"]] != [1, 2, 4, 8, 16]:
+        raise RuntimeError("the frame did not run K5 at steps 1..16")
+    for a in grabbed["atrous"]:
+        got = flat(stencil.atrous(*a))
+        want, p_ms = timed_once(lambda: flat(stencil.atrous_plain(*a)))
+        err, _ = compare(f"K5 step {a[6]}", got, want)
+        k5_err = max(k5_err, err)
+        k5_plain_steps.append(p_ms)
+        k5_ms_steps.append(kernel_ms(lambda: stencil.atrous(*a),
+                                     KERNEL_REPS))
+    print(f"  K5 vs plain, frame 3, steps 1-16: {npx} pixels x 8 planes "
+          f"bit-equal at every step (0 mismatching)")
+    k5_ms = sum(k5_ms_steps) / len(k5_ms_steps)
+    k5_plain_ms = sum(k5_plain_steps) / len(k5_plain_steps)
+
+    def bound(bytes_px, ops_px):
+        b_ms = npx * bytes_px / PEAK_BYTES_S * 1e3
+        o_ms = npx * ops_px / PEAK_F32_INSTR_S * 1e3
+        return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
+
+    k5_bound, k5_by = bound(ATROUS_BYTES_PX, ATROUS_OPS_PX)
+    k6_bound, k6_by = bound(REPROJECT_BYTES_PX, REPROJECT_OPS_PX)
+    print(f"  K5: {k5_ms:.4f} ms a pass (steps 1..16: "
+          + ", ".join(f"{m:.4f}" for m in k5_ms_steps)
+          + f"), plain {k5_plain_ms:.2f} ms, bound {k5_bound:.4f} ms "
+          f"({k5_by}), {100 * k5_bound / k5_ms:.1f}% of bound")
+    print(f"  K6: {k6_ms:.4f} ms, plain {k6_plain_ms:.2f} ms, bound "
+          f"{k6_bound:.4f} ms ({k6_by}), {100 * k6_bound / k6_ms:.1f}% of bound")
+    phase("svgf_kernels", t0, pixels=npx, k5_ms=f"{k5_ms:.4f}",
+          k6_ms=f"{k6_ms:.4f}", k5_max_abs_err=k5_err, k6_max_abs_err=k6_err)
+    del grabbed, r_args, sums, wsum, psums, pw
+
+    # ---- svgf_render: the engine's real-time denoised frame --------------
+    t0 = time.perf_counter()
+    renderer = Renderer(scene, cam, cfg)
+    renderer.frame()                                  # warm-up frame
+    torch.cuda.synchronize()
+    counts = (pt.LAUNCHES, sw.LAUNCHES, stencil.LAUNCHES, reproject.LAUNCHES)
+    for c in counts:
+        for k in c:
+            c[k] = 0
+    tr = time.perf_counter()
+    imgs = svgf_sequence(renderer, cam, SVGF_FRAMES)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - tr) * 1e3 / SVGF_FRAMES
+    launches = {k: v for c in counts for k, v in c.items()}
+    want = dict(atrous=5 * SVGF_FRAMES, reproject=SVGF_FRAMES)
+    if any(launches[k] != v for k, v in want.items()) or \
+            min(pt.LAUNCHES.values()) == 0 or any(sw.LAUNCHES.values()):
+        raise RuntimeError(f"denoised path launches {launches}, expected "
+                           f"{want} and K1/K2 but no K3/K4")
+    if int(renderer.raycaster.capped):
+        raise RuntimeError(f"{int(renderer.raycaster.capped)} capped rays")
+    for img in imgs:
+        if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
+                or not img.mean() > 0:
+            raise RuntimeError(f"bad denoised image: shape {img.shape}, "
+                               f"mean {float(np.nanmean(img))}")
+    hist_share = float((renderer.svgf_state.history_len > 0).float().mean())
+
+    def split_frame(move: bool) -> tuple:
+        """One more Renderer frame split by CUDA events: the trace, SVGF,
+        and inside it K6, the five K5 passes and the plain-PyTorch rest;
+        returns (frame ms, split, that frame's FrameOutput)."""
+        timer = StageTimer()
+        timer.wrap(wavefront, "trace_frame", "trace")
+        timer.wrap(svgf, "run_svgf", "svgf")
+        timer.wrap(reproject, "reproject", "K6")
+        timer.wrap(stencil, "atrous", "K5")
+        outs = []
+        trace = wavefront.trace_frame
+
+        def keep(*a, **kw):
+            outs.append(trace(*a, **kw))
+            return outs[-1]
+
+        timer.patch.set(wavefront, "trace_frame", keep)
+        try:
+            if move:
+                renderer.move_camera(panned(cam, SVGF_FRAMES))
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            renderer.frame()
+            e_ev.record()
+            e_ev.synchronize()
+        finally:
+            timer.patch.restore()
+        f_ms = s_ev.elapsed_time(e_ev)
+        split = {k: timer.ms(k) for k in ("trace", "svgf", "K6", "K5")}
+        split["svgf rest"] = split["svgf"] - split["K6"] - split["K5"]
+        split["other"] = f_ms - split["trace"] - split["svgf"]
+        return f_ms, split, outs[-1]
+
+    def show(label, f_ms, split):
+        print(f"  {label}: {f_ms:.1f} ms by CUDA events; trace "
+              f"{split['trace']:.1f} ms, SVGF {split['svgf']:.2f} ms (K6 "
+              f"{split['K6']:.3f} ms, K5 x5 {split['K5']:.3f} ms, "
+              f"plain-PyTorch rest {split['svgf rest']:.2f} ms), other "
+              f"{split['other']:.2f} ms")
+
+    f_ms, split, out = split_frame(move=True)
+    g = out.gbuf
+    live = g.depth > 0
+    motion = torch.sqrt(g.motion_u * g.motion_u + g.motion_v * g.motion_v)
+    med_motion = float(motion[live].median())
+    show("one moving frame", f_ms, split)
+    for _ in range(5):                      # the camera rests
+        renderer.frame()
+    rest_ms, rest_split, _ = split_frame(move=False)
+    rest_share = float((renderer.svgf_state.history_len >= 4).float().mean())
+    show("one resting frame (6th at rest)", rest_ms, rest_split)
+    # device busy share of one moving denoised frame, and the SVGF
+    # kernels' device time in it
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        renderer.move_camera(panned(cam, SVGF_FRAMES + 1))
+        renderer.frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tw) * 1e3
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    by_key = lambda k: "{:.1f} x{}".format(*(
+        sum(getattr(e, f) for e in dev_events if k in e.key)
+        for f in ("self_device_time_total", "count")))
+    print(f"  profiled moving frame: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f}%), "
+          f"{sum(e.count for e in dev_events)} kernel launches; device time "
+          f"(us) of K5 {by_key('atrous_kernel')}, K6 "
+          f"{by_key('reproject_kernel')}")
+    print(f"  pixels with history: {100 * hist_share:.2f}% after "
+          f"{SVGF_FRAMES} moving frames (each move clears it), "
+          f"{100 * rest_share:.2f}% with >= 4 frames at rest, "
+          f"{100 * carried_share:.2f}% when carried across moves "
+          f"(svgf_kernels); median |motion| {med_motion:.3f} px")
+    phase("svgf_render", t0, frame_ms=f"{frame_ms:.1f}",
+          split_ms=json.dumps({k: round(v, 3) for k, v in split.items()}
+                              ).replace(" ", ""),
+          rest_split_ms=json.dumps({k: round(v, 3)
+                                    for k, v in rest_split.items()}
+                                   ).replace(" ", ""),
+          launches=json.dumps(launches).replace(" ", ""),
+          history_pct=f"{100 * hist_share:.2f}",
+          median_motion_px=f"{med_motion:.3f}",
+          image_mean=f"{float(imgs[-1].mean()):.5f}")
+    del renderer, out, g
+
+    # ---- svgf_agreement: the sequence through kernels and plain ----------
+    t0 = time.perf_counter()
+    small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
+                         cam.fovy_deg)
+    runs = {
+        "renderer": lambda: svgf_sequence(Renderer(scene, small, cfg), small,
+                                          SVGF_FRAMES),
+        "carried": lambda: [i.cpu().numpy() for i in carried_sequence(
+            scene, small, cfg, SVGF_FRAMES)],
+    }
+    worst_close, worst_abs = 1.0, 0.0
+    for label, run in runs.items():
+        img_k = run()
+        patch = plain_kernels()
+        try:
+            img_p = run()
+        finally:
+            patch.restore()
+        for k, (a, b) in enumerate(zip(img_k, img_p)):
+            close = float(np.isclose(a, b, atol=5e-3, rtol=1e-3).mean())
+            mean_rel = abs(float(a.mean()) / float(b.mean()) - 1.0)
+            if not (np.isfinite(a).all() and close > 0.97
+                    and mean_rel <= 0.02):
+                raise RuntimeError(f"{label} frame {k} disagrees with plain: "
+                                   f"close {close}, mean rel {mean_rel}")
+            worst_close = min(worst_close, close)
+            worst_abs = max(worst_abs, float(np.abs(a - b).max()))
+    phase("svgf_agreement", t0, frames=2 * SVGF_FRAMES,
+          min_close=f"{worst_close:.6f}", max_abs=f"{worst_abs:.3g}")
+
+    return [
+        dict(name="atrous", route="cuda", source="tpt_torch/csrc/svgf.cu",
+             replaces="tpt/denoise/pallas_stencil.py:180",
+             launches=launches["atrous"], max_abs_err=k5_err, ms=k5_ms,
+             plain_ms=k5_plain_ms, bound_ms=k5_bound, bound_by=k5_by,
+             library_ms=None),
+        dict(name="reproject", route="cuda", source="tpt_torch/csrc/svgf.cu",
+             replaces="tpt/denoise/pallas_reproject.py:227",
+             launches=launches["reproject"], max_abs_err=k6_err, ms=k6_ms,
+             plain_ms=k6_plain_ms, bound_ms=k6_bound, bound_by=k6_by,
+             library_ms=None),
+    ]
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -651,6 +1044,7 @@ def main() -> int:
     from tpt_torch.bvh import sweep as sw
     from tpt_torch.config import RayCastBackend, RenderConfig
     from tpt_torch.core.camera import Camera
+    from tpt_torch.denoise import stencil
     from tpt_torch.integrators import wavefront
     from tpt_torch.integrators.common import Raycaster, make_raycaster
     from tpt_torch.scene import native, procedural
@@ -668,9 +1062,9 @@ def main() -> int:
 
     # ---- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:   # both nvcc and g++ side by side
+    with ThreadPoolExecutor(4) as pool:   # the nvcc and g++ side by side
         builds = [pool.submit(pt.build_kernels), pool.submit(sw.build_kernels),
-                  pool.submit(native._load)]
+                  pool.submit(stencil.build_kernels), pool.submit(native._load)]
         for b in builds:
             b.result()
     for name, log in _build.build_logs.items():
@@ -757,8 +1151,8 @@ def main() -> int:
           f"node visits {int(stats1[0])}, slab tests {int(stats1[1])}, "
           f"tri tests {int(stats1[2])}")
     print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
-          "K3 dense_scan, K4 sweep8_closest_hit ported (cuda); K5-K11 not "
-          "yet ported")
+          "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject "
+          "ported (cuda); K7-K11 not yet ported")
     phase("kernels", t0, n_compare=N_COMPARE, lanes=n_full,
           k2_ms=f"{k2_ms:.3f}", k1_ms=f"{k1_ms:.3f}")
     del rec, carry, ext, shd
@@ -867,6 +1261,7 @@ def main() -> int:
           max_abs=f"{float(np.abs(img_k - img_p).max()):.3g}")
 
     sweep_kernels = sweep_phases(scene, cam, dev)
+    svgf_kernels = svgf_phases(scene, cam, dev)
 
     kernels = [
         dict(name="packet_closest_hit_wide", route="cuda",
@@ -881,7 +1276,7 @@ def main() -> int:
              launches=launches["packet_any_hit_wide"],
              max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
              bound_ms=k1_bound, bound_by=k1_by, library_ms=None),
-    ] + sweep_kernels
+    ] + sweep_kernels + svgf_kernels
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,6 @@
 """tpt_torch's CUDA kernels (K2 closest hit, K1 any hit, K3 dense scan,
-K4 demand sweep) on the card, each against its plain PyTorch version.
+K4 demand sweep, K5 a-trous stencil, K6 temporal reprojection) on the
+card, each against its plain PyTorch version.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor tpt, so it also runs on a GPU machine without
@@ -18,8 +19,10 @@ from tpt_torch.bvh import packet_traverse as pt
 from tpt_torch.bvh import sweep as sw
 from tpt_torch.bvh import sweepcast as tsc
 from tpt_torch.bvh.treelet import SweepTables
+from tpt_torch import Renderer
 from tpt_torch.config import RayCastBackend, RenderConfig
 from tpt_torch.core.vec import Vec3
+from tpt_torch.denoise import reproject, stencil, svgf
 from tpt_torch.integrators import common, intersect, wavefront
 from tpt_torch.scene import procedural
 
@@ -265,3 +268,144 @@ def test_sweep_render_kernels_equal_plain(cornell, cuda, monkeypatch):
     assert sw.LAUNCHES == {k: before[k] + 4 for k in before}
     assert int(rc.capped) == 0 and int(rc_p.capped) == 0
     np.testing.assert_array_equal(img_k, img_p)
+
+
+# ---------------------------------------------------------------------------
+# K5 a-trous stencil and K6 temporal reprojection
+# ---------------------------------------------------------------------------
+
+def _exact(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _atrous_planes(h, w, kind, seed, device):
+    """The 12 input planes of K5: illumination, variance, a depth edge with
+    a patch of sky, unit normals; `kind` makes them adversarial."""
+    rs = np.random.default_rng(seed)
+    f = lambda *s: rs.random(s).astype(np.float32)
+    depth = f(h, w) * 3 + 10
+    depth[:, w // 2:] += 40.0
+    depth[h // 3:h // 2, w // 4:w // 2] = -1000.0
+    n = rs.normal(size=(3, h, w))
+    n = (n / np.linalg.norm(n, axis=0, keepdims=True)).astype(np.float32)
+    n[:, :h // 2, :w // 2] = np.array([0.0, 0.6, 0.8], np.float32)[:, None, None]
+    ill_d, var_d, ill_i, var_i = f(3, h, w), f(h, w), f(3, h, w) * 2, f(h, w)
+    if kind == "all_sky":
+        depth[:] = -1000.0
+    elif kind == "signed_zero_normals":
+        n[:, ::2] = 0.0
+        n[:, 1::4] = -0.0
+        n[2, ::3] = -0.0
+    elif kind == "nonfinite":
+        var_d.flat[::7] = np.nan
+        ill_i[1].flat[::5] = np.inf
+        depth.flat[::11] = np.inf
+        n[0].flat[::13] = np.nan
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    v = lambda a: Vec3(t(a[0]), t(a[1]), t(a[2]))
+    return (v(ill_d), t(var_d), v(ill_i), t(var_i), t(depth), v(n))
+
+
+@pytest.mark.parametrize("h,w,step,kind", [
+    (1, 1, 1, "plain"), (17, 33, 1, "plain"), (17, 33, 2, "all_sky"),
+    (17, 33, 4, "signed_zero_normals"), (17, 33, 2, "nonfinite"),
+    (9, 9, 16, "plain"), (1080, 1920, 8, "plain")])
+def test_atrous_kernel_equals_plain(cuda, h, w, step, kind):
+    planes = _atrous_planes(h, w, kind, 31, cuda)
+    sig = (1.0, 128.0, 4.0)
+    before = stencil.LAUNCHES["atrous"]
+    got = stencil.atrous(*planes, step, *sig)
+    assert stencil.LAUNCHES["atrous"] == before + 1
+    want = stencil.atrous_plain(*planes, step, *sig)
+    flat = lambda o: [o[0].x, o[0].y, o[0].z, o[1], o[2].x, o[2].y, o[2].z, o[3]]
+    for a, b in zip(flat(got), flat(want)):
+        _exact(a, b)
+    if kind == "all_sky":
+        _exact(got[0].x, planes[0].x)
+
+
+def _reproject_inputs(h, w, motion, seed, device):
+    """A history in 6x6 blocks of one normal and material on a depth ramp,
+    and a current frame that is that geometry moved by the motion, with
+    some normals, depths and materials changed."""
+    rs = np.random.default_rng(seed)
+    f = lambda: rs.random((h, w)).astype(np.float32)
+    bh, bw = -(-h // 6), -(-w // 6)
+    blocks = lambda a: np.ascontiguousarray(
+        np.repeat(np.repeat(a, 6, -2), 6, -1)[..., :h, :w])
+    n = rs.normal(size=(3, bh, bw))
+    nrm = blocks((n / np.linalg.norm(n, axis=0, keepdims=True)).astype(np.float32))
+    depth_h = (20.0 + 0.2 * np.arange(w)[None, :]
+               + 0.1 * np.arange(h)[:, None]).astype(np.float32)
+    mat_h = blocks(rs.integers(0, 3, (bh, bw))).astype(np.int32)
+    leaves = [f() for _ in range(12)] + [
+        rs.integers(0, 9, (h, w)).astype(np.int32), depth_h,
+        nrm[0], nrm[1], nrm[2], mat_h]
+    if motion == "pan":
+        mu = np.full((h, w), 2.25, np.float32)
+        mv = np.full((h, w), -1.5, np.float32)
+    else:
+        mu = rs.uniform(-3, 3, (h, w)).astype(np.float32)
+        mv = rs.uniform(-3, 3, (h, w)).astype(np.float32)
+    if motion == "far":
+        mu.flat[::3] = 1e9
+        mv.flat[1::3] = -5000.0
+        mu.flat[2::7] = -float(w) - 0.5
+    elif motion == "nonfinite":
+        mu.flat[::5] = np.nan
+        mv.flat[1::6] = np.inf
+        mu.flat[2::7] = -np.inf
+        mv.flat[3::9] = np.nan
+    sy = np.clip(np.round(np.arange(h)[:, None] - np.nan_to_num(mv)), 0, h - 1)
+    sx = np.clip(np.round(np.arange(w)[None, :] - np.nan_to_num(mu)), 0, w - 1)
+    moved = lambda a: np.ascontiguousarray(a[sy.astype(int), sx.astype(int)])
+    normal = np.stack([moved(c) for c in nrm])
+    normal[:, ::5] = -normal[:, ::5]
+    depth = moved(depth_h) + rs.uniform(-0.5, 2.5, (h, w)).astype(np.float32)
+    matid = np.where(rs.random((h, w)) < 0.9, moved(mat_h), 7).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    state = svgf.svgf_state_from_numpy(leaves, device)
+    return state, t(mu), t(mv), Vec3(*(t(c) for c in normal)), t(depth), t(matid)
+
+
+@pytest.mark.parametrize("h,w,motion", [
+    (1, 1, "random"), (17, 33, "random"), (17, 33, "pan"), (17, 33, "far"),
+    (17, 33, "nonfinite"), (1080, 1920, "pan"), (1080, 1920, "nonfinite")])
+def test_reproject_kernel_equals_plain(cuda, h, w, motion):
+    args = _reproject_inputs(h, w, motion, 41, cuda)
+    before = reproject.LAUNCHES["reproject"]
+    sums, wsum = reproject.reproject(*args)
+    assert reproject.LAUNCHES["reproject"] == before + 1
+    want_sums, want_w = svgf._reproject_taps(*args)
+    _exact(wsum, want_w)
+    for k in svgf.DATA_KEYS:
+        _exact(sums[k], want_sums[k])
+    if motion == "pan":
+        assert float((wsum > 0).float().mean()) > 0.4
+
+
+def test_denoised_renderer_kernels_equal_plain(cornell, cuda, monkeypatch):
+    """A denoised Renderer run (3 frames, a camera move, 2 frames) through
+    K5/K6 against the same run through their plain versions: 5 K5 and 1
+    K6 launches a frame, and the images agree bit for bit."""
+    host, data = cornell
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=3,
+                       denoiser_on=True)
+
+    def run():
+        r = Renderer(data, host.camera, cfg)
+        frames = [r.frame() for _ in range(3)]
+        r.move_camera(host.camera.moved(position=(280.0, 273.0, -790.0)))
+        return frames + [r.frame() for _ in range(2)]
+
+    before = (stencil.LAUNCHES["atrous"], reproject.LAUNCHES["reproject"])
+    img_k = run()
+    assert (stencil.LAUNCHES["atrous"], reproject.LAUNCHES["reproject"]) == \
+        (before[0] + 25, before[1] + 5)
+    monkeypatch.setattr(stencil, "atrous", stencil.atrous_plain)
+    monkeypatch.setattr(reproject, "reproject", svgf._reproject_taps)
+    img_p = run()
+    assert stencil.LAUNCHES["atrous"] == before[0] + 25
+    for a, b in zip(img_k, img_p):
+        assert np.isfinite(a).all() and a.mean() > 0.01
+        np.testing.assert_array_equal(a, b)

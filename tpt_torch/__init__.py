@@ -13,3 +13,4 @@ Entry points run on the CUDA device unless the caller passes
 __version__ = "0.1.0"
 
 from .config import DisplayMode, RayCastBackend, RenderConfig, RenderMode  # noqa: F401
+from .engine import Renderer  # noqa: F401,E402

@@ -66,13 +66,17 @@ class SVGFConfig:
     history_threshold: int = 4  # frames of history before temporal variance
     temporal_alpha_min: float = 0.1
     demodulate_threshold: float = 0.01
-    # Pallas band-stencil a-trous (denoise/pallas_stencil.py) instead of the
-    # XLA pad+slice formulation; bitwise-equivalent (tests), HBM-optimal
+    # tpt's switches between its Pallas TPU kernels and its XLA
+    # formulations of SVGF. They select nothing in the port: the port has
+    # one a-trous pass (K5, denoise/stencil.py) and one reprojection (K6,
+    # denoise/reproject.py), a CUDA kernel on the card and the plain
+    # version on the CPU, and both compute tpt's XLA functions
+    # (_atrous_once, _reproject_taps). tpt's Pallas reprojection shifts
+    # rows and columns separately and drops history beyond
+    # reproject_radius px, because a TPU lane cannot gather; a CUDA thread
+    # can, so the port is exact for any motion, and reproject_radius
+    # bounds nothing.
     use_pallas_atrous: bool = True
-    # Pallas temporal reprojection (denoise/pallas_reproject.py): replaces
-    # the 4 packed row-gathers (~370 ms at 1080p) with dense shift-selects;
-    # motion beyond reproject_radius px falls back to the spatial-variance
-    # path (identical to XLA for in-range motion — tests)
     use_pallas_reproject: bool = True
     reproject_radius: int = 24
 
