@@ -3,21 +3,24 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths at full size on the 139k-triangle
+Drives the port's four main paths at full size on the 139k-triangle
 `fireplace_like` bench interior at 1920x1080, depth 8: the wavefront
 integrator on the wide-BVH kernels K2 (closest hit) and K1 (any hit)
 (BVH_PALLAS); the bench's own BVH_SWEEP configuration, whose bounces
 after the first run the dense treelet scan K3, the bin sort, the demand
-sweep K4 and a K2 tail; and the engine's real-time denoised frame
+sweep K4 and a K2 tail; the engine's real-time denoised frame
 (`Renderer` with the denoiser on: a BVH_PALLAS frame, then SVGF with the
-temporal reprojection K6 and five a-trous passes K5). One line per phase
-(name, seconds, key numbers):
+temporal reprojection K6 and five a-trous passes K5); and the
+BVH_TREELET backend, whose camera rays go through the self-rebinning
+closest hit K10 and whose later bounces run the treelet scan K9, the
+hybrid easy/hard split and one sort, K10 seeded on the easy rays and K2
+on the hard ones. One line per phase (name, seconds, key numbers):
 
   device     nvidia-smi name and power limit, torch and CUDA versions
   build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu,
-             tpt_torch/csrc/sweep.cu and tpt_torch/csrc/svgf.cu and g++ of
-             the native SAH library, all at once, from the sources in this
-             checkout
+             tpt_torch/csrc/sweep.cu, tpt_torch/csrc/svgf.cu and
+             tpt_torch/csrc/treelet.cu and g++ of the native SAH library,
+             all at once, from the sources in this checkout
   scene      host scene, SAH BVH, wide pack, treelet cut and sweep tables
              (chunk_align 8, as bench.py builds them), uploaded to the card
   kernels    K2/K1 against their plain PyTorch versions on 262,144 live
@@ -65,6 +68,26 @@ temporal reprojection K6 and five a-trous passes K5). One line per phase
              both sequences at 240x135 through the kernels and through the
              plain versions: each denoised frame must agree to the
              golden-image tolerance
+  treelet_kernels
+             BVH_TREELET with tpt's defaults (treelets of <= 256
+             triangles, 4 slots, hybrid split at 3 candidates, packets of
+             2048 lanes on bounces and 4096 for camera rays): K9 against
+             its plain version on every lane of the unsorted bounce-1
+             pool, K10 seeded on whole packets of the sorted bounce-1 pool
+             and unseeded on whole packets of the camera rays, all bit for
+             bit; the extension cast's hits (K10 and K2 picked by the hard
+             flag) against K2 alone on every lane; CUDA-event timings,
+             bounds, drains per packet, hard and seeded shares
+  treelet_render
+             wavefront.render with BVH_TREELET at 1080p, depth 8, with all
+             launch counters zeroed just before and read just after (K10 8,
+             K9 7, K2 7, K1 8 a frame); frame ms, Mpaths/s, and one frame
+             split by CUDA events into K9 and the sort, K10, K2, K1 and
+             the rest
+  treelet_agreement
+             BVH_TREELET at 240x135, depth 8, both samples in one pool
+             (spp_batch 2), through the kernels, through the plain versions
+             and against the BVH_PALLAS render
 
 Then one JSON line describing each ported kernel, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Any failed check raises, so the
@@ -129,6 +152,13 @@ SVGF_PAN_PX = 3.0
 # current planes and writes 11
 ATROUS_BYTES_PX, ATROUS_OPS_PX = 80, 532
 REPROJECT_BYTES_PX, REPROJECT_OPS_PX = 132, 210
+# BVH_TREELET: whole packets held against the plain versions (seeded
+# 2048-lane bounce packets, unseeded 4096-lane camera-ray packets), frames
+# of the timed render, and back-to-back launches timed per kernel
+TREELET_SEEDED_PACKETS = 128
+TREELET_PRIMARY_PACKETS = 64
+TREELET_FRAMES = 2
+TREELET_REPS = 3
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -370,12 +400,16 @@ class Patch:
 
 
 def plain_kernels() -> Patch:
-    """Route K1-K6 to their plain PyTorch versions (on the card)."""
+    """Route K1-K6, K9 and K10 to their plain PyTorch versions (on the
+    card)."""
     from tpt_torch.bvh import packet_traverse as pt
     from tpt_torch.bvh import sweep as sw
+    from tpt_torch.bvh import treelet_traverse as tlt
     from tpt_torch.denoise import reproject, stencil, svgf
 
     p = Patch()
+    p.set(tlt, "treelet_scan", tlt.treelet_scan_plain)
+    p.set(tlt, "treelet_closest_hit", tlt.treelet_closest_hit_plain)
     p.set(stencil, "atrous", stencil.atrous_plain)
     p.set(reproject, "reproject", svgf._reproject_taps)
     p.set(sw, "dense_scan", sw.dense_scan_plain)
@@ -424,13 +458,17 @@ def equal_hits(label: str, a, b) -> None:
                                f"{int((x != y).sum())} lanes")
 
 
-def whole_blocks(n: int, k: int, device):
-    """Lane indices of k // 128 whole 128-lane blocks spread over n lanes."""
+def whole_blocks(n: int, k: int, device, lanes: int = 128):
+    """Lane indices of k // lanes whole `lanes`-lane blocks spread evenly
+    over the first n lanes."""
     import torch
 
-    nb = n // 128
-    blocks = torch.linspace(0, nb - 1, k // 128, device=device).long()
-    return (blocks[:, None] * 128 + torch.arange(128, device=device)).reshape(-1)
+    nb = n // lanes
+    if nb < k // lanes:
+        raise RuntimeError(f"only {nb} whole blocks to pick {k // lanes} from")
+    blocks = torch.linspace(0, nb - 1, k // lanes, device=device).long()
+    return (blocks[:, None] * lanes
+            + torch.arange(lanes, device=device)).reshape(-1)
 
 
 def sweep_bound(n: int, in_bytes: int, out_bytes: int, table_bytes: int,
@@ -1031,6 +1069,338 @@ def svgf_phases(scene, cam, dev) -> list:
     ]
 
 
+def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
+    """The treelet_kernels, treelet_render and treelet_agreement phases;
+    returns the K9 and K10 entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.bvh import sweep as sw
+    from tpt_torch.bvh import treelet_traverse as tlt
+    from tpt_torch.config import RayCastBackend, RenderConfig
+    from tpt_torch.core.camera import Camera
+    from tpt_torch.core.vec import Vec3
+    from tpt_torch.integrators import common, wavefront
+
+    pack = scene.pack
+    cfg = RenderConfig(backend=RayCastBackend.BVH_TREELET, trace_depth=DEPTH)
+    lanes = 1024 * cfg.trav_group
+    lanes0 = 1024 * cfg.trav_group_primary
+    knobs = dict(slots=cfg.treelet_slots, max_rounds=cfg.treelet_max_rounds)
+    sub = lambda v, idx: Vec3(v.x[idx].contiguous(), v.y[idx].contiguous(),
+                              v.z[idx].contiguous())
+
+    # ---- treelet_kernels: the pools of one frame --------------------------
+    t0 = time.perf_counter()
+    grabbed = {}
+    seed_sort = wavefront._treelet_seed_sort
+
+    def grab(scn, c, pool):
+        out = seed_sort(scn, c, pool)
+        grabbed["in"], grabbed["out"] = pool, out
+        return out
+
+    patch = Patch()
+    patch.set(wavefront, "_treelet_seed_sort", grab)
+    try:
+        rc = common.make_raycaster(scene, cfg)
+        vp = wavefront.camera_view_proj(cam)
+        carry = wavefront.batched_raygen(cam, cfg, 1, dev)
+        cam_o, cam_d = carry[0], carry[1]
+        for depth in range(2):
+            carry = wavefront._bounce_body(scene, rc, cam, cfg, vp, vp, depth,
+                                           carry)
+    finally:
+        patch.restore()
+    del carry
+    if int(rc.capped):
+        raise RuntimeError(f"{int(rc.capped)} capped lanes in bounces 0-1")
+    pool = grabbed["in"]
+    n = pool[0].x.shape[0]
+    alive = pool[5]
+    pre_tmax = torch.where(alive, 3.4e38, -1.0)
+    # K9 on every lane of the unsorted bounce-1 pool, dead lanes included
+    k9 = tlt.treelet_scan(pack, pool[0], pool[1], pre_tmax,
+                          group=cfg.trav_group)
+    k9_plain, k9_plain_ms = timed_once(lambda: tlt.treelet_scan_plain(
+        pack, pool[0], pool[1], pre_tmax, group=cfg.trav_group))
+    for a, b, what in zip(k9, k9_plain, ("entry t", "code", "ordinal",
+                                          "overflow", "count", "capped")):
+        if not torch.equal(a.view(torch.int32) if a.dtype == torch.float32
+                           else a, b.view(torch.int32)
+                           if b.dtype == torch.float32 else b):
+            raise RuntimeError(f"K9 {what} differs from plain on "
+                               f"{int((a != b).sum())} of {a.numel()} values")
+    if int(k9[5]):
+        raise RuntimeError(f"K9 capped {int(k9[5])} lanes")
+    k9_err = max(float((a.float() - b.float()).abs().max())
+                 for a, b in zip(k9[:5], k9_plain[:5]))
+    seeded_share = float((alive & (k9[1] != tlt.NONE_CODE)).sum()) / max(
+        1, int(alive.sum()))
+    print(f"  K9 vs plain, unsorted bounce-1 pool: {n} lanes "
+          f"({int((~alive).sum())} dead), bit-equal, 0 capped")
+    st9 = torch.zeros(2, dtype=torch.int64, device=dev)
+    tlt.treelet_scan(pack, pool[0], pool[1], pre_tmax, group=cfg.trav_group,
+                     stats=st9)
+    k9_ms = kernel_ms(lambda: tlt.treelet_scan(pack, pool[0], pool[1],
+                                               pre_tmax,
+                                               group=cfg.trav_group),
+                      TREELET_REPS)
+    top_bytes = sum(t.numel() * t.element_size() for t in (
+        pack.top_f32, pack.top_child, pack.top_tref, pack.top_tord))
+    k9_bound, k9_by = sweep_bound(n, 28, 20, top_bytes,
+                                  OPS_PER_SLAB * int(st9[1]))
+    del k9_plain
+
+    # K10 seeded on the sorted bounce-1 pool, as the cast launches it
+    spool, seed, hard, _ = grabbed["out"]
+    ori, d, salive = spool[0], spool[1], spool[5]
+    ext_tmax = torch.where(salive, 3.4e38, -1.0)
+    easy_tmax = torch.where(hard, -1.0, ext_tmax)
+    full, cap_full = tlt.treelet_closest_hit(pack, ori, d, easy_tmax,
+                                             group=cfg.trav_group, seed=seed,
+                                             **knobs)
+    if int(cap_full):
+        raise RuntimeError(f"K10 capped {int(cap_full)} lanes")
+    n_live = int(salive.sum())
+    idx = whole_blocks(-(-n_live // lanes) * lanes,
+                       TREELET_SEEDED_PACKETS * lanes, dev, lanes)
+    g = lambda a: a[idx].contiguous()
+    s_seed = tuple(g(a) for a in seed)
+    hk, ck = tlt.treelet_closest_hit(pack, sub(ori, idx), sub(d, idx),
+                                     g(easy_tmax), group=cfg.trav_group,
+                                     seed=s_seed, **knobs)
+    (hp, cp), k10_plain_ms = timed_once(lambda: tlt.treelet_closest_hit_plain(
+        pack, sub(ori, idx), sub(d, idx), g(easy_tmax), group=cfg.trav_group,
+        seed=s_seed, **knobs))
+    if int(ck) or int(cp):
+        raise RuntimeError(f"K10 seeded capped: kernel {int(ck)}, plain "
+                           f"{int(cp)}")
+    equal_hits("K10 seeded vs plain", hk, hp)
+    equal_hits("K10 seeded, packets alone vs in the pool", hk,
+               type(hk)(t=g(full.t), tri=g(full.tri), u=g(full.u),
+                        v=g(full.v)))
+    k10_err = max(float((getattr(hk, f) - getattr(hp, f)).abs().max())
+                  for f in ("t", "u", "v"))
+    print(f"  K10 seeded vs plain, sorted bounce-1 pool: "
+          f"{TREELET_SEEDED_PACKETS} whole {lanes}-lane packets "
+          f"({idx.numel()} lanes, {int((g(easy_tmax) > 0).sum())} easy live, "
+          f"{int((hk.tri >= 0).sum())} hits), bit-equal, and equal to the "
+          f"same lanes of the whole-pool launch; plain {k10_plain_ms:.1f} ms")
+    # K10 unseeded on whole 4096-lane packets of the camera rays
+    idx0 = whole_blocks(cam_o.x.shape[0], TREELET_PRIMARY_PACKETS * lanes0,
+                        dev, lanes0)
+    t_cam = torch.full((idx0.numel(),), 3.4e38, device=dev)
+    hk0, ck0 = tlt.treelet_closest_hit(pack, sub(cam_o, idx0),
+                                       sub(cam_d, idx0), t_cam,
+                                       group=cfg.trav_group_primary, **knobs)
+    (hp0, cp0), k10p_plain_ms = timed_once(
+        lambda: tlt.treelet_closest_hit_plain(
+            pack, sub(cam_o, idx0), sub(cam_d, idx0), t_cam,
+            group=cfg.trav_group_primary, **knobs))
+    if int(ck0) or int(cp0):
+        raise RuntimeError(f"K10 primary capped: kernel {int(ck0)}, plain "
+                           f"{int(cp0)}")
+    equal_hits("K10 unseeded primaries vs plain", hk0, hp0)
+    k10_err = max([k10_err] + [float((getattr(hk0, f) - getattr(hp0, f))
+                                     .abs().max()) for f in ("t", "u", "v")])
+    print(f"  K10 unseeded vs plain, camera rays: {TREELET_PRIMARY_PACKETS} "
+          f"whole {lanes0}-lane packets ({idx0.numel()} lanes, "
+          f"{int((hk0.tri >= 0).sum())} hits), bit-equal; plain "
+          f"{k10p_plain_ms:.1f} ms")
+    # the whole extension cast against K2 alone on every lane
+    fin = rc.closest_hit(ori, d, ext_tmax, seed=seed, hard=hard)
+    ref, cap2 = pt.packet_closest_hit_wide(pack, ori, d, ext_tmax)
+    if int(rc.capped) or int(cap2):
+        raise RuntimeError(f"capped lanes: treelet cast {int(rc.capped)}, "
+                           f"K2 {int(cap2)}")
+    if not torch.equal(fin.t, ref.t):
+        raise RuntimeError(f"treelet cast t differs from K2 on "
+                           f"{int((fin.t != ref.t).sum())} lanes")
+    tri_diff = int((fin.tri != ref.tri).sum())
+    if tri_diff > TAIL_TRI_MISMATCH_MAX * n_live:
+        raise RuntimeError(f"treelet cast triangle differs from K2 on "
+                           f"{tri_diff} lanes")
+    print(f"  treelet cast (K10 easy + K2 hard) vs K2, sorted bounce-1 "
+          f"pool: {n} lanes, t bit-equal, tri differs on {tri_diff} "
+          f"(equal-t ties), 0 capped")
+    # timings on the whole pools, as the frame launches them
+    st10 = torch.zeros(6, dtype=torch.int64, device=dev)
+    tlt.treelet_closest_hit(pack, ori, d, easy_tmax, group=cfg.trav_group,
+                            seed=seed, stats=st10, **knobs)
+    k10_ms = kernel_ms(lambda: tlt.treelet_closest_hit(
+        pack, ori, d, easy_tmax, group=cfg.trav_group, seed=seed, **knobs),
+        TREELET_REPS)
+    sub_o, sub_d, sub_t = sub(ori, idx), sub(d, idx), g(easy_tmax)
+    k10s_ms = kernel_ms(lambda: tlt.treelet_closest_hit(
+        pack, sub_o, sub_d, sub_t, group=cfg.trav_group, seed=s_seed,
+        **knobs), TREELET_REPS)
+    t_all = torch.full((cam_o.x.shape[0],), 3.4e38, device=dev)
+    st0 = torch.zeros(6, dtype=torch.int64, device=dev)
+    tlt.treelet_closest_hit(pack, cam_o, cam_d, t_all,
+                            group=cfg.trav_group_primary, stats=st0, **knobs)
+    k10p_ms = kernel_ms(lambda: tlt.treelet_closest_hit(
+        pack, cam_o, cam_d, t_all, group=cfg.trav_group_primary, **knobs),
+        TREELET_REPS)
+    hard_k2 = torch.where(hard, ext_tmax, -1.0)
+    k2h_ms = kernel_ms(lambda: pt.packet_closest_hit_wide(pack, ori, d,
+                                                          hard_k2),
+                       TREELET_REPS)
+    k2f_ms = kernel_ms(lambda: pt.packet_closest_hit_wide(pack, ori, d,
+                                                          ext_tmax),
+                       TREELET_REPS)
+    wide_bytes = sum(t.numel() * t.element_size() for t in (
+        pack.node_f32, pack.node_child, pack.tri_f32))
+    k10_bound, k10_by = sweep_bound(
+        n, 28 + 12, 16, wide_bytes + top_bytes,
+        OPS_PER_SLAB * int(st10[1]) + OPS_PER_TRI * int(st10[2]))
+    npk = -(-n // lanes)
+    npk0 = -(-cam_o.x.shape[0] // lanes0)
+    hard_share = float(hard.sum()) / max(1, n_live)
+    mr = lambda ms, k: k / (ms * 1e-3) / 1e6
+    print(f"  K9: {k9_ms:.3f} ms ({mr(k9_ms, n):.1f} Mrays/s), plain "
+          f"{k9_plain_ms:.1f} ms, bound {k9_bound:.3f} ms ({k9_by}); top "
+          f"pops {int(st9[0])} over {npk} packets, slab tests {int(st9[1])}")
+    print(f"  K10 seeded bounce 1: {k10_ms:.3f} ms "
+          f"({mr(k10_ms, n_live):.2f} M live rays/s), bound "
+          f"{k10_bound:.3f} ms ({k10_by}); drains {int(st10[3])} over "
+          f"{npk} packets (mean {int(st10[3]) / npk:.2f}, max "
+          f"{int(st10[5])}), scan rounds {int(st10[4])}, node pops "
+          f"{int(st10[0])}, slab tests {int(st10[1])}, tri tests "
+          f"{int(st10[2])}; on the {TREELET_SEEDED_PACKETS} packets held "
+          f"against plain: kernel {k10s_ms:.3f} ms, plain "
+          f"{k10_plain_ms:.1f} ms")
+    print(f"  K10 unseeded camera rays: {k10p_ms:.3f} ms "
+          f"({mr(k10p_ms, cam_o.x.shape[0]):.2f} Mrays/s); drains "
+          f"{int(st0[3])} over {npk0} packets (mean {int(st0[3]) / npk0:.2f},"
+          f" max {int(st0[5])}), tri tests {int(st0[2])}")
+    print(f"  bounce 1: {n_live} live lanes, hard {100 * hard_share:.2f}% "
+          f"(K2 on them: {k2h_ms:.3f} ms; K2 on every live lane: "
+          f"{k2f_ms:.3f} ms), with a K9 seed {100 * seeded_share:.2f}%")
+    phase("treelet_kernels", t0, lanes=n, k9_ms=f"{k9_ms:.3f}",
+          k10_ms=f"{k10_ms:.3f}", k10_primary_ms=f"{k10p_ms:.3f}",
+          mean_drains=f"{int(st10[3]) / npk:.2f}", max_drains=int(st10[5]),
+          hard_pct=f"{100 * hard_share:.2f}",
+          seeded_pct=f"{100 * seeded_share:.2f}")
+    del grabbed, spool, pool, seed, hard, ori, d, fin, ref, full
+
+    # ---- treelet_render: the BVH_TREELET frame at 1080p -------------------
+    t0 = time.perf_counter()
+    rc = common.make_raycaster(scene, cfg)
+    wavefront.trace_frame(scene, rc, cam, cfg, 300)   # warm-up frame
+    torch.cuda.synchronize()
+    counts = (pt.LAUNCHES, sw.LAUNCHES, tlt.LAUNCHES)
+    for c in counts:
+        for k in c:
+            c[k] = 0
+    tr = time.perf_counter()
+    img = wavefront.render(scene, cam, cfg, iterations=TREELET_FRAMES,
+                           raycaster=rc)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - tr
+    launches = {k: v for c in counts for k, v in c.items()}
+    want = dict(treelet_closest_hit=DEPTH, treelet_scan=DEPTH - 1,
+                packet_closest_hit_wide=DEPTH - 1, packet_any_hit_wide=DEPTH,
+                dense_scan=0, sweep8_closest_hit=0)
+    if any(launches[k] != v * TREELET_FRAMES for k, v in want.items()):
+        raise RuntimeError(f"treelet path launches {launches}, expected "
+                           f"{want} a frame")
+    if int(rc.capped):
+        raise RuntimeError(f"treelet render had {int(rc.capped)} capped lanes")
+    if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
+            or not img.mean() > 0:
+        raise RuntimeError(f"bad treelet image: shape {img.shape}, "
+                           f"mean {float(np.nanmean(img))}")
+    frame_ms = render_s * 1e3 / TREELET_FRAMES
+    # one frame split by stage: CUDA events around each stage's calls
+    timer = StageTimer()
+    timer.wrap(wavefront, "_treelet_seed_sort", "K9 + sort")
+    timer.wrap(tlt, "treelet_closest_hit", "K10")
+    timer.wrap(pt, "packet_closest_hit_wide", "K2 (hard rays)")
+    timer.wrap(pt, "packet_any_hit_wide", "K1 (shadow)")
+    s_ev = torch.cuda.Event(enable_timing=True)
+    e_ev = torch.cuda.Event(enable_timing=True)
+    try:
+        timed_rc = common.make_raycaster(scene, cfg)
+        th = time.perf_counter()
+        s_ev.record()
+        wavefront.trace_frame(scene, timed_rc, cam, cfg, 301)
+        e_ev.record()
+        host_ms = (time.perf_counter() - th) * 1e3
+        e_ev.synchronize()
+    finally:
+        timer.patch.restore()
+    f_ms = s_ev.elapsed_time(e_ev)
+    split = {k: timer.ms(k) for k in timer.events}
+    split["shading and the rest"] = f_ms - sum(split.values())
+    print(f"  one frame: {f_ms:.1f} ms by CUDA events (host enqueue "
+          f"{host_ms:.1f} ms); " + "; ".join(
+              f"{k} {v:.1f} ms ({100 * v / f_ms:.1f}%)"
+              for k, v in split.items()))
+    print(f"  against the BVH_PALLAS frame of this run: "
+          f"{frame_ms / pallas_frame_ms:.2f}x ({frame_ms:.1f} ms vs "
+          f"{pallas_frame_ms:.1f} ms)")
+    phase("treelet_render", t0, frame_ms=f"{frame_ms:.1f}",
+          mpaths_s=f"{cam.num_pixels / (frame_ms * 1e-3) / 1e6:.3f}",
+          launches=json.dumps(launches).replace(" ", ""),
+          capped=int(rc.capped), image_mean=f"{float(img.mean()):.5f}")
+
+    # ---- treelet_agreement: kernels vs plain, and vs BVH_PALLAS ------------
+    t0 = time.perf_counter()
+    small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
+                         cam.fovy_deg)
+    # both samples in one pool: the plain K10 takes as many sequential
+    # steps as the slowest packet of a cast needs, so one cast of twice
+    # the packets costs about as much as one of one sample
+    acfg = cfg.with_(spp_batch=AGREE_ITERS)
+    rc_k = common.make_raycaster(scene, acfg)
+    img_k = wavefront.render(scene, small, acfg, iterations=AGREE_ITERS,
+                             raycaster=rc_k)
+    patch = plain_kernels()
+    try:
+        rc_p = common.make_raycaster(scene, acfg)
+        tp = time.perf_counter()
+        img_p = wavefront.render(scene, small, acfg, iterations=AGREE_ITERS,
+                                 raycaster=rc_p)
+        plain_s = time.perf_counter() - tp
+    finally:
+        patch.restore()
+    pcfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH,
+                        spp_batch=AGREE_ITERS)
+    rc_w = common.make_raycaster(scene, pcfg)
+    img_w = wavefront.render(scene, small, pcfg, iterations=AGREE_ITERS,
+                             raycaster=rc_w)
+    if int(rc_k.capped) or int(rc_p.capped) or int(rc_w.capped):
+        raise RuntimeError("treelet agreement renders had capped lanes")
+    out = {"plain_render_s": f"{plain_s:.1f}"}
+    for label, ref in (("plain", img_p), ("pallas", img_w)):
+        close = float(np.isclose(img_k, ref, atol=5e-3, rtol=1e-3).mean())
+        mean_rel = abs(float(img_k.mean()) / float(ref.mean()) - 1.0)
+        if not (np.isfinite(img_k).all() and close > 0.97
+                and mean_rel <= 0.02):
+            raise RuntimeError(f"treelet render disagrees with {label}: "
+                               f"close {close}, mean rel {mean_rel}")
+        out[f"{label}_close"] = f"{close:.6f}"
+        out[f"{label}_max_abs"] = f"{float(np.abs(img_k - ref).max()):.3g}"
+    phase("treelet_agreement", t0, **out)
+
+    return [
+        dict(name="treelet_scan", route="cuda",
+             source="tpt_torch/csrc/treelet.cu",
+             replaces="tpt/bvh/pallas_treelet.py:522",
+             launches=launches["treelet_scan"], max_abs_err=k9_err,
+             ms=k9_ms, plain_ms=k9_plain_ms, bound_ms=k9_bound,
+             bound_by=k9_by, library_ms=None),
+        dict(name="treelet_closest_hit", route="cuda",
+             source="tpt_torch/csrc/treelet.cu",
+             replaces="tpt/bvh/pallas_treelet.py:570",
+             launches=launches["treelet_closest_hit"], max_abs_err=k10_err,
+             ms=k10_ms, plain_ms=k10_plain_ms, bound_ms=k10_bound,
+             bound_by=k10_by, library_ms=None),
+    ]
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1042,6 +1412,7 @@ def main() -> int:
     from tpt_torch import _build
     from tpt_torch.bvh import packet_traverse as pt
     from tpt_torch.bvh import sweep as sw
+    from tpt_torch.bvh import treelet_traverse as tlt
     from tpt_torch.config import RayCastBackend, RenderConfig
     from tpt_torch.core.camera import Camera
     from tpt_torch.denoise import stencil
@@ -1062,9 +1433,10 @@ def main() -> int:
 
     # ---- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:   # the nvcc and g++ side by side
+    with ThreadPoolExecutor(5) as pool:   # the nvcc and g++ side by side
         builds = [pool.submit(pt.build_kernels), pool.submit(sw.build_kernels),
-                  pool.submit(stencil.build_kernels), pool.submit(native._load)]
+                  pool.submit(stencil.build_kernels),
+                  pool.submit(tlt.build_kernels), pool.submit(native._load)]
         for b in builds:
             b.result()
     for name, log in _build.build_logs.items():
@@ -1083,7 +1455,7 @@ def main() -> int:
     phase("scene", t0, triangles=host.mesh.num_triangles,
           nodes=pack.num_nodes, tri_rows=pack.tri_f32.shape[0],
           arity=pack.arity, cluster=pack.max_cluster,
-          treelets=scene.sweep.num_treelets,
+          treelets=scene.sweep.num_treelets, top_nodes=pack.num_top,
           max_chunks=scene.sweep.max_chunks,
           sweep_rows=scene.sweep.tri_f32.shape[0])
 
@@ -1151,8 +1523,9 @@ def main() -> int:
           f"node visits {int(stats1[0])}, slab tests {int(stats1[1])}, "
           f"tri tests {int(stats1[2])}")
     print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
-          "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject "
-          "ported (cuda); K7-K11 not yet ported")
+          "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject, "
+          "K9 treelet_scan, K10 treelet_closest_hit ported (cuda); K7, K8a, "
+          "K8b, K11 not yet ported")
     phase("kernels", t0, n_compare=N_COMPARE, lanes=n_full,
           k2_ms=f"{k2_ms:.3f}", k1_ms=f"{k1_ms:.3f}")
     del rec, carry, ext, shd
@@ -1262,6 +1635,7 @@ def main() -> int:
 
     sweep_kernels = sweep_phases(scene, cam, dev)
     svgf_kernels = svgf_phases(scene, cam, dev)
+    treelet_kernels = treelet_phases(scene, cam, dev, frame_ms)
 
     kernels = [
         dict(name="packet_closest_hit_wide", route="cuda",
@@ -1276,7 +1650,7 @@ def main() -> int:
              launches=launches["packet_any_hit_wide"],
              max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
              bound_ms=k1_bound, bound_by=k1_by, library_ms=None),
-    ] + sweep_kernels + svgf_kernels
+    ] + sweep_kernels + svgf_kernels + treelet_kernels
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,6 +1,7 @@
 """tpt_torch's CUDA kernels (K2 closest hit, K1 any hit, K3 dense scan,
-K4 demand sweep, K5 a-trous stencil, K6 temporal reprojection) on the
-card, each against its plain PyTorch version.
+K4 demand sweep, K5 a-trous stencil, K6 temporal reprojection, K9
+treelet scan, K10 treelet closest hit) on the card, each against its
+plain PyTorch version.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor tpt, so it also runs on a GPU machine without
@@ -18,6 +19,7 @@ import torch
 from tpt_torch.bvh import packet_traverse as pt
 from tpt_torch.bvh import sweep as sw
 from tpt_torch.bvh import sweepcast as tsc
+from tpt_torch.bvh import treelet_traverse as tlt
 from tpt_torch.bvh.treelet import SweepTables
 from tpt_torch import Renderer
 from tpt_torch.config import RayCastBackend, RenderConfig
@@ -409,3 +411,147 @@ def test_denoised_renderer_kernels_equal_plain(cornell, cuda, monkeypatch):
     for a, b in zip(img_k, img_p):
         assert np.isfinite(a).all() and a.mean() > 0.01
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K9 treelet scan and K10 treelet closest hit
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def treelet_scenes(cuda):
+    """Cornell (4428 triangles) cut into treelets of <= 64 triangles, and
+    of <= 16, where every treelet root is a single cluster (a negative
+    treelet code, drained from the cluster stack)."""
+    host = procedural.cornell_box(resolution=(32, 32))
+    return {mt: host.build(with_bvh=True, treelet_max_tris=mt, device=cuda)
+            for mt in (16, 64)}
+
+
+def _treelet_rays(data, n, seed, cuda):
+    """n rays inside the box, every 7th lane dead, and NaN, +-0
+    directions and a NaN origin among the first lanes."""
+    pos = data.mesh.positions
+    lo = [float(c.min()) for c in (pos.x, pos.y, pos.z)]
+    hi = [float(c.max()) for c in (pos.x, pos.y, pos.z)]
+    rs = np.random.default_rng(seed)
+    o = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    special = [(0.0, -0.0, 1.0), (-0.0, 1.0, 0.0), (np.nan, 0.5, 0.5),
+               (0.0, 0.0, -1.0)]
+    for k, v in enumerate(special[:max(0, n - 1)]):
+        d[1 + k] = v
+    if n > 6:
+        o[6] = (np.nan, 0.0, 0.0)
+    tm = np.full(n, 3.4e38, np.float32)
+    tm[7::7] = -1.0
+    v = lambda a: Vec3.from_stacked(torch.from_numpy(a).to(cuda))
+    return v(o), v(d), torch.from_numpy(tm).to(cuda)
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b), int((a != b).sum())
+
+
+@pytest.mark.parametrize("n,group", [(1, 2), (2049, 2), (6000, 4)])
+def test_treelet_scan_kernel_equals_plain(treelet_scenes, cuda, n, group):
+    data = treelet_scenes[64]
+    o, d, tm = _treelet_rays(data, n, 31, cuda)
+    before = tlt.LAUNCHES["treelet_scan"]
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = tlt.treelet_scan(data.pack, o, d, tm, group=group, stats=stats)
+    assert tlt.LAUNCHES["treelet_scan"] == before + 1
+    want = tlt.treelet_scan_plain(data.pack, o, d, tm, group=group)
+    for a, b in zip(got, want):
+        _bits_equal(a, b)
+    assert int(got[5]) == 0 and int(stats[0]) > 0
+
+
+def test_treelet_scan_dead_pool(treelet_scenes, cuda):
+    data = treelet_scenes[64]
+    o, d, _ = _treelet_rays(data, 3000, 32, cuda)
+    tm = torch.full((3000,), -1.0, device=cuda)
+    st, sc, so, ovf, cnt, capped = tlt.treelet_scan(data.pack, o, d, tm)
+    assert bool((sc == tlt.NONE_CODE).all()) and not bool(ovf.any())
+    assert not bool(cnt.any()) and int(capped) == 0
+    hit, capped = tlt.treelet_closest_hit(data.pack, o, d, tm)
+    assert bool((hit.tri == -1).all()) and int(capped) == 0
+
+
+@pytest.mark.parametrize("mt", [16, 64])
+@pytest.mark.parametrize("n,group,seeded", [
+    (1, 2, False), (2049, 2, False), (2049, 2, True), (6000, 4, False),
+    (6000, 2, True)])
+def test_treelet_closest_hit_kernel_equals_plain(treelet_scenes, cuda, mt, n,
+                                                 group, seeded):
+    """Unseeded and seeded from K9 (pool sorted by the seed's ordinal, as
+    the wavefront does), bit for bit; the hits are brute force's."""
+    data = treelet_scenes[mt]
+    pack = data.pack
+    if mt == 16:
+        assert bool((pack.top_tref < -1).any())
+    o, d, tm = _treelet_rays(data, n, 33 + n, cuda)
+    seed = None
+    if seeded:
+        st, sc, so, ovf, _, _ = tlt.treelet_scan(pack, o, d, tm)
+        key = torch.where(sc != tlt.NONE_CODE, so.long(), 1 << 30)
+        perm = torch.sort(key, stable=True).indices
+        g = lambda a: a[perm].contiguous()
+        o, d = Vec3(g(o.x), g(o.y), g(o.z)), Vec3(g(d.x), g(d.y), g(d.z))
+        tm, seed = g(tm), (g(st), g(sc), g(ovf))
+    before = tlt.LAUNCHES["treelet_closest_hit"]
+    stats = torch.zeros(6, dtype=torch.int64, device=cuda)
+    got, cap_k = tlt.treelet_closest_hit(pack, o, d, tm, group=group,
+                                         seed=seed, stats=stats)
+    assert tlt.LAUNCHES["treelet_closest_hit"] == before + 1
+    want, cap_p = tlt.treelet_closest_hit_plain(pack, o, d, tm, group=group,
+                                                seed=seed)
+    for f in ("t", "tri", "u", "v"):
+        _bits_equal(getattr(got, f), getattr(want, f))
+    assert int(cap_k) == 0 and int(cap_p) == 0
+    ref = intersect.brute_force_closest_hit(data.mesh, o, d, tm)
+    assert torch.equal(got.tri, ref.tri)
+    assert int(stats[3]) > 0 and int(stats[5]) <= int(stats[3])
+
+
+def test_treelet_max_rounds_is_capped(treelet_scenes, cuda):
+    """One round cannot finish: every live lane of every packet counts."""
+    data = treelet_scenes[64]
+    o, d, tm = _treelet_rays(data, 5000, 40, cuda)
+    got, cap_k = tlt.treelet_closest_hit(data.pack, o, d, tm, max_rounds=1)
+    want, cap_p = tlt.treelet_closest_hit_plain(data.pack, o, d, tm,
+                                                max_rounds=1)
+    for f in ("t", "tri", "u", "v"):
+        _bits_equal(getattr(got, f), getattr(want, f))
+    assert int(cap_k) == int(cap_p) == int((tm > 0).sum()) > 0
+
+
+def test_treelet_render_kernels_equal_plain(cuda, monkeypatch):
+    """A BVH_TREELET render (hybrid on) launches K10 at every bounce and
+    K9 at every bounce after the first, and equals the same render
+    through the plain versions."""
+    host = procedural.cornell_box(resolution=(32, 32), spheres=True)
+    data = host.build(with_bvh=True, device=cuda)
+    cfg = RenderConfig(backend=RayCastBackend.BVH_TREELET, trace_depth=3,
+                       treelet_hard_count=2)
+    before = dict(tlt.LAUNCHES)
+    rc = common.make_raycaster(data, cfg)
+    img_k = wavefront.render(data, host.camera, cfg, iterations=2,
+                             raycaster=rc)
+    assert tlt.LAUNCHES["treelet_closest_hit"] == \
+        before["treelet_closest_hit"] + 6
+    assert tlt.LAUNCHES["treelet_scan"] == before["treelet_scan"] + 4
+    monkeypatch.setattr(tlt, "treelet_scan", tlt.treelet_scan_plain)
+    monkeypatch.setattr(tlt, "treelet_closest_hit",
+                        tlt.treelet_closest_hit_plain)
+    monkeypatch.setattr(pt, "packet_closest_hit_wide",
+                        pt.closest_hit_wide_plain)
+    monkeypatch.setattr(pt, "packet_any_hit_wide", pt.any_hit_wide_plain)
+    rp = common.make_raycaster(data, cfg)
+    img_p = wavefront.render(data, host.camera, cfg, iterations=2,
+                             raycaster=rp)
+    assert int(rc.capped) == 0 and int(rp.capped) == 0
+    assert np.isfinite(img_k).all() and img_k.mean() > 0.01
+    np.testing.assert_array_equal(img_k, img_p)

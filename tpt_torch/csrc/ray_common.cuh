@@ -1,6 +1,6 @@
-// Ray set-up and the ray-triangle test shared by the port's CUDA kernels
-// (packet_wide.cu: K1/K2; sweep.cu: K3/K4), so that the wide-BVH tail
-// of the sweep pipeline and the sweep itself test each ray-triangle pair
+// Ray set-up, NaN-propagating min/max and the ray-triangle test shared by
+// the port's CUDA kernels (packet_wide.cu: K1/K2; sweep.cu: K3/K4;
+// treelet.cu: K9/K10), so that every kernel tests a ray-triangle pair
 // with the same code. Every kernel that includes this is compiled with
 // -fmad=false and without fast-math: the arithmetic is the TPU kernels',
 // operation for operation, and the plain PyTorch versions give the same
@@ -11,6 +11,15 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// min/max that return NaN when either operand is NaN (jnp.minimum,
+// torch.minimum); CUDA's fminf/fmaxf drop a NaN
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
 
 // 1/d with |d| <= 1e-12 replaced by +-1e-12; -0.0 and NaN go to the
 // branch the TPU kernels' jnp.where sends them to (-0.0 >= 0 holds, NaN

@@ -58,14 +58,6 @@
 
 namespace {
 
-// min/max that return NaN when either operand is NaN (jnp.minimum)
-__device__ __forceinline__ float nmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
 template <int S>
 __global__ void __launch_bounds__(SCAN_BLOCK) dense_scan_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,

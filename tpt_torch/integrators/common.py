@@ -1,7 +1,7 @@
 """Shared integrator machinery: the ray-cast backend seam, the hit-surface
 fetch and Russian roulette. Counterpart of `tpt/integrators/common.py`
-for the ported slices: the BRUTE_FORCE, BVH_PALLAS and BVH_SWEEP
-backends and untextured materials."""
+for the ported slices: the BRUTE_FORCE, BVH_PALLAS, BVH_TREELET and
+BVH_SWEEP backends and untextured materials."""
 
 from __future__ import annotations
 
@@ -32,10 +32,12 @@ class Raycaster:
 
 def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
     """The backend `cfg.backend` names. The TPU packet-kernel knobs
-    (trav_group, pops) have no meaning for the per-thread CUDA kernels;
-    wavefront refuses them when set. A BVH_SWEEP raycaster serves both
-    the camera rays (K2) and the bin-sorted bounce pools (sweep
-    pipeline), told apart by `sweep_slots`."""
+    (trav_group, pops) keep their defaults: the per-thread K1/K2 have no
+    packets, and the treelet kernels K9/K10 walk tpt's default packets;
+    wavefront refuses other values. A BVH_SWEEP raycaster serves both the
+    camera rays (K2) and the bin-sorted bounce pools (sweep pipeline),
+    told apart by `sweep_slots`; a BVH_TREELET raycaster serves the camera
+    rays (`primary=True`) and the seeded bounce pools."""
     dev = scene.device
     capped = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.backend == RayCastBackend.BRUTE_FORCE:
@@ -69,6 +71,55 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
 
         return Raycaster(closest_hit=closest, any_hit=any_hit,
                          name="bvh_pallas", capped=capped)
+    if cfg.backend == RayCastBackend.BVH_TREELET:
+        from ..bvh.packet_traverse import (packet_any_hit_wide,
+                                           packet_closest_hit_wide)
+        from ..bvh.treelet_traverse import treelet_closest_hit
+        from .intersect import FLT_MAX
+
+        pack = scene.pack
+        if pack is None or pack.top_f32 is None:
+            raise ValueError("BVH_TREELET needs treelet tables "
+                             "(HostScene.build(with_bvh=True) attaches them "
+                             "to wide packs)")
+        knobs = dict(slots=cfg.treelet_slots,
+                     max_rounds=cfg.treelet_max_rounds)
+
+        def closest(o, d, t_max=None, seed=None, hard=None, primary=False):
+            """K10 over super-packets of trav_group_primary * 1024 lanes
+            for the camera rays (`primary`), trav_group * 1024 for bounce
+            pools, started from the wavefront's K9 `seed` when given.
+            With `hard` (the hybrid split), K10 sees the hard lanes as dead
+            (t_max -1) and K2 casts them over the whole pool; each lane
+            takes its own kernel's hit (tpt/integrators/common.py:87-101)."""
+            if t_max is None:
+                t_max = torch.full((o.shape[0],), FLT_MAX, device=o.device)
+            group = cfg.trav_group_primary if primary else cfg.trav_group
+            if hard is None:
+                hit, c = treelet_closest_hit(pack, o, d, t_max, group=group,
+                                             seed=seed, **knobs)
+                capped.add_(c)
+                return hit
+            hit_e, c_e = treelet_closest_hit(
+                pack, o, d, torch.where(hard, -1.0, t_max), group=group,
+                seed=seed, **knobs)
+            hit_h, c_h = packet_closest_hit_wide(
+                pack, o, d, torch.where(hard, t_max, -1.0))
+            capped.add_(c_e + c_h)
+            pick = lambda a, b: torch.where(hard, a, b)
+            return HitRecord(t=pick(hit_h.t, hit_e.t),
+                             tri=pick(hit_h.tri, hit_e.tri),
+                             u=pick(hit_h.u, hit_e.u),
+                             v=pick(hit_h.v, hit_e.v))
+
+        def any_hit(o, d, t_max):
+            # shadow rays stay on K1, as tpt's do
+            occ, c = packet_any_hit_wide(pack, o, d, t_max)
+            capped.add_(c)
+            return occ
+
+        return Raycaster(closest_hit=closest, any_hit=any_hit,
+                         name="bvh_treelet", capped=capped)
     if cfg.backend == RayCastBackend.BVH_SWEEP:
         from ..bvh.packet_traverse import (packet_any_hit_wide,
                                            packet_closest_hit_wide)
@@ -107,7 +158,7 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
                          name="bvh_sweep", capped=capped)
     raise NotImplementedError(
         f"backend {cfg.backend.name} is not ported yet "
-        "(BRUTE_FORCE, BVH_PALLAS, BVH_SWEEP)")
+        "(BRUTE_FORCE, BVH_PALLAS, BVH_TREELET, BVH_SWEEP)")
 
 
 def interpolate_surface(mesh: MeshData, tri: torch.Tensor, bu: torch.Tensor,

@@ -2,9 +2,10 @@
 Shade -> TraceShadow] over one path pool.
 
 Counterpart of `tpt/integrators/wavefront.py` for the BRUTE_FORCE,
-BVH_PALLAS and BVH_SWEEP backends, with the same carry tuple, the same
-per-lane RNG stream and the same stage arithmetic, so one bounce fed the
-same carry gives the same result in both packages (tests).
+BVH_PALLAS, BVH_TREELET and BVH_SWEEP backends, with the same carry
+tuple, the same per-lane RNG stream and the same stage arithmetic, so one
+bounce fed the same carry gives the same result in both packages
+(tests).
 
 The frame is one loop over bounces in eager PyTorch. What the JAX
 package adds around it to work around the TPU — split per-bounce
@@ -17,7 +18,12 @@ similar traversal paths; pixel order is restored once per frame. Under
 BVH_SWEEP that sort is the sweep's bin sort instead: the dense treelet
 scan (K3) runs on the unsorted pool and the pool sorts once by the bin
 key, carrying the scan's slot planes to the sweep cast (tpt's "wide"
-seed mode; its packed and lean modes give the same hits).
+seed mode; its packed and lean modes give the same hits). Under
+BVH_TREELET the camera rays go unsorted through K10 with the primary
+packets, and every later bounce runs the treelet scan K9 on the unsorted
+pool, splits easy from hard rays, and sorts once by (treelet key,
+coherence key), carrying K9's seed planes to the cast (tpt's split-mode
+seeding).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from ..bvh.sweep import MAX_SLOTS
+from ..bvh.treelet_traverse import MAX_SLOTS as TREELET_MAX_SLOTS
 from ..config import RayCastBackend, RenderConfig
 from ..core import rng
 from ..core.camera import Camera, generate_camera_rays
@@ -83,25 +90,35 @@ _SWEEP_KNOBS = {
     "sweep_seed_mode": ("packed", "lean", "wide"),
     "sweep_tail_compact": ("scatter", "sort"),
 }
-# RenderConfig knobs of the TPU kernels and their dispatch (packet shape,
-# treelet pipeline, the sweep variants not ported, sort cadence): the
-# port reads none of them, so a value other than the default is refused
-# rather than ignored
+# the BVH_TREELET knobs this port implements
+_INT32 = range(-2**31, 2**31)
+_TREELET_KNOBS = {
+    "treelet_slots": range(1, TREELET_MAX_SLOTS + 1),
+    "treelet_max_rounds": range(1, 2**31),
+    "treelet_hybrid": (False, True),
+    "treelet_hard_count": _INT32,
+}
+# RenderConfig knobs of the TPU kernels and their dispatch (packet shape
+# and pops, the sweep variants not ported, sort cadence): the port keeps
+# their defaults (the treelet kernels walk tpt's default packets), so a
+# value other than the default is refused rather than ignored
 _TPU_KNOBS = tuple(f.name for f in fields(RenderConfig)
                    if f.name.startswith(("trav_", "sweep_", "treelet_"))
-                   and f.name not in _SWEEP_KNOBS) + ("sort_every",)
+                   and f.name not in _SWEEP_KNOBS
+                   and f.name not in _TREELET_KNOBS) + ("sort_every",)
 
 
 def _unsupported(cfg: RenderConfig) -> Optional[str]:
     """The RenderConfig options the port does not implement."""
     if cfg.backend not in (RayCastBackend.BRUTE_FORCE, RayCastBackend.BVH_PALLAS,
+                           RayCastBackend.BVH_TREELET,
                            RayCastBackend.BVH_SWEEP):
         return f"backend {cfg.backend.name}"
     default = RenderConfig()
     for name in _TPU_KNOBS:
         if getattr(cfg, name) != getattr(default, name):
             return name
-    for name, ok in _SWEEP_KNOBS.items():
+    for name, ok in list(_SWEEP_KNOBS.items()) + list(_TREELET_KNOBS.items()):
         if getattr(cfg, name) not in ok:
             return f"{name}={getattr(cfg, name)!r}"
     if cfg.backend == RayCastBackend.BVH_SWEEP and not cfg.sort_bounce_rays:
@@ -169,6 +186,41 @@ def _sweep_bin_sort(cfg: RenderConfig, carry_slice, keys, slots_raw):
             (s_o[:, perm], s_t[:, perm], g(thr)))
 
 
+def _treelet_seed_sort(scene: SceneData, cfg: RenderConfig, carry_slice):
+    """BVH_TREELET seeding (tpt/integrators/wavefront.py:314-359): the
+    treelet scan K9 on the unsorted pool, the hybrid easy/hard split (a
+    live lane with cnt >= treelet_hard_count is hard), and one stable sort
+    by (treelet key, coherence key): easy lanes grouped by their nearest
+    treelet's ordinal, then hard lanes, then lanes with no candidate, dead
+    lanes last. Returns (sorted slice, seed (entry t, code, overflow), hard
+    in pool order, K9's capped count)."""
+    from ..bvh.treelet_traverse import NONE_CODE, treelet_scan
+    from . import raysort
+
+    (ori, direction, throughput, last_pdf, state, alive, direct,
+     indirect, pixel_idx) = carry_slice
+    pre_tmax = torch.where(alive, 3.4e38, -1.0)
+    st, sc, so, ovf, cnt, capped = treelet_scan(
+        scene.pack, ori, direction, pre_tmax, group=cfg.trav_group)
+    world_lo, world_inv = raysort.world_bounds(scene.mesh)
+    dir_key = raysort.coherence_key(ori, direction, world_lo, world_inv,
+                                    mode=cfg.sort_key)
+    hard = (alive & (cnt >= cfg.treelet_hard_count) if cfg.treelet_hybrid
+            else torch.zeros_like(alive))
+    key1 = torch.where(
+        alive & hard, 1 << 29,
+        torch.where(alive & (sc != NONE_CODE), so.long(),
+                    torch.where(alive, (1 << 30) - 1, 1 << 30)))
+    # both keys are non-negative and below 2**31: one int64 key sorts by
+    # key1, then by the coherence key, as tpt's two-key lax.sort does
+    perm = torch.sort((key1 << 32) | dir_key, stable=True).indices
+    g = lambda a: a[perm]
+    gv = lambda v: Vec3(v.x[perm], v.y[perm], v.z[perm])
+    return ((gv(ori), gv(direction), gv(throughput), g(last_pdf), g(state),
+             g(alive), gv(direct), gv(indirect), g(pixel_idx)),
+            (g(st), g(sc), g(ovf)), g(hard), capped)
+
+
 def unsort_by_pixel(pixel_idx, direct: Vec3, indirect: Vec3):
     """Restore pixel order (pixel_idx is a permutation of each sample
     batch; the stable sort keeps a pixel's samples in pool order)."""
@@ -202,10 +254,19 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
             keys, slots_raw = _sweep_scan_keys(scene, cfg, pool)
             pool, cast_kw["sweep_slots"] = _sweep_bin_sort(cfg, pool, keys,
                                                            slots_raw)
+        elif cfg.backend == RayCastBackend.BVH_TREELET:
+            pool, cast_kw["seed"], hard, capped = _treelet_seed_sort(
+                scene, cfg, pool)
+            raycaster.capped.add_(capped)
+            if cfg.treelet_hybrid:
+                cast_kw["hard"] = hard
         else:
             pool = _sort_pool(scene, cfg, pool)
         (ori, direction, throughput, last_pdf, state, alive, direct,
          indirect, pixel_idx) = pool
+
+    if first and cfg.backend == RayCastBackend.BVH_TREELET:
+        cast_kw["primary"] = True   # tpt's primary raycaster
 
     # ---- TraceExtensionRay stage: dead lanes get t_max = -1 -------------
     ext_tmax = torch.where(alive, 3.4e38, -1.0)
