@@ -397,7 +397,8 @@ def treelet_scan_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
 
 
 class _Lanes:
-    """K10's per-lane state, [P, L] planes, and its per-packet flags."""
+    """K10's per-lane state, [P, L] planes ([S, P, L] for the slots), and
+    its per-packet flags."""
 
     def __init__(self, pack, o, dd, tm, S):
         dev = tm.device
@@ -411,9 +412,9 @@ class _Lanes:
         self.btri = torch.full((P, L), -1, dtype=torch.int64, device=dev)
         self.bu = torch.zeros((P, L), device=dev)
         self.bv = torch.zeros((P, L), device=dev)
-        self.s_t = [torch.full((P, L), _INF, device=dev) for _ in range(S)]
-        self.s_c = [torch.full((P, L), NONE_CODE, dtype=torch.int64,
-                               device=dev) for _ in range(S)]
+        self.s_t = torch.full((S, P, L), _INF, device=dev)
+        self.s_c = torch.full((S, P, L), NONE_CODE, dtype=torch.int64,
+                              device=dev)
         self.thr_t = torch.full((P, L), -_INF, device=dev)
         self.thr_c = torch.full((P, L), INT_MIN, dtype=torch.int64, device=dev)
         self.exh = torch.zeros((P, L), dtype=torch.int64, device=dev)
@@ -431,6 +432,22 @@ class _Lanes:
                 & (self.thr_t < self.bt))
 
 
+def _insert(s_t, s_c, cur_t, cur_c):
+    """tpt's compare-swap cascade of (cur_t, cur_c) [P, L] into the
+    ascending slots [S, P, L], done at once: the entry goes to the first
+    slot it precedes, the later ones move down one, and the last falls out
+    (returned code; NONE_CODE if nothing fell out). The cascade gives the
+    same slots because a lane's real entries are distinct and ascending
+    and its empty ones all equal (entry t _INF, NONE_CODE)."""
+    lt = _lex_lt(cur_t, cur_c, s_t, s_c)
+    prev = torch.cat((torch.zeros_like(lt[:1]), lt[:-1]))
+    new_t = torch.where(prev, torch.cat((s_t[:1], s_t[:-1])),
+                        torch.where(lt, cur_t, s_t))
+    new_c = torch.where(prev, torch.cat((s_c[:1], s_c[:-1])),
+                        torch.where(lt, cur_c, s_c))
+    return new_t, new_c, torch.where(lt[-1], s_c[-1], cur_c)
+
+
 def _scan_round(st: _Lanes, part: torch.Tensor) -> None:
     """A SCAN round of the packets in `part` (pallas_treelet.py:115-218)."""
     pack, S, A = st.pack, st.S, st.A
@@ -443,6 +460,8 @@ def _scan_round(st: _Lanes, part: torch.Tensor) -> None:
     sp = part.long()                  # the top root, row 0
     cap = 8 * pack.num_top + 1024
     s_t, s_c = st.s_t, st.s_c
+    o3 = tuple(c[:, None, :] for c in st.o)
+    inv3 = tuple(c[:, None, :] for c in st.inv)
     step = 0
     while bool((sp > 0).any()):
         if step >= cap:
@@ -455,32 +474,33 @@ def _scan_round(st: _Lanes, part: torch.Tensor) -> None:
             nid = code.clamp(0, pack.num_top - 1)
             row, crow = pack.top_f32[nid], st.top_child[nid]
             trow = st.tref[nid]
+            # every child's slab test at once; a lane of an empty pop
+            # tests nothing
+            hits, tns = _slab(row[:, :6 * A].reshape(P, A, 6), o3, inv3,
+                              limit[:, None, :])
+            hits = hits & vp[:, :, None]
             anyh = []
             for s in range(A):
-                hit, tn = _slab(row[:, 6 * s:6 * s + 6], st.o, st.inv, limit)
+                hit, tn = hits[:, s], tns[:, s]
                 kept = tn <= s_t[S - 1]
                 internal = (crow[:, s] >= 0)[:, None]
                 tcode = trow[:, s:s + 1]
-                cand = (hit & (tn < st.bt) & scan_mask & ~internal & vp
+                cand = (hit & (tn < st.bt) & scan_mask & ~internal
                         & ((tn > st.thr_t)
                            | ((tn == st.thr_t) & (tcode > st.thr_c))))
                 valid = cand & kept
                 ovf |= ((cand & ~kept)
-                        | (hit & ~kept & scan_mask & vp & internal))
-                cur_t = torch.where(valid, tn, st.inf)
-                cur_c = torch.where(valid, tcode, NONE_CODE)
-                for i in range(S):
-                    swap = _lex_lt(cur_t, cur_c, s_t[i], s_c[i])
-                    s_t[i], cur_t = (torch.where(swap, cur_t, s_t[i]),
-                                     torch.where(swap, s_t[i], cur_t))
-                    s_c[i], cur_c = (torch.where(swap, cur_c, s_c[i]),
-                                     torch.where(swap, s_c[i], cur_c))
-                ovf |= cur_c != NONE_CODE
-                anyh.append((hit & kept & internal & vp).any(1))
+                        | (hit & ~kept & scan_mask & internal))
+                s_t, s_c, out = _insert(
+                    s_t, s_c, torch.where(valid, tn, st.inf),
+                    torch.where(valid, tcode, NONE_CODE))
+                ovf |= out != NONE_CODE
+                anyh.append((hit & kept & internal).any(1))
             ordw = crow.gather(1, 8 + st.octant[:, None]).squeeze(1)
             csel, hsel = _ordered(crow[:, :A], torch.stack(anyh, 1), ordw, A)
             sp, dropped = _push(stack, sp, csel, hsel & (csel >= 0), NSTACK)
             st.inexact |= dropped
+    st.s_t, st.s_c = s_t, s_c
     full = s_c[S - 1] != NONE_CODE
     st.thr_t = torch.where(scan_mask & full, s_t[S - 1], st.thr_t)
     st.thr_c = torch.where(scan_mask & full, s_c[S - 1], st.thr_c)
@@ -522,7 +542,7 @@ def _drain_clusters(st: _Lanes, cval: torch.Tensor) -> None:
 
 def _drain_round(st: _Lanes, part: torch.Tensor) -> None:
     """A DRAIN round of the packets in `part` (pallas_treelet.py:223-331)."""
-    pack, S, A = st.pack, st.S, st.A
+    pack, A = st.pack, st.A
     P = part.shape[0]
     dev = part.device
     v0 = st.slot0_valid()
@@ -585,15 +605,11 @@ def _drain_round(st: _Lanes, part: torch.Tensor) -> None:
         st.inexact |= d1 | d2
     # consume the drained slot: from the match on, each slot takes its
     # successor's entry
-    s_t, s_c = list(st.s_t), list(st.s_c)
-    shifted = torch.zeros_like(v0)
-    for i in range(S):
-        shifted = shifted | (st.s_c[i] == root[:, None])
-        nt = st.s_t[i + 1] if i + 1 < S else st.inf
-        nc = st.s_c[i + 1] if i + 1 < S else NONE_CODE
-        s_t[i] = torch.where(shifted, nt, st.s_t[i])
-        s_c[i] = torch.where(shifted, nc, st.s_c[i])
-    st.s_t, st.s_c = s_t, s_c
+    shifted = torch.cumsum(st.s_c == root[None, :, None], 0) > 0
+    st.s_t = torch.where(shifted, torch.cat(
+        (st.s_t[1:], st.inf.expand(1, P, st.s_t.shape[2]))), st.s_t)
+    st.s_c = torch.where(shifted, torch.cat(
+        (st.s_c[1:], torch.full_like(st.s_c[:1], NONE_CODE))), st.s_c)
 
 
 def treelet_closest_hit_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
