@@ -77,7 +77,8 @@ on the hard ones. One line per phase (name, seconds, key numbers):
              and unseeded on whole packets of the camera rays, all bit for
              bit; the extension cast's hits (K10 and K2 picked by the hard
              flag) against K2 alone on every lane; CUDA-event timings,
-             bounds, drains per packet, hard and seeded shares
+             bounds (K10's from the tests K2's per-ray walk needs on the
+             same lanes), drains per packet, hard and seeded shares
   treelet_render
              wavefront.render with BVH_TREELET at 1080p, depth 8, with all
              launch counters zeroed just before and read just after (K10 8,
@@ -87,9 +88,11 @@ on the hard ones. One line per phase (name, seconds, key numbers):
   treelet_agreement
              BVH_TREELET at 240x135, depth 8, both samples in one pool
              (spp_batch 2), through the kernels, through the plain versions
-             and against the BVH_PALLAS render
+             and against the BVH_PALLAS render; it refuses to start with
+             less than twice its plain render's time left on the watchdog
 
-Then one JSON line describing each ported kernel, the nvidia-smi line,
+Then one JSON line describing each ported kernel (K9's and K10's with
+the lanes their times and bound were taken on), the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Any failed check raises, so the
 run exits nonzero and prints no result; so does a run without a CUDA
 device or outside the repository. A watchdog ends the whole run, with a
@@ -107,6 +110,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 WATCHDOG_S = 600          # whole run, builds included
+T_START = time.perf_counter()
 DEVICE = "cuda"
 RES = (1920, 1080)
 DEPTH = 8
@@ -159,6 +163,10 @@ TREELET_SEEDED_PACKETS = 128
 TREELET_PRIMARY_PACKETS = 64
 TREELET_FRAMES = 2
 TREELET_REPS = 3
+# the plain 240x135 BVH_TREELET render of treelet_agreement, at most, on an
+# H100 80GB HBM3 at 700 W: 113-138 s; its sequential steps are set by the
+# slowest packet, so a slower host takes longer
+TREELET_PLAIN_RENDER_S = 140.0
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -168,7 +176,25 @@ def phase(name: str, t0: float, **numbers) -> None:
 
     torch.cuda.synchronize()
     items = " ".join(f"{k}={v}" for k, v in numbers.items())
-    print(f"[{name}] {time.perf_counter() - t0:.2f}s {items}", flush=True)
+    now = time.perf_counter()
+    print(f"[{name}] {now - t0:.2f}s (run at {now - T_START:.1f}s, "
+          f"{100 * (now - T_START) / WATCHDOG_S:.0f}% of the {WATCHDOG_S} s "
+          f"watchdog) {items}", flush=True)
+
+
+def golden_agree(label: str, img, ref) -> dict:
+    """Hold image `img` against `ref` at tests/test_golden.py's tolerance:
+    finite, more than 97% of pixels within atol 5e-3 / rtol 1e-3, means
+    within 2%. Raises if they disagree; returns (close share, mean rel,
+    max abs)."""
+    import numpy as np
+
+    close = float(np.isclose(img, ref, atol=5e-3, rtol=1e-3).mean())
+    mean_rel = abs(float(img.mean()) / float(ref.mean()) - 1.0)
+    if not (np.isfinite(img).all() and close > 0.97 and mean_rel <= 0.02):
+        raise RuntimeError(f"{label} disagrees: close {close}, mean rel "
+                           f"{mean_rel}")
+    return close, mean_rel, float(np.abs(img - ref).max())
 
 
 def nvidia_smi() -> str:
@@ -715,13 +741,10 @@ def sweep_phases(scene, cam, dev) -> list:
         raise RuntimeError("agreement renders had capped rays")
     out = {}
     for label, ref in (("plain", img_p), ("pallas", img_w)):
-        close = float(np.isclose(img_k, ref, atol=5e-3, rtol=1e-3).mean())
-        mean_rel = abs(float(img_k.mean()) / float(ref.mean()) - 1.0)
-        if not (np.isfinite(img_k).all() and close > 0.97 and mean_rel <= 0.02):
-            raise RuntimeError(f"sweep render disagrees with {label}: close "
-                               f"{close}, mean rel {mean_rel}")
+        close, _, max_abs = golden_agree(f"sweep render vs {label}", img_k,
+                                         ref)
         out[f"{label}_close"] = f"{close:.6f}"
-        out[f"{label}_max_abs"] = f"{float(np.abs(img_k - ref).max()):.3g}"
+        out[f"{label}_max_abs"] = f"{max_abs:.3g}"
     phase("sweep_agreement", t0, **out)
 
     return [
@@ -1044,14 +1067,10 @@ def svgf_phases(scene, cam, dev) -> list:
         finally:
             patch.restore()
         for k, (a, b) in enumerate(zip(img_k, img_p)):
-            close = float(np.isclose(a, b, atol=5e-3, rtol=1e-3).mean())
-            mean_rel = abs(float(a.mean()) / float(b.mean()) - 1.0)
-            if not (np.isfinite(a).all() and close > 0.97
-                    and mean_rel <= 0.02):
-                raise RuntimeError(f"{label} frame {k} disagrees with plain: "
-                                   f"close {close}, mean rel {mean_rel}")
+            close, _, max_abs = golden_agree(f"{label} frame {k} vs plain",
+                                             a, b)
             worst_close = min(worst_close, close)
-            worst_abs = max(worst_abs, float(np.abs(a - b).max()))
+            worst_abs = max(worst_abs, max_abs)
     phase("svgf_agreement", t0, frames=2 * SVGF_FRAMES,
           min_close=f"{worst_close:.6f}", max_abs=f"{worst_abs:.3g}")
 
@@ -1250,11 +1269,23 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
     k2f_ms = kernel_ms(lambda: pt.packet_closest_hit_wide(pack, ori, d,
                                                           ext_tmax),
                        TREELET_REPS)
+    # K10's bound counts the tests the closest hit needs, not those its
+    # packets do (each lane tests every cluster its packet drains): the
+    # slab and triangle tests of K2's per-ray walk on the same lanes
     wide_bytes = sum(t.numel() * t.element_size() for t in (
         pack.node_f32, pack.node_child, pack.tri_f32))
-    k10_bound, k10_by = sweep_bound(
-        n, 28 + 12, 16, wide_bytes + top_bytes,
-        OPS_PER_SLAB * int(st10[1]) + OPS_PER_TRI * int(st10[2]))
+
+    def k10_bound(o_, d_, t_, seeded: bool) -> tuple:
+        need = torch.zeros(3, dtype=torch.int64, device=dev)
+        pt.packet_closest_hit_wide(pack, o_, d_, t_, stats=need)
+        b = sweep_bound(t_.shape[0], 28 + (12 if seeded else 0), 16,
+                        wide_bytes + top_bytes, OPS_PER_SLAB * int(need[1])
+                        + OPS_PER_TRI * int(need[2]))
+        return b + (need.cpu(),)
+
+    k10_b, k10_by, need10 = k10_bound(ori, d, easy_tmax, True)
+    k10s_b, k10s_by, _ = k10_bound(sub_o, sub_d, sub_t, True)
+    k10p_b, k10p_by, need0 = k10_bound(cam_o, cam_d, t_all, False)
     npk = -(-n // lanes)
     npk0 = -(-cam_o.x.shape[0] // lanes0)
     hard_share = float(hard.sum()) / max(1, n_live)
@@ -1263,23 +1294,29 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
           f"{k9_plain_ms:.1f} ms, bound {k9_bound:.3f} ms ({k9_by}); top "
           f"pops {int(st9[0])} over {npk} packets, slab tests {int(st9[1])}")
     print(f"  K10 seeded bounce 1: {k10_ms:.3f} ms "
-          f"({mr(k10_ms, n_live):.2f} M live rays/s), bound "
-          f"{k10_bound:.3f} ms ({k10_by}); drains {int(st10[3])} over "
-          f"{npk} packets (mean {int(st10[3]) / npk:.2f}, max "
+          f"({mr(k10_ms, n_live):.2f} M live rays/s), bound {k10_b:.3f} ms "
+          f"({k10_by}) from the per-ray walk's {int(need10[1])} slab and "
+          f"{int(need10[2])} tri tests; work done: drains {int(st10[3])} "
+          f"over {npk} packets (mean {int(st10[3]) / npk:.2f}, max "
           f"{int(st10[5])}), scan rounds {int(st10[4])}, node pops "
           f"{int(st10[0])}, slab tests {int(st10[1])}, tri tests "
-          f"{int(st10[2])}; on the {TREELET_SEEDED_PACKETS} packets held "
-          f"against plain: kernel {k10s_ms:.3f} ms, plain "
-          f"{k10_plain_ms:.1f} ms")
+          f"{int(st10[2])} ({int(st10[2]) / max(1, int(need10[2])):.1f}x "
+          f"the per-ray walk's); on the {TREELET_SEEDED_PACKETS} packets "
+          f"held against plain ({idx.numel()} lanes): kernel "
+          f"{k10s_ms:.3f} ms, plain {k10_plain_ms:.1f} ms, bound "
+          f"{k10s_b:.3f} ms ({k10s_by})")
     print(f"  K10 unseeded camera rays: {k10p_ms:.3f} ms "
-          f"({mr(k10p_ms, cam_o.x.shape[0]):.2f} Mrays/s); drains "
-          f"{int(st0[3])} over {npk0} packets (mean {int(st0[3]) / npk0:.2f},"
-          f" max {int(st0[5])}), tri tests {int(st0[2])}")
+          f"({mr(k10p_ms, cam_o.x.shape[0]):.2f} Mrays/s), bound "
+          f"{k10p_b:.3f} ms ({k10p_by}) from the per-ray walk's "
+          f"{int(need0[2])} tri tests; work done: drains {int(st0[3])} over "
+          f"{npk0} packets (mean {int(st0[3]) / npk0:.2f}, max "
+          f"{int(st0[5])}), tri tests {int(st0[2])}")
     print(f"  bounce 1: {n_live} live lanes, hard {100 * hard_share:.2f}% "
           f"(K2 on them: {k2h_ms:.3f} ms; K2 on every live lane: "
           f"{k2f_ms:.3f} ms), with a K9 seed {100 * seeded_share:.2f}%")
     phase("treelet_kernels", t0, lanes=n, k9_ms=f"{k9_ms:.3f}",
-          k10_ms=f"{k10_ms:.3f}", k10_primary_ms=f"{k10p_ms:.3f}",
+          k10_ms=f"{k10_ms:.3f}", k10_bound_ms=f"{k10_b:.3f}",
+          k10_primary_ms=f"{k10p_ms:.3f}",
           mean_drains=f"{int(st10[3]) / npk:.2f}", max_drains=int(st10[5]),
           hard_pct=f"{100 * hard_share:.2f}",
           seeded_pct=f"{100 * seeded_share:.2f}")
@@ -1348,6 +1385,13 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
 
     # ---- treelet_agreement: kernels vs plain, and vs BVH_PALLAS ------------
     t0 = time.perf_counter()
+    left = WATCHDOG_S - (t0 - T_START)
+    if left < 2 * TREELET_PLAIN_RENDER_S:
+        raise RuntimeError(
+            f"treelet_agreement: its plain render takes up to "
+            f"{TREELET_PLAIN_RENDER_S:.0f} s and only {left:.0f} s of the "
+            f"{WATCHDOG_S} s watchdog are left, less than twice that: the "
+            f"earlier phases ran slow on this host")
     small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
                          cam.fovy_deg)
     # both samples in one pool: the plain K10 takes as many sequential
@@ -1375,14 +1419,10 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
         raise RuntimeError("treelet agreement renders had capped lanes")
     out = {"plain_render_s": f"{plain_s:.1f}"}
     for label, ref in (("plain", img_p), ("pallas", img_w)):
-        close = float(np.isclose(img_k, ref, atol=5e-3, rtol=1e-3).mean())
-        mean_rel = abs(float(img_k.mean()) / float(ref.mean()) - 1.0)
-        if not (np.isfinite(img_k).all() and close > 0.97
-                and mean_rel <= 0.02):
-            raise RuntimeError(f"treelet render disagrees with {label}: "
-                               f"close {close}, mean rel {mean_rel}")
+        close, _, max_abs = golden_agree(f"treelet render vs {label}", img_k,
+                                         ref)
         out[f"{label}_close"] = f"{close:.6f}"
-        out[f"{label}_max_abs"] = f"{float(np.abs(img_k - ref).max()):.3g}"
+        out[f"{label}_max_abs"] = f"{max_abs:.3g}"
     phase("treelet_agreement", t0, **out)
 
     return [
@@ -1391,13 +1431,13 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
              replaces="tpt/bvh/pallas_treelet.py:522",
              launches=launches["treelet_scan"], max_abs_err=k9_err,
              ms=k9_ms, plain_ms=k9_plain_ms, bound_ms=k9_bound,
-             bound_by=k9_by, library_ms=None),
+             bound_by=k9_by, library_ms=None, lanes=n),
         dict(name="treelet_closest_hit", route="cuda",
              source="tpt_torch/csrc/treelet.cu",
              replaces="tpt/bvh/pallas_treelet.py:570",
              launches=launches["treelet_closest_hit"], max_abs_err=k10_err,
-             ms=k10_ms, plain_ms=k10_plain_ms, bound_ms=k10_bound,
-             bound_by=k10_by, library_ms=None),
+             ms=k10s_ms, plain_ms=k10_plain_ms, bound_ms=k10s_b,
+             bound_by=k10s_by, library_ms=None, lanes=int(idx.numel())),
     ]
 
 
@@ -1625,13 +1665,10 @@ def main() -> int:
     if int(kernel_rc.capped) or int(plain_capped):
         raise RuntimeError(f"agreement renders had capped rays: kernels "
                            f"{int(kernel_rc.capped)}, plain {int(plain_capped)}")
-    close = float(np.isclose(img_k, img_p, atol=5e-3, rtol=1e-3).mean())
-    mean_rel = abs(float(img_k.mean()) / float(img_p.mean()) - 1.0)
-    if not (np.isfinite(img_k).all() and close > 0.97 and mean_rel <= 0.02):
-        raise RuntimeError(f"kernel and plain renders disagree: close "
-                           f"{close}, mean rel {mean_rel}")
+    close, mean_rel, max_abs = golden_agree("kernel render vs plain", img_k,
+                                            img_p)
     phase("agreement", t0, close=f"{close:.6f}", mean_rel=f"{mean_rel:.3g}",
-          max_abs=f"{float(np.abs(img_k - img_p).max()):.3g}")
+          max_abs=f"{max_abs:.3g}")
 
     sweep_kernels = sweep_phases(scene, cam, dev)
     svgf_kernels = svgf_phases(scene, cam, dev)

@@ -18,7 +18,9 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -87,3 +89,19 @@ def load_library(name: str, compiler: List[str], sources: Sequence[str],
         _loaded[name] = ctypes.CDLL(
             build_library(name, compiler, sources, timeout, headers))
     return _loaded[name]
+
+
+def launch(lib: Callable[[], ctypes.CDLL], launches: Dict[str, int],
+           name: str, dev: torch.device, *args) -> None:
+    """Launch tpt_<name> of the library `lib()` loads on the current
+    stream, count it in `launches`, and raise on a CUDA error. A tensor
+    that is not on a CUDA device raises before anything is built."""
+    if dev.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {dev}")
+    fn = getattr(lib(), "tpt_" + name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    launches[name] += 1

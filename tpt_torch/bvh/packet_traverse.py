@@ -118,7 +118,6 @@ def _launch(name: str, pack: PacketBVH, ori: Vec3, d: Vec3,
                               or stats.dtype != torch.int64
                               or tuple(stats.shape) != (3,)):
         raise ValueError("stats must be an int64 [3] tensor on the rays' device")
-    lib = _lib()
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())
     args = [ptr(a) for a in (ori.x, ori.y, ori.z, d.x, d.y, d.z, t_max)]
     args += [n, ptr(pack.node_f32), pack.node_f32.shape[1],
@@ -126,12 +125,7 @@ def _launch(name: str, pack: PacketBVH, ori: Vec3, d: Vec3,
              pack.tri_f32.shape[0], pack.arity]
     args += [ptr(o) for o in outs] + [ptr(capped)]
     args.append(ptr(stats) if stats is not None else ctypes.c_void_p(None))
-    stream = torch.cuda.current_stream(ori.x.device).cuda_stream
-    with torch.cuda.device(ori.x.device):
-        rc = getattr(lib, "tpt_" + name)(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    _build.launch(_lib, LAUNCHES, name, ori.x.device, *args)
 
 
 def packet_closest_hit_wide(pack: PacketBVH, ori: Vec3, d: Vec3,
@@ -180,21 +174,24 @@ def packet_any_hit_wide(pack: PacketBVH, ori: Vec3, d: Vec3,
 # Plain PyTorch versions: the same walk, vectorised over rays
 # ---------------------------------------------------------------------------
 
-def _slab(box: torch.Tensor, o, inv, limit) -> torch.Tensor:
-    """box [k, 6] (min xyz, max xyz); o, inv: per-ray (x, y, z) [k]."""
-    t0x = (box[:, 0] - o[0]) * inv[0]
-    t0y = (box[:, 1] - o[1]) * inv[1]
-    t0z = (box[:, 2] - o[2]) * inv[2]
-    t1x = (box[:, 3] - o[0]) * inv[0]
-    t1y = (box[:, 4] - o[1]) * inv[1]
-    t1z = (box[:, 5] - o[2]) * inv[2]
+def _slab(box: torch.Tensor, o, inv, limit, entry: bool = False):
+    """Slab test of boxes box [..., 6] (min xyz, max xyz) against rays o,
+    inv (x, y, z), each box[..., c] broadcast against them; the hit mask,
+    or (hit, entry t) when `entry`. NaN-propagating, as jnp's min/max."""
+    t0x = (box[..., 0] - o[0]) * inv[0]
+    t0y = (box[..., 1] - o[1]) * inv[1]
+    t0z = (box[..., 2] - o[2]) * inv[2]
+    t1x = (box[..., 3] - o[0]) * inv[0]
+    t1y = (box[..., 4] - o[1]) * inv[1]
+    t1z = (box[..., 5] - o[2]) * inv[2]
+    zero = torch.zeros((), device=box.device)
     tn = torch.maximum(
         torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
-        torch.clamp_min(torch.minimum(t0z, t1z), 0.0))
+        torch.maximum(torch.minimum(t0z, t1z), zero))
     tf = torch.minimum(
         torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
         torch.minimum(torch.maximum(t0z, t1z), limit))
-    return tn <= tf
+    return (tn <= tf, tn) if entry else tn <= tf
 
 
 def _mt_rows(rows: torch.Tensor, o, d):

@@ -119,20 +119,12 @@ def _ptr(a: Optional[torch.Tensor]) -> ctypes.c_void_p:
 
 
 def _run(name: str, dev: torch.device, *args) -> None:
-    if dev.type != "cuda":
-        raise ValueError(f"no {name} kernel for device {dev}")
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = getattr(lib, "tpt_" + name)(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    _build.launch(_lib, LAUNCHES, name, dev, *args)
 
 
-def _slots(slots: int) -> int:
-    if not 1 <= slots <= MAX_SLOTS:
-        raise ValueError(f"slots must be in 1..{MAX_SLOTS}, got {slots}")
+def _slots(slots: int, most: int = MAX_SLOTS) -> int:
+    if not 1 <= slots <= most:
+        raise ValueError(f"slots must be in 1..{most}, got {slots}")
     return slots
 
 

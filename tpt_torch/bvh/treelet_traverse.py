@@ -43,8 +43,8 @@ from .. import _build
 from ..core.vec import Vec3
 from ..integrators.intersect import FLT_MAX, HitRecord, safe_inv
 from .pack import PacketBVH
-from .packet_traverse import HEADERS, NVCC_FLAGS, _mt_rows
-from .sweep import _check_rays, _check_stats, _ptr
+from .packet_traverse import HEADERS, NVCC_FLAGS, _mt_rows, _slab
+from .sweep import _check_rays, _check_stats, _ptr, _slots
 
 NONE_CODE = 0x7FFFFFFF   # empty slot (pallas_treelet.py NONE_CODE)
 INT_MIN = -0x80000000
@@ -108,12 +108,6 @@ def _packet(group: int) -> int:
     return LANES_PER_GROUP * group
 
 
-def _slots(slots: int) -> int:
-    if not 1 <= slots <= MAX_SLOTS:
-        raise ValueError(f"slots must be in 1..{MAX_SLOTS}, got {slots}")
-    return slots
-
-
 def _check_pack(pack: PacketBVH, dev, wide: bool) -> None:
     if pack.top_f32 is None:
         raise ValueError("BVH_TREELET needs treelet tables "
@@ -143,15 +137,7 @@ def _check_pack(pack: PacketBVH, dev, wide: bool) -> None:
 
 
 def _run(name: str, dev: torch.device, *args) -> None:
-    if dev.type != "cuda":
-        raise ValueError(f"no {name} kernel for device {dev}")
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = getattr(lib, "tpt_" + name)(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    _build.launch(_lib, LAUNCHES, name, dev, *args)
 
 
 def _rays(ori: Vec3, d: Vec3, t_max: torch.Tensor):
@@ -212,7 +198,7 @@ def treelet_closest_hit(pack: PacketBVH, ori: Vec3, d: Vec3,
     (HitRecord, capped). `stats`, an int64 [6] CUDA tensor, collects (node
     pops, slab tests, triangle tests, drain rounds, scan rounds, most
     drain rounds of one packet)."""
-    S = _slots(slots)
+    S = _slots(slots, MAX_SLOTS)
     n = _check_rays(ori, d, t_max)
     dev = t_max.device
     _check_pack(pack, dev, wide=True)
@@ -261,26 +247,6 @@ def _tiles(ori: Vec3, d: Vec3, t_max: torch.Tensor, L: int):
     o = tuple(tile(c, 0.0) for c in (ori.x, ori.y, ori.z))
     dd = tuple(tile(c, 0.0) for c in (d.x, d.y, d.z))
     return o, dd, tile(t_max, -1.0), tile
-
-
-def _slab(box: torch.Tensor, o, inv, limit):
-    """Slab test of per-packet boxes box [..., 6] against lanes o, inv
-    (x, y, z) [..., L]; (hit, entry t), NaN-propagating as jnp's."""
-    b = lambda c: box[..., c, None]
-    t0x = (b(0) - o[0]) * inv[0]
-    t0y = (b(1) - o[1]) * inv[1]
-    t0z = (b(2) - o[2]) * inv[2]
-    t1x = (b(3) - o[0]) * inv[0]
-    t1y = (b(4) - o[1]) * inv[1]
-    t1z = (b(5) - o[2]) * inv[2]
-    zero = torch.zeros((), device=box.device)
-    tn = torch.maximum(
-        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
-        torch.maximum(torch.minimum(t0z, t1z), zero))
-    tf = torch.minimum(
-        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
-        torch.minimum(torch.maximum(t0z, t1z), limit))
-    return tn <= tf, tn
 
 
 def _lex_lt(t_a, c_a, t_b, c_b):
@@ -369,7 +335,8 @@ def treelet_scan_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
             trow, orow = tref[nid], tord[nid]
             anyh = []
             for s in range(A):
-                hit, tn = _slab(row[:, 6 * s:6 * s + 6], o, inv, bt)
+                hit, tn = _slab(row[:, None, 6 * s:6 * s + 6], o, inv, bt,
+                                entry=True)
                 kept = tn <= s_t
                 internal = (crow[:, s] >= 0)[:, None]
                 cand = hit & (tn < bt) & vp & ~internal
@@ -476,8 +443,8 @@ def _scan_round(st: _Lanes, part: torch.Tensor) -> None:
             trow = st.tref[nid]
             # every child's slab test at once; a lane of an empty pop
             # tests nothing
-            hits, tns = _slab(row[:, :6 * A].reshape(P, A, 6), o3, inv3,
-                              limit[:, None, :])
+            hits, tns = _slab(row[:, :6 * A].reshape(P, A, 1, 6), o3, inv3,
+                              limit[:, None, :], entry=True)
             hits = hits & vp[:, :, None]
             anyh = []
             for s in range(A):
@@ -591,7 +558,7 @@ def _drain_round(st: _Lanes, part: torch.Tensor) -> None:
         row, crow = pack.node_f32[nid], st.node_child[nid]       # [P, 4, .]
         boxes = torch.stack([row[..., 6 * s:6 * s + 6] for s in range(A)],
                             2).reshape(P, NODE_POPS * A, 6)
-        hit, _ = _slab(boxes, o3, inv3, st.bt[:, None, :])
+        hit = _slab(boxes[:, :, None], o3, inv3, st.bt[:, None, :])
         hit = hit & (ncode >= 0).repeat_interleave(A, 1)[:, :, None]
         anyh = hit.any(2).reshape(P, NODE_POPS, A)
         ordw = crow.gather(2, (8 + st.octant)[:, None, None].expand(
@@ -619,7 +586,7 @@ def treelet_closest_hit_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
                               ) -> Tuple[HitRecord, torch.Tensor]:
     """Plain K10 (any device): tpt's round machine for all packets at
     once."""
-    S = _slots(slots)
+    S = _slots(slots, MAX_SLOTS)
     n = _check_rays(ori, d, t_max)
     dev = t_max.device
     _check_pack(pack, dev, wide=True)

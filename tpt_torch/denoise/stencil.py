@@ -72,15 +72,7 @@ def plane_array(planes: Sequence[torch.Tensor]):
 
 def run(name: str, dev: torch.device, launches: dict, *args) -> None:
     """Launch tpt_<name> on the current stream; raise on a CUDA error."""
-    if dev.type != "cuda":
-        raise ValueError(f"no {name} kernel for device {dev}")
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = getattr(lib, "tpt_" + name)(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    launches[name] += 1
+    _build.launch(_lib, launches, name, dev, *args)
 
 
 def atrous_plain(ill_d: Vec3, var_d, ill_i: Vec3, var_i, depth, normal: Vec3,
