@@ -3,26 +3,31 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths at full size on the 139k-triangle
+Drives the port's main paths at full size on the 139k-triangle
 `fireplace_like` bench interior at 1920x1080, depth 8: the wavefront
 integrator on the wide-BVH kernels K2 (closest hit) and K1 (any hit)
 (BVH_PALLAS); the bench's own BVH_SWEEP configuration, whose bounces
 after the first run the dense treelet scan K3, the bin sort, the demand
 sweep K4 and a K2 tail; the engine's real-time denoised frame
 (`Renderer` with the denoiser on: a BVH_PALLAS frame, then SVGF with the
-temporal reprojection K6 and five a-trous passes K5); and the
+temporal reprojection K6 and five a-trous passes K5); BVH_PALLAS on the
+binary (arity-2) pack, whose casts run the binary kernels K8a (closest
+hit) and K8b (any hit); the megakernel integrator (`Renderer` in
+RenderMode.MEGAKERNEL) on the binary pack and on the wide one; and the
 BVH_TREELET backend, whose camera rays go through the self-rebinning
 closest hit K10 and whose later bounces run the treelet scan K9, the
 hybrid easy/hard split and one sort, K10 seeded on the easy rays and K2
 on the hard ones. One line per phase (name, seconds, key numbers):
 
   device     nvidia-smi name and power limit, torch and CUDA versions
-  build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu,
+  build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu (K1, K2,
+             K8a, K8b),
              tpt_torch/csrc/sweep.cu, tpt_torch/csrc/svgf.cu and
              tpt_torch/csrc/treelet.cu and g++ of the native SAH library,
              all at once, from the sources in this checkout
   scene      host scene, SAH BVH, wide pack, treelet cut and sweep tables
-             (chunk_align 8, as bench.py builds them), uploaded to the card
+             (chunk_align 8, as bench.py builds them), and the binary pack
+             of the same SAH BVH, uploaded to the card
   kernels    K2/K1 against their plain PyTorch versions on 262,144 live
              rays (camera primaries and one real diffuse bounce of the
              render, and the NEE shadow rays of both bounces), then on all
@@ -68,6 +73,30 @@ on the hard ones. One line per phase (name, seconds, key numbers):
              both sequences at 240x135 through the kernels and through the
              plain versions: each denoised frame must agree to the
              golden-image tolerance
+  binary_kernels
+             K8a/K8b against their plain versions, bit for bit with no
+             capped ray, on 262,144 live rays (camera primaries and one
+             real diffuse bounce of the binary render, and the NEE shadow
+             rays of both bounces), then on all 2,073,600 lanes of each of
+             those casts as the render launches them, dead lanes included;
+             CUDA-event timings, bounds from the tests the kernels count,
+             and K2 on the same primaries (wide pack) beside K8a
+  binary_render
+             wavefront.render with BVH_PALLAS on the binary pack at 1080p,
+             depth 8, with all launch counters zeroed just before and read
+             just after (K8a and K8b 8 a frame, K1/K2 none); frame ms and
+             Mpaths/s beside the wide BVH_PALLAS frame of the run
+  mega_render
+             Renderer in RenderMode.MEGAKERNEL at 1080p, depth 8, a few
+             frames on the binary pack (K8a/K8b launched) and one on the
+             wide pack (K2/K1 launched), each frame in one pass; frame ms,
+             Mpaths/s, the device busy share of a profiled frame
+  mega_agreement
+             the megakernel on the binary pack at 240x135, 2 iterations,
+             through the kernels, through the plain versions and against
+             the binary wavefront render; and tests/test_golden.py:63-76's
+             configuration through the binary wavefront against its
+             stored image; all at the golden-image tolerance
   treelet_kernels
              BVH_TREELET with tpt's defaults (treelets of <= 256
              triangles, 4 slots, hybrid split at 3 candidates, packets of
@@ -91,7 +120,8 @@ on the hard ones. One line per phase (name, seconds, key numbers):
              and against the BVH_PALLAS render; it refuses to start with
              less than twice its plain render's time left on the watchdog
 
-Then one JSON line describing each ported kernel (K9's and K10's with
+Then one JSON line describing each of the ten ported kernels (K9's and
+K10's with
 the lanes their times and bound were taken on), the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Any failed check raises, so the
 run exits nonzero and prints no result; so does a run without a CUDA
@@ -101,6 +131,7 @@ traceback of every thread, after WATCHDOG_S seconds.
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import json
 import os
@@ -167,6 +198,16 @@ TREELET_REPS = 3
 # H100 80GB HBM3 at 700 W: 113-138 s; its sequential steps are set by the
 # slowest packet, so a slower host takes longer
 TREELET_PLAIN_RENDER_S = 140.0
+
+# launch-counter keys of the wide (K2, K1) and binary (K8a, K8b) casts
+WIDE = ("packet_closest_hit_wide", "packet_any_hit_wide")
+BINARY = ("packet_closest_hit", "packet_any_hit")
+# the binary pack's phases: frames of the timed BVH_PALLAS render and of
+# the megakernel Renderer
+BINARY_FRAMES = 3
+MEGA_FRAMES = 3
+# tests/test_golden.py:63-76, held against its stored image on the card
+GOLDEN_PALLAS = ("tests", "golden_cornell_pallas_64.npz")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -389,20 +430,22 @@ def check_k2(label: str, res_k, res_p) -> float:
     return err
 
 
-def check_k1(label: str, res_k, res_p, t_max) -> float:
-    """Hold K1's (occluded, capped) against the plain version's; returns
-    the largest absolute difference of the occlusion flags (0 or 1)."""
+def check_k1(label: str, res_k, res_p, t_max, kernel: str = "K1") -> float:
+    """Hold K1's (or K8b's) (occluded, capped) against the plain
+    version's; returns the largest absolute difference of the occlusion
+    flags (0 or 1)."""
     (ok, cap_k), (op, cap_p) = res_k, res_p
     if int(cap_k) or int(cap_p):
         raise RuntimeError(f"{label}: capped rays, kernel {int(cap_k)}, "
                            f"plain {int(cap_p)}")
     occ_diff = int((ok != op).sum())
     if occ_diff:
-        raise RuntimeError(f"{label}: K1 occlusion differs on {occ_diff} rays")
+        raise RuntimeError(f"{label}: {kernel} occlusion differs on "
+                           f"{occ_diff} rays")
     dead = t_max - 1e-3 <= 0
     if not bool(ok[dead].all()):
-        raise RuntimeError(f"{label}: K1 reports a dead lane unoccluded")
-    print(f"  K1 vs plain, {label}: {ok.numel()} rays ({int(dead.sum())} "
+        raise RuntimeError(f"{label}: {kernel} reports a dead lane unoccluded")
+    print(f"  {kernel} vs plain, {label}: {ok.numel()} rays ({int(dead.sum())} "
           f"dead), {int(ok.sum())} occluded, differs {occ_diff}")
     return float((ok.float() - op.float()).abs().max())
 
@@ -426,8 +469,8 @@ class Patch:
 
 
 def plain_kernels() -> Patch:
-    """Route K1-K6, K9 and K10 to their plain PyTorch versions (on the
-    card)."""
+    """Route K1-K6, K8a/K8b, K9 and K10 to their plain PyTorch versions
+    (on the card)."""
     from tpt_torch.bvh import packet_traverse as pt
     from tpt_torch.bvh import sweep as sw
     from tpt_torch.bvh import treelet_traverse as tlt
@@ -442,6 +485,8 @@ def plain_kernels() -> Patch:
     p.set(sw, "sweep8_closest_hit", sw.sweep8_closest_hit_plain)
     p.set(pt, "packet_closest_hit_wide", pt.closest_hit_wide_plain)
     p.set(pt, "packet_any_hit_wide", pt.any_hit_wide_plain)
+    p.set(pt, "packet_closest_hit", pt.closest_hit_plain)
+    p.set(pt, "packet_any_hit", pt.any_hit_plain)
     return p
 
 
@@ -482,6 +527,318 @@ def equal_hits(label: str, a, b) -> None:
         if not torch.equal(x, y):
             raise RuntimeError(f"{label}: {f} differs on "
                                f"{int((x != y).sum())} lanes")
+
+
+def profiled_frame(fn) -> float:
+    """Device busy share of one frame fn(): torch.profiler's kernel times
+    against the frame's wall time (profiling itself slows the host side).
+    Prints them and the top kernels; returns the share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tw) * 1e3
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:4]
+    print(f"  profiled frame: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.0f}%), {sum(e.count for e in dev_events)} "
+          f"kernel launches; top: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
+              for e in top))
+    return busy_ms / wall_ms
+
+
+def zero_launches() -> tuple:
+    """Set every kernel's launch counter to 0; returns the counters."""
+    from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.bvh import sweep as sw
+    from tpt_torch.bvh import treelet_traverse as tlt
+    from tpt_torch.denoise import reproject, stencil
+
+    counts = (pt.LAUNCHES, sw.LAUNCHES, tlt.LAUNCHES, stencil.LAUNCHES,
+              reproject.LAUNCHES)
+    for c in counts:
+        for k in c:
+            c[k] = 0
+    return counts
+
+
+def expect_launches(label: str, counts, want: dict) -> dict:
+    """Every counter equals want's entry for it, or 0; returns them."""
+    got = {k: v for c in counts for k, v in c.items()}
+    if any(v != want.get(k, 0) for k, v in got.items()):
+        raise RuntimeError(f"{label} launches {got}, expected {want} and no "
+                           "other kernel")
+    return got
+
+
+def check_k8a(label: str, res_k, res_p) -> float:
+    """Hold K8a's (HitRecord, capped) against the plain version's, bit for
+    bit, with no capped ray; returns the largest absolute difference."""
+    (hk, cap_k), (hp, cap_p) = res_k, res_p
+    if int(cap_k) or int(cap_p):
+        raise RuntimeError(f"{label}: capped rays, kernel {int(cap_k)}, "
+                           f"plain {int(cap_p)}")
+    equal_hits(f"K8a vs plain, {label}", hk, hp)
+    hit = hk.tri >= 0
+    print(f"  K8a vs plain, {label}: {hk.tri.numel()} rays, "
+          f"{int(hit.sum())} hits, bit-equal")
+    return 0.0
+
+
+def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float) -> tuple:
+    """The binary_kernels and binary_render phases on the binary pack
+    `bscene` (the wide `scene` times K2 beside K8a); returns the K8a and
+    K8b entries of the kernels line and the binary frame's ms."""
+    import numpy as np
+    import torch
+
+    from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.config import RayCastBackend, RenderConfig
+    from tpt_torch.integrators import common, wavefront
+
+    bpack = bscene.pack
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
+
+    # ---- binary_kernels: the casts of bounces 0 and 1 ----------------------
+    t0 = time.perf_counter()
+    rec = Recorder(common.make_raycaster(bscene, cfg))
+    vp = wavefront.camera_view_proj(cam)
+    carry = wavefront.batched_raygen(cam, cfg, 1, dev)
+    for depth in range(2):
+        carry = wavefront._bounce_body(bscene, rec.raycaster, cam, cfg, vp, vp,
+                                       depth, carry)
+    del carry
+    (p_o, p_d, p_t), (b_o, b_d, b_t) = rec.ext
+    (s0_o, s0_d, s0_t), (s1_o, s1_d, s1_t) = rec.shadow
+    half = N_COMPARE // 2
+    ext = cat_rays(pick(p_o, p_d, p_t, p_t > 0, half),
+                   pick(b_o, b_d, b_t, b_t > 0, half))
+    shd = cat_rays(pick(s0_o, s0_d, s0_t, s0_t > 0, half),
+                   pick(s1_o, s1_d, s1_t, s1_t > 0, half))
+
+    def k8a(label, o, d, t):
+        res_k = pt.packet_closest_hit(bpack, o, d, t)
+        res_p, plain_ms = timed_once(lambda: pt.closest_hit_plain(bpack, o, d,
+                                                                  t))
+        return check_k8a(label, res_k, res_p), plain_ms
+
+    def k8b(label, o, d, t):
+        res_k = pt.packet_any_hit(bpack, o, d, t)
+        res_p, plain_ms = timed_once(lambda: pt.any_hit_plain(bpack, o, d, t))
+        return check_k1(label, res_k, res_p, t, kernel="K8b"), plain_ms
+
+    # 262,144 live rays, then every lane of each cast as the render
+    # launches it, dead lanes included
+    k8a_err = k8a("picked live rays", *ext)[0]
+    k8b_err = k8b("picked live rays", *shd)[0]
+    err, k8a_plain_ms = k8a("primaries, all lanes", p_o, p_d, p_t)
+    k8a_err = max(k8a_err, err, k8a("bounce-1 pool, all lanes", b_o, b_d,
+                                    b_t)[0])
+    err, k8b_plain_ms = k8b("bounce-0 shadow, all lanes", s0_o, s0_d, s0_t)
+    k8b_err = max(k8b_err, err, k8b("bounce-1 shadow, all lanes", s1_o, s1_d,
+                                    s1_t)[0])
+    del ext, shd
+
+    n_full = p_t.shape[0]
+    stats_a, stats_b, stats_2 = (torch.zeros(3, dtype=torch.int64, device=dev)
+                                 for _ in range(3))
+    pt.packet_closest_hit(bpack, p_o, p_d, p_t, stats=stats_a)
+    pt.packet_any_hit(bpack, s0_o, s0_d, s0_t, stats=stats_b)
+    pt.packet_closest_hit_wide(scene.pack, p_o, p_d, p_t, stats=stats_2)
+    k8a_ms = cuda_time_ms(lambda: pt.packet_closest_hit(bpack, p_o, p_d, p_t),
+                          TIMING_REPS)
+    k8a_b_ms = cuda_time_ms(
+        lambda: pt.packet_closest_hit(bpack, b_o, b_d, b_t), TIMING_REPS)
+    k8b_ms = cuda_time_ms(
+        lambda: pt.packet_any_hit(bpack, s0_o, s0_d, s0_t), TIMING_REPS)
+    k2_ms = cuda_time_ms(
+        lambda: pt.packet_closest_hit_wide(scene.pack, p_o, p_d, p_t),
+        TIMING_REPS)
+    k8a_bound, k8a_by = bound(bpack, n_full, 16, stats_a.cpu())
+    k8b_bound, k8b_by = bound(bpack, n_full, 1, stats_b.cpu())
+    mr = lambda ms: n_full / (ms * 1e-3) / 1e6
+    tests = lambda st: (f"node visits {int(st[0])}, slab tests {int(st[1])}, "
+                        f"tri tests {int(st[2])}")
+    print(f"  K8a primaries: {k8a_ms:.3f} ms ({mr(k8a_ms):.1f} Mrays/s), "
+          f"bounce-1 pool: {k8a_b_ms:.3f} ms, plain {k8a_plain_ms:.1f} ms, "
+          f"bound {k8a_bound:.3f} ms ({k8a_by}); {tests(stats_a.cpu())}")
+    print(f"  K2 on the same primaries (wide pack): {k2_ms:.3f} ms, "
+          f"K8a/K2 {k8a_ms / k2_ms:.2f}x; {tests(stats_2.cpu())}")
+    print(f"  K8b bounce-0 shadow: {k8b_ms:.3f} ms ({mr(k8b_ms):.1f} "
+          f"Mrays/s), plain {k8b_plain_ms:.1f} ms, bound {k8b_bound:.3f} ms "
+          f"({k8b_by}); {tests(stats_b.cpu())}")
+    phase("binary_kernels", t0, n_compare=N_COMPARE, lanes=n_full,
+          nodes=bpack.num_nodes, k8a_ms=f"{k8a_ms:.3f}",
+          k8b_ms=f"{k8b_ms:.3f}", k2_ms=f"{k2_ms:.3f}")
+    del rec
+
+    # ---- binary_render: BVH_PALLAS on the binary pack -----------------------
+    t0 = time.perf_counter()
+    rc = common.make_raycaster(bscene, cfg)
+    wavefront.trace_frame(bscene, rc, cam, cfg, 400)   # warm-up frame
+    torch.cuda.synchronize()
+    counts = zero_launches()
+    tr = time.perf_counter()
+    img = wavefront.render(bscene, cam, cfg, iterations=BINARY_FRAMES,
+                           raycaster=rc)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - tr
+    launches = expect_launches(
+        "binary render", counts,
+        dict(packet_closest_hit=DEPTH * BINARY_FRAMES,
+             packet_any_hit=DEPTH * BINARY_FRAMES))
+    if int(rc.capped):
+        raise RuntimeError(f"binary render had {int(rc.capped)} capped rays")
+    if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
+            or not img.mean() > 0:
+        raise RuntimeError(f"bad binary image: shape {img.shape}, "
+                           f"mean {float(np.nanmean(img))}")
+    frame_ms = render_s * 1e3 / BINARY_FRAMES
+    print(f"  against the wide BVH_PALLAS frame of this run: "
+          f"{frame_ms / pallas_frame_ms:.2f}x ({frame_ms:.1f} ms vs "
+          f"{pallas_frame_ms:.1f} ms)")
+    phase("binary_render", t0, frame_ms=f"{frame_ms:.1f}",
+          mpaths_s=f"{cam.num_pixels / (frame_ms * 1e-3) / 1e6:.3f}",
+          launches=json.dumps({k: launches[k] for k in BINARY + WIDE}
+                              ).replace(" ", ""),
+          capped=int(rc.capped), image_mean=f"{float(img.mean()):.5f}")
+
+    entries = [
+        dict(name="packet_closest_hit", route="cuda",
+             source="tpt_torch/csrc/packet_wide.cu",
+             replaces="tpt/bvh/pallas_traverse.py:350",
+             launches=launches["packet_closest_hit"], max_abs_err=k8a_err,
+             ms=k8a_ms, plain_ms=k8a_plain_ms, bound_ms=k8a_bound,
+             bound_by=k8a_by, library_ms=None),
+        dict(name="packet_any_hit", route="cuda",
+             source="tpt_torch/csrc/packet_wide.cu",
+             replaces="tpt/bvh/pallas_traverse.py:394",
+             launches=launches["packet_any_hit"], max_abs_err=k8b_err,
+             ms=k8b_ms, plain_ms=k8b_plain_ms, bound_ms=k8b_bound,
+             bound_by=k8b_by, library_ms=None),
+    ]
+    return entries, frame_ms
+
+
+def mega_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
+                binary_frame_ms: float) -> None:
+    """The mega_render and mega_agreement phases: the megakernel through
+    the engine on the binary pack (K8a/K8b) and on the wide one (K2/K1)."""
+    import numpy as np
+    import torch
+
+    from tpt_torch import Renderer
+    from tpt_torch.config import RayCastBackend, RenderConfig, RenderMode
+    from tpt_torch.core.camera import Camera
+    from tpt_torch.integrators import common, megakernel, wavefront
+    from tpt_torch.scene import procedural
+    from tpt_torch.scene.structs import MaterialType
+
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH,
+                       mode=RenderMode.MEGAKERNEL)
+    npx = cam.num_pixels
+
+    # ---- mega_render: the engine's megakernel mode at 1080p -----------------
+    t0 = time.perf_counter()
+
+    def frames(renderer, k):
+        """k frames of `renderer` from zeroed launch counters: (ms a
+        frame by the host clock, the counters, the last image)."""
+        counts = zero_launches()
+        tr = time.perf_counter()
+        for _ in range(k):
+            img = renderer.frame()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - tr) * 1e3 / k, counts, img
+
+    r = Renderer(bscene, cam, cfg)
+    r.frame()                                      # warm-up frame
+    frame_ms, counts, img = frames(r, MEGA_FRAMES)
+    per = DEPTH * MEGA_FRAMES
+    launches = expect_launches("megakernel (binary pack)", counts,
+                               dict(packet_closest_hit=per,
+                                    packet_any_hit=per))
+    if int(r.raycaster.capped):
+        raise RuntimeError(f"megakernel had {int(r.raycaster.capped)} "
+                           "capped rays")
+    if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
+            or not img.mean() > 0:
+        raise RuntimeError(f"bad megakernel image: shape {img.shape}, "
+                           f"mean {float(np.nanmean(img))}")
+    if r.iteration != MEGA_FRAMES + 1:
+        raise RuntimeError(f"megakernel Renderer at iteration {r.iteration}")
+    # one frame on the wide pack
+    wide = Renderer(scene, cam, cfg)
+    wide_ms, counts, wimg = frames(wide, 1)
+    wide_launches = expect_launches(
+        "megakernel (wide pack)", counts,
+        dict(packet_closest_hit_wide=DEPTH, packet_any_hit_wide=DEPTH))
+    if int(wide.raycaster.capped) or not np.isfinite(wimg).all() \
+            or not wimg.mean() > 0:
+        raise RuntimeError("bad wide megakernel frame")
+    busy = profiled_frame(r.frame)
+    mp = lambda ms: npx / (ms * 1e-3) / 1e6
+    print(f"  binary pack: {frame_ms:.1f} ms a frame over {MEGA_FRAMES} "
+          f"frames ({mp(frame_ms):.3f} Mpaths/s); wide pack {wide_ms:.1f} ms "
+          f"(its first frame); wavefront frames of this run: binary "
+          f"{binary_frame_ms:.1f} ms, wide {pallas_frame_ms:.1f} ms")
+    phase("mega_render", t0, frame_ms=f"{frame_ms:.1f}",
+          mpaths_s=f"{mp(frame_ms):.3f}", wide_ms=f"{wide_ms:.1f}",
+          busy=f"{busy:.3f}",
+          launches=json.dumps({k: launches[k] for k in BINARY}
+                              ).replace(" ", ""),
+          wide_launches=json.dumps({k: wide_launches[k] for k in WIDE}
+                                   ).replace(" ", ""),
+          image_mean=f"{float(img.mean()):.5f}")
+    del r, wide
+
+    # ---- mega_agreement: kernels vs plain, vs the wavefront, the golden -----
+    t0 = time.perf_counter()
+    small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
+                         cam.fovy_deg)
+    acfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
+    rc_k = common.make_raycaster(bscene, acfg)
+    img_k = megakernel.render(bscene, small, acfg, iterations=AGREE_ITERS,
+                              raycaster=rc_k)
+    patch = plain_kernels()
+    try:
+        rc_p = common.make_raycaster(bscene, acfg)
+        tp = time.perf_counter()
+        img_p = megakernel.render(bscene, small, acfg, iterations=AGREE_ITERS,
+                                  raycaster=rc_p)
+        plain_s = time.perf_counter() - tp
+    finally:
+        patch.restore()
+    rc_w = common.make_raycaster(bscene, acfg)
+    img_w = wavefront.render(bscene, small, acfg, iterations=AGREE_ITERS,
+                             raycaster=rc_w)
+    # tests/test_golden.py:63-76's configuration on the binary pack
+    gs = procedural.cornell_box(resolution=(64, 64), sphere_materials=(
+        MaterialType.MICROFACET_PBR, MaterialType.SPECULAR_REFRACTION))
+    gdata = gs.build(with_bvh=True, packet_arity=2, device=dev)
+    gcfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=3)
+    rc_g = common.make_raycaster(gdata, gcfg)
+    img_g = wavefront.render(gdata, gs.camera, gcfg, iterations=2,
+                             raycaster=rc_g)
+    if any(int(c.capped) for c in (rc_k, rc_p, rc_w, rc_g)):
+        raise RuntimeError("megakernel agreement renders had capped rays")
+    golden = np.load(os.path.join(REPO, *GOLDEN_PALLAS))["image"]
+    out = {"plain_render_s": f"{plain_s:.1f}"}
+    for label, a, b in (("plain", img_k, img_p), ("wavefront", img_k, img_w),
+                        ("golden", img_g, golden)):
+        close, _, max_abs = golden_agree(f"megakernel agreement, {label}", a,
+                                         b)
+        out[f"{label}_close"] = f"{close:.6f}"
+        out[f"{label}_max_abs"] = f"{max_abs:.3g}"
+    phase("mega_agreement", t0, **out)
 
 
 def whole_blocks(n: int, k: int, device, lanes: int = 128):
@@ -655,9 +1012,7 @@ def sweep_phases(scene, cam, dev) -> list:
     rc = common.make_raycaster(scene, cfg)
     wavefront.trace_frame(scene, rc, cam, cfg, 200)   # warm-up frame
     torch.cuda.synchronize()
-    for counts in (pt.LAUNCHES, sw.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    zero_launches()
     tr = time.perf_counter()
     img = wavefront.render(scene, cam, cfg,
                            iterations=SWEEP_FRAMES * cfg.spp_batch,
@@ -665,8 +1020,10 @@ def sweep_phases(scene, cam, dev) -> list:
     torch.cuda.synchronize()
     render_s = time.perf_counter() - tr
     launches = dict(pt.LAUNCHES, **sw.LAUNCHES)
-    if min(launches.values()) == 0:
-        raise RuntimeError(f"sweep path skipped a kernel: {launches}")
+    if min(launches[k] for k in WIDE + tuple(sw.LAUNCHES)) == 0 \
+            or any(launches[k] for k in BINARY):
+        raise RuntimeError(f"sweep path skipped a kernel or launched a "
+                           f"binary one: {launches}")
     per_frame = (DEPTH - 1) * SWEEP_FRAMES
     if launches["dense_scan"] != per_frame or \
             launches["sweep8_closest_hit"] != per_frame:
@@ -933,10 +1290,7 @@ def svgf_phases(scene, cam, dev) -> list:
     renderer = Renderer(scene, cam, cfg)
     renderer.frame()                                  # warm-up frame
     torch.cuda.synchronize()
-    counts = (pt.LAUNCHES, sw.LAUNCHES, stencil.LAUNCHES, reproject.LAUNCHES)
-    for c in counts:
-        for k in c:
-            c[k] = 0
+    counts = zero_launches()
     tr = time.perf_counter()
     imgs = svgf_sequence(renderer, cam, SVGF_FRAMES)
     torch.cuda.synchronize()
@@ -944,9 +1298,10 @@ def svgf_phases(scene, cam, dev) -> list:
     launches = {k: v for c in counts for k, v in c.items()}
     want = dict(atrous=5 * SVGF_FRAMES, reproject=SVGF_FRAMES)
     if any(launches[k] != v for k, v in want.items()) or \
-            min(pt.LAUNCHES.values()) == 0 or any(sw.LAUNCHES.values()):
+            min(launches[k] for k in WIDE) == 0 or any(sw.LAUNCHES.values()) \
+            or any(launches[k] for k in BINARY):
         raise RuntimeError(f"denoised path launches {launches}, expected "
-                           f"{want} and K1/K2 but no K3/K4")
+                           f"{want} and K1/K2 but no K3/K4 or K8a/K8b")
     if int(renderer.raycaster.capped):
         raise RuntimeError(f"{int(renderer.raycaster.capped)} capped rays")
     for img in imgs:
@@ -1095,7 +1450,6 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
     import torch
 
     from tpt_torch.bvh import packet_traverse as pt
-    from tpt_torch.bvh import sweep as sw
     from tpt_torch.bvh import treelet_traverse as tlt
     from tpt_torch.config import RayCastBackend, RenderConfig
     from tpt_torch.core.camera import Camera
@@ -1327,10 +1681,7 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
     rc = common.make_raycaster(scene, cfg)
     wavefront.trace_frame(scene, rc, cam, cfg, 300)   # warm-up frame
     torch.cuda.synchronize()
-    counts = (pt.LAUNCHES, sw.LAUNCHES, tlt.LAUNCHES)
-    for c in counts:
-        for k in c:
-            c[k] = 0
+    counts = zero_launches()
     tr = time.perf_counter()
     img = wavefront.render(scene, cam, cfg, iterations=TREELET_FRAMES,
                            raycaster=rc)
@@ -1339,7 +1690,8 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
     launches = {k: v for c in counts for k, v in c.items()}
     want = dict(treelet_closest_hit=DEPTH, treelet_scan=DEPTH - 1,
                 packet_closest_hit_wide=DEPTH - 1, packet_any_hit_wide=DEPTH,
-                dense_scan=0, sweep8_closest_hit=0)
+                dense_scan=0, sweep8_closest_hit=0, packet_closest_hit=0,
+                packet_any_hit=0)
     if any(launches[k] != v * TREELET_FRAMES for k, v in want.items()):
         raise RuntimeError(f"treelet path launches {launches}, expected "
                            f"{want} a frame")
@@ -1453,6 +1805,8 @@ def main() -> int:
     from tpt_torch.bvh import packet_traverse as pt
     from tpt_torch.bvh import sweep as sw
     from tpt_torch.bvh import treelet_traverse as tlt
+    from tpt_torch.bvh.pack import build_packet_bvh
+    from tpt_torch.bvh.sah import build_sah_bvh
     from tpt_torch.config import RayCastBackend, RenderConfig
     from tpt_torch.core.camera import Camera
     from tpt_torch.denoise import stencil
@@ -1492,9 +1846,18 @@ def main() -> int:
     scene = host.build(with_bvh=True, sweep_chunk_align=SWEEP_ALIGN, device=dev)
     cam = host.camera
     pack = scene.pack
+    # the binary pack from the same (deterministic) SAH build, at the
+    # same cluster size
+    bvh = build_sah_bvh(host.mesh)
+    bscene = dataclasses.replace(
+        scene, sweep=None,
+        pack=build_packet_bvh(host.mesh, bvh,
+                              max_cluster=pack.max_cluster).to(dev))
     phase("scene", t0, triangles=host.mesh.num_triangles,
           nodes=pack.num_nodes, tri_rows=pack.tri_f32.shape[0],
           arity=pack.arity, cluster=pack.max_cluster,
+          binary_nodes=bscene.pack.num_nodes,
+          binary_tri_rows=bscene.pack.tri_f32.shape[0],
           treelets=scene.sweep.num_treelets, top_nodes=pack.num_top,
           max_chunks=scene.sweep.max_chunks,
           sweep_rows=scene.sweep.tri_f32.shape[0])
@@ -1564,8 +1927,8 @@ def main() -> int:
           f"tri tests {int(stats1[2])}")
     print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
           "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject, "
-          "K9 treelet_scan, K10 treelet_closest_hit ported (cuda); K7, K8a, "
-          "K8b, K11 not yet ported")
+          "K8a packet_closest_hit, K8b packet_any_hit, K9 treelet_scan, "
+          "K10 treelet_closest_hit ported (cuda); K7, K11 not yet ported")
     phase("kernels", t0, n_compare=N_COMPARE, lanes=n_full,
           k2_ms=f"{k2_ms:.3f}", k1_ms=f"{k1_ms:.3f}")
     del rec, carry, ext, shd
@@ -1575,17 +1938,16 @@ def main() -> int:
     rc = make_raycaster(scene, cfg)
     wavefront.trace_frame(scene, rc, cam, cfg, 100)   # warm-up frame
     torch.cuda.synchronize()
-    for counts in (pt.LAUNCHES, sw.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    zero_launches()
     tr = time.perf_counter()
     img = wavefront.render(scene, cam, cfg, iterations=RENDER_ITERS,
                            raycaster=rc)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - tr
     launches = dict(pt.LAUNCHES)
-    if min(launches.values()) == 0:
-        raise RuntimeError(f"main path skipped a kernel: {launches}")
+    if min(launches[k] for k in WIDE) == 0 or any(launches[k] for k in BINARY):
+        raise RuntimeError(f"main path skipped a kernel or launched a "
+                           f"binary one: {launches}")
     if any(sw.LAUNCHES.values()):
         raise RuntimeError(f"BVH_PALLAS path launched sweep kernels: "
                            f"{sw.LAUNCHES}")
@@ -1616,26 +1978,7 @@ def main() -> int:
           f"{k1_f:.1f} ms ({len(timer.events['any_hit'])} launches), rest "
           f"(raygen, sort, shading, PyTorch launches) {f_ms - k2_f - k1_f:.1f} ms; "
           f"host enqueue {host_ms:.1f} ms")
-    # device busy share of one frame: torch.profiler's kernel times against
-    # the frame's wall time (profiling itself slows the host side)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tw = time.perf_counter()
-        wavefront.trace_frame(scene, rc, cam, cfg, 102)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - tw) * 1e3
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:4]
-    print(f"  profiled frame: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.0f}%), {sum(e.count for e in dev_events)} "
-          f"kernel launches; top: " + "; ".join(
-              f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
-              for e in top))
+    profiled_frame(lambda: wavefront.trace_frame(scene, rc, cam, cfg, 102))
     phase("render", t0, frame_ms=f"{frame_ms:.1f}",
           mpaths_s=f"{cam.num_pixels / (frame_ms * 1e-3) / 1e6:.3f}",
           launches=json.dumps(launches).replace(" ", ""),
@@ -1672,6 +2015,10 @@ def main() -> int:
 
     sweep_kernels = sweep_phases(scene, cam, dev)
     svgf_kernels = svgf_phases(scene, cam, dev)
+    binary_kernels, binary_frame_ms = binary_phases(scene, bscene, cam, dev,
+                                                    frame_ms)
+    mega_phases(scene, bscene, cam, dev, frame_ms, binary_frame_ms)
+    del bscene
     treelet_kernels = treelet_phases(scene, cam, dev, frame_ms)
 
     kernels = [
@@ -1687,7 +2034,7 @@ def main() -> int:
              launches=launches["packet_any_hit_wide"],
              max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
              bound_ms=k1_bound, bound_by=k1_by, library_ms=None),
-    ] + sweep_kernels + svgf_kernels + treelet_kernels
+    ] + sweep_kernels + svgf_kernels + binary_kernels + treelet_kernels
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

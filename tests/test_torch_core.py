@@ -148,4 +148,4 @@ print(len(mods))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 37
+    assert int(out.stdout.strip()) >= 38

@@ -184,8 +184,13 @@ def test_u8_pipeline_and_gui(cornell):
 
 def test_unported_modes_raise(cornell):
     host, data = cornell
-    with pytest.raises(NotImplementedError, match="item 2"):
-        Renderer(data, host.camera, CFG.with_(mode=RenderMode.MEGAKERNEL))
+    # the megakernel mode renders now (tests/test_torch_megakernel.py);
+    # options it lacks still raise
+    mega = CFG.with_(mode=RenderMode.MEGAKERNEL)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        Renderer(data, host.camera, mega.with_(backend=RayCastBackend.BVH_SWEEP))
+    with pytest.raises(NotImplementedError, match="heavy_shading_iters"):
+        Renderer(data, host.camera, mega.with_(heavy_shading_iters=4))
     with pytest.raises(NotImplementedError, match="item 6"):
         Renderer(data, host.camera, CFG.with_(backend=RayCastBackend.BVH_XLA))
     r = Renderer(data, host.camera,

@@ -1,7 +1,8 @@
 """tpt_torch's CUDA kernels (K2 closest hit, K1 any hit, K3 dense scan,
 K4 demand sweep, K5 a-trous stencil, K6 temporal reprojection, K9
-treelet scan, K10 treelet closest hit) on the card, each against its
-plain PyTorch version.
+treelet scan, K10 treelet closest hit, K8a/K8b binary closest and any
+hit) on the card, each against its plain PyTorch version, and the
+megakernel on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor tpt, so it also runs on a GPU machine without
@@ -22,10 +23,10 @@ from tpt_torch.bvh import sweepcast as tsc
 from tpt_torch.bvh import treelet_traverse as tlt
 from tpt_torch.bvh.treelet import SweepTables
 from tpt_torch import Renderer
-from tpt_torch.config import RayCastBackend, RenderConfig
+from tpt_torch.config import RayCastBackend, RenderConfig, RenderMode
 from tpt_torch.core.vec import Vec3
 from tpt_torch.denoise import reproject, stencil, svgf
-from tpt_torch.integrators import common, intersect, wavefront
+from tpt_torch.integrators import common, intersect, megakernel, wavefront
 from tpt_torch.scene import procedural
 
 pytestmark = pytest.mark.gpu
@@ -555,3 +556,115 @@ def test_treelet_render_kernels_equal_plain(cuda, monkeypatch):
     assert int(rc.capped) == 0 and int(rp.capped) == 0
     assert np.isfinite(img_k).all() and img_k.mean() > 0.01
     np.testing.assert_array_equal(img_k, img_p)
+
+
+# ---------------------------------------------------------------------------
+# K8a/K8b on the binary pack, and the megakernel
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def binary_scenes(cuda):
+    c = procedural.cornell_box(resolution=(32, 32), spheres=True)
+    f = procedural.fireplace_like(num_triangles=10_000, resolution=(8, 8))
+    return {"cornell": (c, c.build(with_bvh=True, packet_arity=2,
+                                   device=cuda)),
+            "fireplace": (f, f.build(with_bvh=True, packet_arity=2,
+                                     device=cuda))}
+
+
+def _binary_rays(kind, host, cuda):
+    """The Cornell's jittered camera rays, or 8192 random rays in the
+    scene's box; dead, NaN and short-t_max lanes in both."""
+    if kind == "camera":
+        from tpt_torch.core.camera import generate_camera_rays
+
+        o, d, _ = generate_camera_rays(host.camera, 1, device=cuda)
+        lo, hi = [0, 0, 0], [556, 548, 560]
+    else:
+        lo, hi = (([0, 0, 0], [556, 548, 560]) if kind == "cornell_random"
+                  else ([0, 0, 0], [1200, 400, 900]))
+        o, d = _rays(8192, lo, hi, 31, cuda)
+    n = o.x.shape[0]
+    gen = torch.Generator().manual_seed(3)
+    t_max = torch.where(torch.rand(n, generator=gen) < 0.5,
+                        torch.rand(n, generator=gen) * 700.0,
+                        torch.full((n,), intersect.FLT_MAX)).to(cuda)
+    t_max[::9] = -1.0
+    t_max[4::101] = float("nan")
+    o.x[5::97] = float("nan")
+    d.z[6::89] = float("nan")
+    return o, d, t_max
+
+
+@pytest.mark.parametrize("kind", ["camera", "cornell_random", "fireplace"])
+def test_binary_kernels_equal_plain(binary_scenes, cuda, kind):
+    host, data = binary_scenes["fireplace" if kind == "fireplace"
+                               else "cornell"]
+    o, d, t_max = _binary_rays(kind, host, cuda)
+    before = dict(pt.LAUNCHES)
+    got, cap_k = pt.packet_closest_hit(data.pack, o, d, t_max)
+    want, cap_p = pt.closest_hit_plain(data.pack, o, d, t_max)
+    for f in ("t", "tri", "u", "v"):
+        _bits_equal(getattr(got, f), getattr(want, f))
+    assert int((got.tri >= 0).sum()) > o.x.shape[0] // 4
+    occ_k, cap_ka = pt.packet_any_hit(data.pack, o, d, t_max)
+    occ_p, cap_pa = pt.any_hit_plain(data.pack, o, d, t_max)
+    assert torch.equal(occ_k, occ_p)
+    assert int(cap_k) == int(cap_p) == int(cap_ka) == int(cap_pa) == 0
+    assert pt.LAUNCHES == dict(before, packet_closest_hit=before[
+        "packet_closest_hit"] + 1, packet_any_hit=before["packet_any_hit"] + 1)
+
+
+def test_binary_kernel_matches_brute_force(binary_scenes, cuda):
+    _, data = binary_scenes["cornell"]
+    o, d = _rays(4096, [0, 0, 0], [556, 548, 560], 32, cuda)
+    got, _ = pt.packet_closest_hit(
+        data.pack, o, d, torch.full((4096,), intersect.FLT_MAX, device=cuda))
+    want = intersect.brute_force_closest_hit(data.mesh, o, d)
+    hit = want.tri >= 0
+    assert torch.equal(got.tri >= 0, hit)
+    torch.testing.assert_close(got.t[hit], want.t[hit], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_binary_cyclic_table_is_capped_not_hung(binary_scenes, cuda, kind):
+    """A root that lists itself as both children overflows the 64-entry
+    stack and never empties it; the step cap (8 * num_nodes + 4096) ends
+    every ray and counts it once."""
+    _, data = binary_scenes["cornell"]
+    child = data.pack.node_child.clone()
+    child[0, :] = 0
+    bad = replace(data.pack, node_child=child)
+    o, d = _rays(256, [270, 270, 270], [280, 280, 280], 33, cuda)
+    t_max = torch.full((256,), 1e4, device=cuda)
+    fn = pt.packet_closest_hit if kind == "closest" else pt.packet_any_hit
+    _, cap = fn(bad, o, d, t_max)
+    torch.cuda.synchronize()
+    assert int(cap) == 256
+
+
+@pytest.mark.parametrize("arity", [2, 4])
+def test_megakernel_on_card_matches_cpu(cuda, arity):
+    """The megakernel through K8a/K8b (binary pack) or K2/K1 (wide) on
+    the card against the plain versions on the CPU, at the golden-image
+    tolerance; the Renderer's first MEGAKERNEL frame is the same sample."""
+    host = procedural.cornell_box(resolution=(32, 32), spheres=True)
+    data = host.build(with_bvh=True, packet_arity=arity, device=cuda)
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=3)
+    names = (("packet_closest_hit", "packet_any_hit") if arity == 2 else
+             ("packet_closest_hit_wide", "packet_any_hit_wide"))
+    before = dict(pt.LAUNCHES)
+    rc = common.make_raycaster(data, cfg)
+    gpu = megakernel.render(data, host.camera, cfg, iterations=2,
+                            raycaster=rc)
+    assert all(pt.LAUNCHES[k] == before[k] + 6 for k in names)
+    cpu = megakernel.render(
+        host.build(with_bvh=True, packet_arity=arity, device="cpu"),
+        host.camera, cfg, iterations=2)
+    assert int(rc.capped) == 0
+    assert np.isfinite(gpu).all() and gpu.mean() > 0.01
+    assert np.isclose(gpu, cpu, atol=5e-3, rtol=1e-3).mean() > 0.97
+    np.testing.assert_allclose(gpu.mean(), cpu.mean(), rtol=0.02)
+    r = Renderer(data, host.camera, cfg.with_(mode=RenderMode.MEGAKERNEL))
+    np.testing.assert_array_equal(
+        r.frame(), megakernel.render(data, host.camera, cfg, iterations=1))

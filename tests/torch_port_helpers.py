@@ -81,3 +81,18 @@ def random_rays(n, lo, hi, seed):
     d = rs.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return ori, d
+
+
+def count_calls(monkeypatch, module, names) -> dict:
+    """Wrap module.<name> for each name so that every call is counted;
+    returns the counts (a name appears once it has been called)."""
+    calls = {}
+    for name in names:
+        inner = getattr(module, name)
+
+        def counted(*a, _inner=inner, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _inner(*a, **kw)
+
+        monkeypatch.setattr(module, name, counted)
+    return calls

@@ -1,6 +1,8 @@
-"""Wide-BVH ray casts: K2 `packet_closest_hit_wide` and K1
-`packet_any_hit_wide`, the port's counterparts of the Pallas kernels in
-`tpt/bvh/pallas_traverse.py` (:893 and :959).
+"""Packet-BVH ray casts: K2 `packet_closest_hit_wide` and K1
+`packet_any_hit_wide` over the wide (arity-4/8) pack, K8a
+`packet_closest_hit` and K8b `packet_any_hit` over the binary (arity-2)
+pack; the port's counterparts of the Pallas kernels in
+`tpt/bvh/pallas_traverse.py` (:893, :959, :350 and :394).
 
 On CUDA tensors each wrapper launches its hand-written kernel
 (`tpt_torch/csrc/packet_wide.cu`, built with nvcc for sm_90a on first
@@ -14,8 +16,16 @@ the same child order, with the same float32 arithmetic (the kernel is
 compiled without multiply-add contraction), so on the same inputs they
 give the same bits. Each returns, beside its result, a device int32
 count of rays that overflowed their stack or reached the step cap
-(8 * num_nodes + 8192 pops, as in the TPU kernel); such a ray's result
-is not exact, and callers that measure require the count to be 0.
+(8 * num_nodes + 8192 pops for the wide pack, + 4096 for the binary
+one, as in the TPU kernels); such a ray's result is not exact, and
+callers that measure require the count to be 0.
+
+The wide walk orders a node's children by the ray's direction octant
+(the pack's order words). The binary closest hit orders the two children
+by the ray's own entry t, where tpt's packet orders them by its 1024
+lanes' smallest: the closest t is the same, but an equal-t tie on a
+shared edge may name the other triangle. The binary any hit pushes them
+in slot order, as tpt does.
 
 Result conventions are `tpt`'s: closest-hit t = FLT_MAX where tri < 0;
 any-hit reports lanes with t_max - 1e-3 <= 0 as occluded (dead lanes).
@@ -39,7 +49,8 @@ _BIG = 3.0e38        # the TPU kernel's _INF: initial best t
 
 # launches of each CUDA kernel in this process (chip_smoke.py resets and
 # reads them around the main path to show the path went through them)
-LAUNCHES = {"packet_closest_hit_wide": 0, "packet_any_hit_wide": 0}
+LAUNCHES = {"packet_closest_hit_wide": 0, "packet_any_hit_wide": 0,
+            "packet_closest_hit": 0, "packet_any_hit": 0}
 
 SOURCE = os.path.join(_build.PKG_DIR, "csrc", "packet_wide.cu")
 HEADERS = [os.path.join(_build.PKG_DIR, "csrc", "ray_common.cuh")]
@@ -50,7 +61,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 def max_steps(pack: PacketBVH) -> int:
-    return 8 * pack.num_nodes + 8192
+    """Pops a ray may take: the TPU kernels' caps (pallas_traverse.py:567
+    for the wide pack, :203 for the binary one)."""
+    return 8 * pack.num_nodes + (4096 if pack.arity == 2 else 8192)
 
 
 # ---------------------------------------------------------------------------
@@ -63,11 +76,14 @@ def _lib() -> ctypes.CDLL:
                               BUILD_TIMEOUT_S, HEADERS)
     if not getattr(lib, "_tpt_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        common = [p] * 7 + [i, p, i, p, i, p, i, i]
-        lib.tpt_packet_closest_hit_wide.restype = ctypes.c_int
-        lib.tpt_packet_closest_hit_wide.argtypes = common + [p] * 7
-        lib.tpt_packet_any_hit_wide.restype = ctypes.c_int
-        lib.tpt_packet_any_hit_wide.argtypes = common + [p] * 4
+        common = [p] * 7 + [i, p, i, p, i, p, i, i, i]
+        for suffix in ("_wide", ""):
+            closest = getattr(lib, "tpt_packet_closest_hit" + suffix)
+            closest.restype = ctypes.c_int
+            closest.argtypes = common + [p] * 7
+            any_hit = getattr(lib, "tpt_packet_any_hit" + suffix)
+            any_hit.restype = ctypes.c_int
+            any_hit.argtypes = common + [p] * 4
         lib.tpt_stack_depth.restype = ctypes.c_int
         lib.tpt_stack_depth.argtypes = []
         if lib.tpt_stack_depth() != STACK_DEPTH:
@@ -82,7 +98,10 @@ def build_kernels() -> None:
     _lib()
 
 
-def _check(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor) -> int:
+def _check(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
+           binary: bool = False) -> int:
+    """The inputs of a wide (K1/K2) or, with `binary`, a binary (K8a/K8b)
+    cast; returns the ray count."""
     n = ori.x.shape[0]
     dev = ori.x.device
     rays = (ori.x, ori.y, ori.z, d.x, d.y, d.z, t_max)
@@ -91,7 +110,9 @@ def _check(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor) -> int:
                 or a.shape[0] != n or not a.is_contiguous():
             raise ValueError("ray inputs must be contiguous float32 [N] "
                              "tensors on one device")
-    if pack.arity not in (4, 8):
+    if binary and pack.arity != 2:
+        raise ValueError(f"binary kernels need an arity-2 pack, got {pack.arity}")
+    if not binary and pack.arity not in (4, 8):
         raise ValueError(f"wide kernels need an arity-4/8 pack, got {pack.arity}")
     nf, nc, tf = pack.node_f32, pack.node_child, pack.tri_f32
     if (nf.device != dev or nc.device != dev or tf.device != dev):
@@ -99,7 +120,16 @@ def _check(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor) -> int:
     if (nf.dtype != torch.float32 or nc.dtype != torch.int32
             or tf.dtype != torch.float32):
         raise ValueError("pack tables must be float32/int32/float32")
-    if (nf.dim() != 2 or nf.shape[1] < 6 * pack.arity
+    if binary:
+        if (nf.dim() != 2 or nf.shape[1] != 16
+                or tuple(nc.shape) != (nf.shape[0], 2)
+                or tf.dim() != 2 or tf.shape[1] != 16
+                or nf.shape[0] != pack.num_nodes
+                or not 1 <= pack.max_cluster <= min(255, tf.shape[0])):
+            raise ValueError("pack tables do not have the binary layout "
+                             "(node_f32 [Nt, 16], node_child [Nt, 2], "
+                             "tri_f32 [Tp >= max_cluster, 16])")
+    elif (nf.dim() != 2 or nf.shape[1] < 6 * pack.arity
             or tuple(nc.shape) != (nf.shape[0], 16)
             or tf.dim() != 2 or tf.shape[1] != 16
             or nf.shape[0] != pack.num_nodes):
@@ -122,7 +152,7 @@ def _launch(name: str, pack: PacketBVH, ori: Vec3, d: Vec3,
     args = [ptr(a) for a in (ori.x, ori.y, ori.z, d.x, d.y, d.z, t_max)]
     args += [n, ptr(pack.node_f32), pack.node_f32.shape[1],
              ptr(pack.node_child), pack.num_nodes, ptr(pack.tri_f32),
-             pack.tri_f32.shape[0], pack.arity]
+             pack.tri_f32.shape[0], pack.arity, pack.max_cluster]
     args += [ptr(o) for o in outs] + [ptr(capped)]
     args.append(ptr(stats) if stats is not None else ctypes.c_void_p(None))
     _build.launch(_lib, LAUNCHES, name, ori.x.device, *args)
@@ -167,6 +197,39 @@ def packet_any_hit_wide(pack: PacketBVH, ori: Vec3, d: Vec3,
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     capped = torch.zeros((), dtype=torch.int32, device=dev)
     _launch("packet_any_hit_wide", pack, ori, d, t_max, (occ,), capped, stats)
+    return occ, capped
+
+
+def packet_closest_hit(pack: PacketBVH, ori: Vec3, d: Vec3,
+                       t_max: torch.Tensor,
+                       stats: Optional[torch.Tensor] = None
+                       ) -> Tuple[HitRecord, torch.Tensor]:
+    """K8a: closest hit over the binary pack, as K2 over the wide one."""
+    n = _check(pack, ori, d, t_max, binary=True)
+    dev = ori.x.device
+    if dev.type == "cpu":
+        return closest_hit_plain(pack, ori, d, t_max)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    capped = torch.zeros((), dtype=torch.int32, device=dev)
+    _launch("packet_closest_hit", pack, ori, d, t_max, (t, tri, u, v),
+            capped, stats)
+    return HitRecord(t=t, tri=tri, u=u, v=v), capped
+
+
+def packet_any_hit(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
+                   stats: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8b: occlusion over the binary pack, as K1 over the wide one."""
+    n = _check(pack, ori, d, t_max, binary=True)
+    dev = ori.x.device
+    if dev.type == "cpu":
+        return any_hit_plain(pack, ori, d, t_max)
+    occ = torch.empty(n, dtype=torch.bool, device=dev)
+    capped = torch.zeros((), dtype=torch.int32, device=dev)
+    _launch("packet_any_hit", pack, ori, d, t_max, (occ,), capped, stats)
     return occ, capped
 
 
@@ -223,8 +286,9 @@ def _mt_rows(rows: torch.Tensor, o, d):
 
 def _walk(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
           any_hit: bool):
-    """The per-ray stack walk of both kernels, one pop per live ray per
-    iteration. Returns (bt, btri, bu, bv, occ, capped)."""
+    """The per-ray stack walk of the four kernels (the pack's arity picks
+    the wide or the binary rule), one pop per live ray per iteration.
+    Returns (bt, btri, bu, bv, occ, capped)."""
     n = ori.x.shape[0]
     dev = ori.x.device
     A = pack.arity
@@ -271,29 +335,57 @@ def _walk(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
             c = code[is_node]
             row = pack.node_f32[c]
             crow = node_child[c]
-            ordw = crow.gather(1, (8 + octant[a])[:, None]).squeeze(1)
             oa = tuple(x[a] for x in o)
             ia = tuple(x[a] for x in inv)
             limit = limit0[a] if any_hit else bt[a]
-            for pos in range(A - 1, -1, -1):
-                s = (ordw >> (4 * pos)) & 15
-                child = crow.gather(1, s[:, None]).squeeze(1)
-                box = row.gather(1, 6 * s[:, None]
-                                 + torch.arange(6, device=dev)[None, :])
-                hit = _slab(box, oa, ia, limit) & (child != -1)
+
+            def push(hit, child):
                 spa = sp[a]
                 full = hit & (spa >= STACK_DEPTH)
-                push = hit & ~full
+                ok = hit & ~full
                 inexact[a[full]] = True
-                stack[a[push], spa[push]] = child[push].to(torch.int32)
-                sp[a] = spa + push.to(torch.int64)
+                stack[a[ok], spa[ok]] = child[ok].to(torch.int32)
+                sp[a] = spa + ok.to(torch.int64)
+
+            if A == 2:
+                h0, t0 = _slab(row[:, 0:6], oa, ia, limit, entry=True)
+                h1, t1 = _slab(row[:, 6:12], oa, ia, limit, entry=True)
+                c0, c1 = crow[:, 0], crow[:, 1]
+                if any_hit:
+                    # slot order, no sort (pallas_traverse.py:215-224)
+                    push(h0, c0)
+                    push(h1, c1)
+                else:
+                    # entry-t order, swapped only when strictly larger;
+                    # far first (pallas_traverse.py:158-183)
+                    m0 = torch.where(h0, t0, _BIG)
+                    m1 = torch.where(h1, t1, _BIG)
+                    swap = m0 > m1
+                    near_m = torch.where(swap, m1, m0)
+                    far_m = torch.where(swap, m0, m1)
+                    push(far_m < _BIG, torch.where(swap, c0, c1))
+                    push(near_m < _BIG, torch.where(swap, c1, c0))
+            else:
+                ordw = crow.gather(1, (8 + octant[a])[:, None]).squeeze(1)
+                for pos in range(A - 1, -1, -1):
+                    s = (ordw >> (4 * pos)) & 15
+                    child = crow.gather(1, s[:, None]).squeeze(1)
+                    box = row.gather(1, 6 * s[:, None]
+                                     + torch.arange(6, device=dev)[None, :])
+                    push(_slab(box, oa, ia, limit) & (child != -1), child)
 
         # -- clusters: Möller–Trumbore over the cluster's triangles
         b = active[~is_node]
         if b.numel() > 0:
             v = -(code[~is_node] + 1)
-            start = v // 256
-            count = torch.minimum(v % 256, torch.clamp_min(tri_rows - start, 0))
+            if A == 2:
+                # pallas_traverse.py:188-190, at most K triangles
+                start = torch.clamp(v // 256, 0, tri_rows - K)
+                count = torch.clamp_max(v % 256, K)
+            else:
+                start = v // 256
+                count = torch.minimum(v % 256,
+                                      torch.clamp_min(tri_rows - start, 0))
             valid = jj[None, :] < count[:, None]
             rows = pack.tri_f32[(start[:, None] + jj[None, :]).clamp(
                 max=tri_rows - 1)]
@@ -322,20 +414,40 @@ def _walk(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
     return bt, btri, bu, bv, occ, capped
 
 
+def _closest_plain(pack, ori, d, t_max, binary: bool):
+    _check(pack, ori, d, t_max, binary=binary)
+    bt, btri, bu, bv, _, capped = _walk(pack, ori, d, t_max, any_hit=False)
+    t = torch.where(btri >= 0, bt, torch.full_like(bt, FLT_MAX))
+    return HitRecord(t=t, tri=btri, u=bu, v=bv), capped
+
+
+def _any_plain(pack, ori, d, t_max, binary: bool):
+    _check(pack, ori, d, t_max, binary=binary)
+    _, _, _, _, occ, capped = _walk(pack, ori, d, t_max, any_hit=True)
+    return occ, capped
+
+
 def closest_hit_wide_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
                            t_max: torch.Tensor
                            ) -> Tuple[HitRecord, torch.Tensor]:
     """Plain PyTorch K2 (any device)."""
-    _check(pack, ori, d, t_max)
-    bt, btri, bu, bv, _, capped = _walk(pack, ori, d, t_max, any_hit=False)
-    t = torch.where(btri >= 0, bt, torch.full_like(bt, FLT_MAX))
-    return HitRecord(t=t, tri=btri, u=bu, v=bv), capped
+    return _closest_plain(pack, ori, d, t_max, binary=False)
 
 
 def any_hit_wide_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
                        t_max: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K1 (any device)."""
-    _check(pack, ori, d, t_max)
-    _, _, _, _, occ, capped = _walk(pack, ori, d, t_max, any_hit=True)
-    return occ, capped
+    return _any_plain(pack, ori, d, t_max, binary=False)
+
+
+def closest_hit_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
+                      t_max: torch.Tensor) -> Tuple[HitRecord, torch.Tensor]:
+    """Plain PyTorch K8a (any device)."""
+    return _closest_plain(pack, ori, d, t_max, binary=True)
+
+
+def any_hit_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
+                  t_max: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K8b (any device)."""
+    return _any_plain(pack, ori, d, t_max, binary=True)

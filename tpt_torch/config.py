@@ -256,7 +256,12 @@ class RenderConfig:
     heavy_shading_iters: int = 0
     # megakernel pixel-tile size per dispatch: one fused whole-path program
     # per tile keeps each TPU program under the device watchdog at
-    # benchmark scale (one 2M-path program was killed — BENCHMARKS.md §2)
+    # benchmark scale (one 2M-path program was killed — BENCHMARKS.md §2).
+    # The port runs a frame in one pass, which gives the same image (a
+    # pixel's path does not depend on the other lanes), so the tile
+    # selects nothing: on the H100 tpt's 8 tiles of a 1080p frame made it
+    # 7.8x slower, each tile launching a whole frame's small kernels
+    # (PERF.md §6, PR 8).
     megakernel_tile: int = 1 << 18
 
     def with_(self, **kw) -> "RenderConfig":

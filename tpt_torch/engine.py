@@ -1,16 +1,19 @@
 """Renderer facade: the reference's engine contract (init, frame, free) as a
-stateful host object over the port's wavefront frame and SVGF.
+stateful host object over the port's two integrators and SVGF.
 Counterpart of `tpt/engine.py`: the same accumulators, SVGF history,
 camera moves that keep the previous view-projection for motion vectors,
 display channels, frame pipelining, device-side tonemap and checkpoint
 layout, so a checkpoint written by tpt's Renderer resumes here.
 
-With `denoiser_on` a frame is the engine's real-time mode: one wavefront
-frame from zeroed accumulators, then `svgf.run_svgf` (K6 reprojection
-and 5 K5 a-trous passes on the card). Not ported yet, each raising
-NotImplementedError: RenderMode.MEGAKERNEL (ROADMAP queue 1 item 2),
-DisplayMode.BVH_HEATMAP, which needs BVH_XLA's traversal_cost (item 6),
-and the wavefront options `wavefront._unsupported` refuses (item 6).
+In RenderMode.WAVEFRONT with `denoiser_on` a frame is the engine's
+real-time mode: one wavefront frame from zeroed accumulators, then
+`svgf.run_svgf` (K6 reprojection and 5 K5 a-trous passes on the card).
+In RenderMode.MEGAKERNEL a frame adds one megakernel sample of every
+pixel to `acc_mega` and shows its mean, as tpt's engine does (which
+neither denoises nor selects a display channel in that mode). Not ported
+yet, each raising NotImplementedError: DisplayMode.BVH_HEATMAP, which
+needs BVH_XLA's traversal_cost (ROADMAP queue 1 item 6), and the options
+`wavefront._unsupported` and `megakernel._unsupported` refuse (item 6).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from .config import DisplayMode, RenderConfig, RenderMode
 from .core.camera import Camera
 from .core.vec import Vec3
 from .denoise import svgf
-from .integrators import common, wavefront
+from .integrators import common, megakernel, wavefront
 from .scene.structs import SceneData
 
 _HEATMAP = ("DisplayMode.BVH_HEATMAP needs traversal_cost of the BVH_XLA "
@@ -55,10 +58,9 @@ class Renderer:
     """
 
     def __init__(self, scene: SceneData, cam: Camera, cfg: RenderConfig):
-        if cfg.mode == RenderMode.MEGAKERNEL:
-            raise NotImplementedError("RenderMode.MEGAKERNEL is not ported "
-                                      "yet (ROADMAP queue 1 item 2)")
-        reason = wavefront._unsupported(cfg)
+        self.mega = cfg.mode == RenderMode.MEGAKERNEL
+        reason = (megakernel._unsupported(cfg) if self.mega
+                  else wavefront._unsupported(cfg))
         if reason:
             raise NotImplementedError(f"{reason} is not ported yet (ROADMAP "
                                       "queue 1 item 6)")
@@ -75,6 +77,9 @@ class Renderer:
         # opt-in device-side tonemap: frame() returns display-ready uint8
         self.display_u8 = False
         self.raycaster = common.make_raycaster(scene, cfg)
+        if self.mega:
+            self._mega_step = megakernel.make_sample_fn(
+                scene, cam, cfg, raycaster=self.raycaster)
         self._vp = wavefront.camera_view_proj(cam)
         self._prev_vp = self._vp
         self.reset()
@@ -104,12 +109,14 @@ class Renderer:
         """Re-target the camera. The previous view-projection is kept for
         the next frame's motion vectors, but, as in tpt, the reset also
         clears the SVGF history (the next frame allocates a zeroed
-        SVGFState), so the denoiser restarts after every move."""
+        SVGFState), so the denoiser restarts after every move. The
+        megakernel's next sample simply follows the new camera."""
         same_res = cam.resolution == self.cam.resolution
         self.cam = cam
-        prev = self._vp
-        self._vp = wavefront.camera_view_proj(cam)
-        self._prev_vp = prev
+        if not self.mega:
+            prev = self._vp
+            self._vp = wavefront.camera_view_proj(cam)
+            self._prev_vp = prev
         if not same_res:
             w, h = cam.resolution
             self._shape = (h, w)
@@ -137,11 +144,12 @@ class Renderer:
 
     # -- frame -----------------------------------------------------------------
     def frame(self) -> np.ndarray:
-        # the frame consumes spp_batch consecutive iteration numbers (one
-        # per sample in the pool); iteration counts samples, so seeds never
-        # overlap across frames and the accumulator normalization is exact
-        step = max(1, self.cfg.spp_batch)
-        if not self.gui.denoiser_on \
+        # a wavefront frame consumes spp_batch consecutive iteration numbers
+        # (one per sample in the pool), a megakernel frame one; iteration
+        # counts samples, so seeds never overlap across frames and the
+        # accumulator normalization is exact
+        step = 1 if self.mega else max(1, self.cfg.spp_batch)
+        if not self.mega and not self.gui.denoiser_on \
                 and self.gui.display_mode == DisplayMode.BVH_HEATMAP:
             raise NotImplementedError(_HEATMAP)
         self._ensure_state()
@@ -150,24 +158,12 @@ class Renderer:
         h, w = self._shape
         t0 = time.perf_counter()
 
-        if self.gui.denoiser_on:
-            # real-time mode: 1 spp per frame, no accumulation
-            n = self.cam.num_pixels
-            self.acc_direct = Vec3.zeros((n,), self.device)
-            self.acc_indirect = Vec3.zeros((n,), self.device)
-        out = wavefront.trace_frame(self.scene, self.raycaster, self.cam,
-                                    self.cfg, it, view_proj=self._vp,
-                                    prev_view_proj=self._prev_vp)
-        self.acc_direct = self.acc_direct + out.direct
-        self.acc_indirect = self.acc_indirect + out.indirect
-        self._prev_vp = self._vp
-        rays = out.rays_traced
-
-        if self.gui.denoiser_on:
-            rgb, self.svgf_state = self._svgf_impl(self.svgf_state, out)
-            img_dev = rgb.stacked()
+        if self.mega:
+            self.acc_mega = self._mega_step(it, self.acc_mega, cam=self.cam)
+            img_dev = (self.acc_mega * (1.0 / self.iteration)).stacked()
+            rays = self.cam.num_pixels * self.cfg.trace_depth
         else:
-            img_dev = self._display_device(out)
+            img_dev, rays = self._wavefront_frame(it)
         if self.display_u8 and img_dev.dtype != torch.uint8:
             img_dev = self._u8(img_dev)
 
@@ -187,6 +183,27 @@ class Renderer:
         self.gui.mrays_per_sec = int(rays) / dt / 1e6
         self.gui.traced_depth = self.cfg.trace_depth
         return img.reshape(h, w, 3)
+
+    def _wavefront_frame(self, it: int):
+        """One wavefront frame at iteration `it` (accumulated, or denoised
+        in the real-time mode): (image on the device, rays traced)."""
+        if self.gui.denoiser_on:
+            # real-time mode: 1 spp per frame, no accumulation
+            n = self.cam.num_pixels
+            self.acc_direct = Vec3.zeros((n,), self.device)
+            self.acc_indirect = Vec3.zeros((n,), self.device)
+        out = wavefront.trace_frame(self.scene, self.raycaster, self.cam,
+                                    self.cfg, it, view_proj=self._vp,
+                                    prev_view_proj=self._prev_vp)
+        self.acc_direct = self.acc_direct + out.direct
+        self.acc_indirect = self.acc_indirect + out.indirect
+        self._prev_vp = self._vp
+        rays = out.rays_traced
+
+        if self.gui.denoiser_on:
+            rgb, self.svgf_state = self._svgf_impl(self.svgf_state, out)
+            return rgb.stacked(), rays
+        return self._display_device(out), rays
 
     def bvh_heatmap(self) -> np.ndarray:
         raise NotImplementedError(_HEATMAP)

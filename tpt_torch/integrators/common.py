@@ -32,8 +32,8 @@ class Raycaster:
 
 def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
     """The backend `cfg.backend` names. The TPU packet-kernel knobs
-    (trav_group, pops) keep their defaults: the per-thread K1/K2 have no
-    packets, and the treelet kernels K9/K10 walk tpt's default packets;
+    (trav_group, pops) keep their defaults: the per-thread K1/K2 and
+    K8a/K8b have no packets, and the treelet kernels K9/K10 walk tpt's default packets;
     wavefront refuses other values. A BVH_SWEEP raycaster serves both the
     camera rays (K2) and the bin-sorted bounce pools (sweep pipeline),
     told apart by `sweep_slots`; a BVH_TREELET raycaster serves the camera
@@ -48,24 +48,29 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
                 scene.mesh, o, d, t_max),
             name="brute_force", capped=capped)
     if cfg.backend == RayCastBackend.BVH_PALLAS:
-        from ..bvh.packet_traverse import (packet_any_hit_wide,
-                                           packet_closest_hit_wide)
+        from ..bvh import packet_traverse as pt
         from .intersect import FLT_MAX
 
         pack = scene.pack
-        if pack is None or pack.arity <= 2:
-            raise ValueError("BVH_PALLAS needs a wide pack "
+        if pack is None:
+            raise ValueError("BVH_PALLAS needs a packet BVH "
                              "(HostScene.build(with_bvh=True))")
+        # the binary pack goes to K8a/K8b, a wide one to K2/K1, as tpt's
+        # pallas_closest_hit/pallas_any_hit route them
+        binary = pack.arity == 2
 
         def closest(o, d, t_max=None):
             if t_max is None:
                 t_max = torch.full((o.shape[0],), FLT_MAX, device=o.device)
-            hit, c = packet_closest_hit_wide(pack, o, d, t_max)
+            cast = (pt.packet_closest_hit if binary
+                    else pt.packet_closest_hit_wide)
+            hit, c = cast(pack, o, d, t_max)
             capped.add_(c)
             return hit
 
         def any_hit(o, d, t_max):
-            occ, c = packet_any_hit_wide(pack, o, d, t_max)
+            cast = pt.packet_any_hit if binary else pt.packet_any_hit_wide
+            occ, c = cast(pack, o, d, t_max)
             capped.add_(c)
             return occ
 
@@ -78,6 +83,9 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
         from .intersect import FLT_MAX
 
         pack = scene.pack
+        if pack is not None and pack.arity == 2:
+            raise ValueError("BVH_TREELET needs a wide pack with treelet "
+                             "tables, not the binary (arity-2) pack")
         if pack is None or pack.top_f32 is None:
             raise ValueError("BVH_TREELET needs treelet tables "
                              "(HostScene.build(with_bvh=True) attaches them "
@@ -127,6 +135,9 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
         from .intersect import FLT_MAX
 
         pack, sweep = scene.pack, scene.sweep
+        if pack is not None and pack.arity == 2:
+            raise ValueError("BVH_SWEEP needs a wide pack with sweep "
+                             "tables, not the binary (arity-2) pack")
         if pack is None or sweep is None or pack.num_treelets == 0:
             raise ValueError("BVH_SWEEP needs sweep tables "
                              "(HostScene.build(with_bvh=True) attaches them "

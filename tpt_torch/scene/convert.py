@@ -2,8 +2,8 @@
 
 `from_numpy_scene` builds the port's `SceneData` from the numpy leaves of
 a scene the JAX package built (mesh, material rows, light table, the
-wide packet-BVH tables with their treelet top tree, and the dense-sweep
-tables), so tests can hand both packages the very same
+packet-BVH tables — wide with their treelet top tree, or binary — and
+the dense-sweep tables), so tests can hand both packages the very same
 tables. It takes plain arrays under the JAX package's field names, never
 objects of that package, and imports nothing of it."""
 
@@ -49,8 +49,10 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
     mesh: MESH_KEYS, vec3 fields as [N, 3] arrays (shade_* may be None);
     material_rows: the packed [M, 16] material table;
     lights: LIGHT_KEYS (packed may be None);
-    pack: PACK_KEYS of a wide PacketBVH, plus TOP_KEYS when it carries
-    the treelet cut (top_f32 None or absent: no cut), or None;
+    pack: PACK_KEYS of a PacketBVH, or None: a wide pack (arity 4/8,
+    node_child [Nt, 16]) plus TOP_KEYS when it carries the treelet cut
+    (top_f32 None or absent: no cut), or the binary pack (arity 2,
+    node_f32 [Nt, 16], node_child [Nt, 2]), which has no cut;
     sweep: SWEEP_KEYS of the dense-sweep tables, or None."""
     dev = resolve_device(device)
     _need(mesh, MESH_KEYS, "mesh")
@@ -77,6 +79,11 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
     if pack is not None:
         _need(pack, PACK_KEYS, "pack")
         top = {}
+        want = 2 if int(pack["arity"]) == 2 else 16
+        if np.shape(pack["node_child"])[1:] != (want,):
+            raise ValueError(f"an arity-{int(pack['arity'])} pack has "
+                             f"node_child [Nt, {want}], got "
+                             f"{np.shape(pack['node_child'])}")
         if pack.get("top_f32") is not None:
             _need(pack, TOP_KEYS, "pack top-tree")
             top = dict(top_f32=f32(pack["top_f32"]),
