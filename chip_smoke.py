@@ -27,15 +27,17 @@ on the hard ones. One line per phase (name, seconds, key numbers):
              all at once, from the sources in this checkout
   scene      host scene, SAH BVH, wide pack, treelet cut and sweep tables
              (chunk_align 8, as bench.py builds them), and the binary pack
-             of the same SAH BVH, uploaded to the card
+             (HostScene.build with packet_arity=2), uploaded to the card
   kernels    K2/K1 against their plain PyTorch versions on 262,144 live
              rays (camera primaries and one real diffuse bounce of the
              render, and the NEE shadow rays of both bounces), then on all
              2,073,600 lanes of each of those casts as the render launches
              them, dead lanes included; then CUDA-event timings
   render     wavefront.render, BVH_PALLAS, depth 8, 4 iterations at 1080p,
-             with the kernels' launch counters zeroed just before and read
-             just after
+             with all launch counters zeroed just before and read just
+             after (K2 and K1 8 a frame, no other kernel); the device busy
+             share of a profiled frame, and one frame split by CUDA events
+             into the casts and the rest
   agreement  the same scene at 240x135, 2 iterations, through the kernels
              and through the plain versions: the images must agree to the
              golden-image tolerance of tests/test_golden.py
@@ -84,13 +86,15 @@ on the hard ones. One line per phase (name, seconds, key numbers):
   binary_render
              wavefront.render with BVH_PALLAS on the binary pack at 1080p,
              depth 8, with all launch counters zeroed just before and read
-             just after (K8a and K8b 8 a frame, K1/K2 none); frame ms and
-             Mpaths/s beside the wide BVH_PALLAS frame of the run
+             just after (K8a and K8b 8 a frame, no other kernel); frame ms
+             and Mpaths/s beside the wide BVH_PALLAS frame of the run, and
+             the device busy share of a profiled frame
   mega_render
-             Renderer in RenderMode.MEGAKERNEL at 1080p, depth 8, a few
-             frames on the binary pack (K8a/K8b launched) and one on the
-             wide pack (K2/K1 launched), each frame in one pass; frame ms,
-             Mpaths/s, the device busy share of a profiled frame
+             Renderer in RenderMode.MEGAKERNEL at 1080p, depth 8, a
+             warm-up frame and 3 timed frames on the binary pack (K8a/K8b
+             launched) and the same on the wide pack (K2/K1 launched), each
+             frame in one pass; frame ms, Mpaths/s, the device busy share
+             of a profiled binary-pack frame
   mega_agreement
              the megakernel on the binary pack at 240x135, 2 iterations,
              through the kernels, through the plain versions and against
@@ -131,7 +135,6 @@ traceback of every thread, after WATCHDOG_S seconds.
 
 from __future__ import annotations
 
-import dataclasses
 import faulthandler
 import json
 import os
@@ -394,10 +397,13 @@ def bound(pack, n: int, out_bytes: int, stats) -> tuple:
     return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
 
 
-def check_k2(label: str, res_k, res_p) -> float:
-    """Hold K2's (HitRecord, capped) against the plain version's; returns
-    the largest absolute difference of t on hits and of u, v where the
-    triangles agree."""
+def check_closest_hit(label: str, res_k, res_p, kernel: str,
+                      exact: bool) -> float:
+    """Hold a closest-hit kernel's (HitRecord, capped) against the plain
+    version's, with no capped ray: bit for bit when `exact`, else hit masks
+    equal, t within T_RTOL and triangles differing on at most
+    TRI_MISMATCH_MAX of the hits. Returns the largest absolute difference
+    of t on hits and of u, v where the triangles agree."""
     import torch
 
     (hk, cap_k), (hp, cap_p) = res_k, res_p
@@ -405,35 +411,41 @@ def check_k2(label: str, res_k, res_p) -> float:
         raise RuntimeError(f"{label}: capped rays, kernel {int(cap_k)}, "
                            f"plain {int(cap_p)}")
     hit_k, hit_p = hk.tri >= 0, hp.tri >= 0
+    n_hit = int(hit_k.sum())
+    if exact:
+        equal_hits(f"{kernel} vs plain, {label}", hk, hp)
+        print(f"  {kernel} vs plain, {label}: {hk.tri.numel()} rays, "
+              f"{n_hit} hits, bit-equal")
+        return 0.0
     if not torch.equal(hit_k, hit_p):
-        raise RuntimeError(f"{label}: K2 hit mask differs on "
+        raise RuntimeError(f"{label}: {kernel} hit mask differs on "
                            f"{int((hit_k != hit_p).sum())} rays")
     if not torch.equal(hk.t[~hit_k], hp.t[~hit_k]):
-        raise RuntimeError(f"{label}: K2 t differs on misses")
-    n_hit = int(hit_k.sum())
+        raise RuntimeError(f"{label}: {kernel} t differs on misses")
     tk, tp = hk.t[hit_k], hp.t[hit_k]
     t_rel = float(((tk - tp).abs() / tp.abs().clamp_min(1e-30)).max()) \
         if n_hit else 0.0
     if t_rel > T_RTOL:
-        raise RuntimeError(f"{label}: K2 t differs, max rel {t_rel}")
+        raise RuntimeError(f"{label}: {kernel} t differs, max rel {t_rel}")
     same = hk.tri == hp.tri
     tri_diff = int((~same).sum())
     if tri_diff > TRI_MISMATCH_MAX * n_hit:
-        raise RuntimeError(f"{label}: K2 triangle differs on {tri_diff} rays")
+        raise RuntimeError(f"{label}: {kernel} triangle differs on "
+                           f"{tri_diff} rays")
     err = float((tk - tp).abs().max()) if n_hit else 0.0
     if bool(same.any()):
         err = max(err, float((hk.u - hp.u)[same].abs().max()),
                   float((hk.v - hp.v)[same].abs().max()))
-    print(f"  K2 vs plain, {label}: {hk.tri.numel()} rays, {n_hit} hits, "
+    print(f"  {kernel} vs plain, {label}: {hk.tri.numel()} rays, {n_hit} hits, "
           f"t max rel {t_rel:.3g}, tri differs {tri_diff}, "
           f"max abs err {err:.3g}")
     return err
 
 
-def check_k1(label: str, res_k, res_p, t_max, kernel: str = "K1") -> float:
-    """Hold K1's (or K8b's) (occluded, capped) against the plain
-    version's; returns the largest absolute difference of the occlusion
-    flags (0 or 1)."""
+def check_any_hit(label: str, res_k, res_p, t_max, kernel: str) -> float:
+    """Hold an any-hit kernel's (occluded, capped) against the plain
+    version's, flag for flag with no capped ray; returns the largest
+    absolute difference of the occlusion flags (0 or 1)."""
     (ok, cap_k), (op, cap_p) = res_k, res_p
     if int(cap_k) or int(cap_p):
         raise RuntimeError(f"{label}: capped rays, kernel {int(cap_k)}, "
@@ -529,10 +541,10 @@ def equal_hits(label: str, a, b) -> None:
                                f"{int((x != y).sum())} lanes")
 
 
-def profiled_frame(fn) -> float:
+def profiled_frame(label: str, fn) -> float:
     """Device busy share of one frame fn(): torch.profiler's kernel times
     against the frame's wall time (profiling itself slows the host side).
-    Prints them and the top kernels; returns the share."""
+    Prints them and the top kernels under `label`; returns the share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -547,7 +559,8 @@ def profiled_frame(fn) -> float:
                   if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:4]
-    print(f"  profiled frame: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+    print(f"  profiled {label} frame: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.0f}%), {sum(e.count for e in dev_events)} "
           f"kernel launches; top: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
@@ -579,129 +592,159 @@ def expect_launches(label: str, counts, want: dict) -> dict:
     return got
 
 
-def check_k8a(label: str, res_k, res_p) -> float:
-    """Hold K8a's (HitRecord, capped) against the plain version's, bit for
-    bit, with no capped ray; returns the largest absolute difference."""
-    (hk, cap_k), (hp, cap_p) = res_k, res_p
-    if int(cap_k) or int(cap_p):
-        raise RuntimeError(f"{label}: capped rays, kernel {int(cap_k)}, "
-                           f"plain {int(cap_p)}")
-    equal_hits(f"K8a vs plain, {label}", hk, hp)
-    hit = hk.tri >= 0
-    print(f"  K8a vs plain, {label}: {hk.tri.numel()} rays, "
-          f"{int(hit.sum())} hits, bit-equal")
-    return 0.0
+def tests_done(stats) -> str:
+    """A kernel's stats counts (node visits, slab tests, triangle tests)."""
+    return (f"node visits {int(stats[0])}, slab tests {int(stats[1])}, "
+            f"tri tests {int(stats[2])}")
+
+
+def check_image(label: str, img) -> None:
+    """A 1080p frame: the right shape, finite, not black."""
+    import numpy as np
+
+    if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
+            or not img.mean() > 0:
+        raise RuntimeError(f"bad {label} image: shape {img.shape}, "
+                           f"mean {float(np.nanmean(img))}")
+
+
+def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
+               closest_plain, any_plain, exact: bool) -> dict:
+    """The cast kernels of `scene`'s pack, closest(pack, o, d, t_max) and
+    any_hit(...), against their plain versions on the casts of bounces 0
+    and 1 of a BVH_PALLAS frame: first on N_COMPARE live rays (camera
+    primaries and one real diffuse bounce, and the NEE shadow rays of both
+    bounces), then on every lane of each of those casts as the render
+    launches them, dead lanes included (check_closest_hit with `exact`,
+    check_any_hit). Then CUDA-event timings on all lanes (the closest hit
+    on the primaries and the bounce-1 pool, the any hit on the bounce-0
+    shadow rays) and bounds from the tests the kernels count. `names` are
+    the two kernels' labels. Returns the lane count, the primaries, and
+    each kernel's numbers for the kernels line."""
+    import torch
+
+    from tpt_torch.config import RayCastBackend, RenderConfig
+    from tpt_torch.integrators import common, wavefront
+
+    kc, ka = names
+    pack = scene.pack
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
+    rec = Recorder(common.make_raycaster(scene, cfg))
+    vp = wavefront.camera_view_proj(cam)
+    carry = wavefront.batched_raygen(cam, cfg, 1, dev)
+    for depth in range(2):
+        carry = wavefront._bounce_body(scene, rec.raycaster, cam, cfg, vp, vp,
+                                       depth, carry)
+    del carry
+    prim, pool = rec.ext
+    shd0, shd1 = rec.shadow
+    live = lambda rays: pick(*rays, rays[2] > 0, N_COMPARE // 2)
+
+    def check_c(label, rays):
+        res_p, plain_ms = timed_once(lambda: closest_plain(pack, *rays))
+        return check_closest_hit(label, closest(pack, *rays), res_p, kc,
+                                 exact), plain_ms
+
+    def check_a(label, rays):
+        res_p, plain_ms = timed_once(lambda: any_plain(pack, *rays))
+        return check_any_hit(label, any_hit(pack, *rays), res_p, rays[2],
+                             ka), plain_ms
+
+    c_err = check_c("picked live rays", cat_rays(live(prim), live(pool)))[0]
+    a_err = check_a("picked live rays", cat_rays(live(shd0), live(shd1)))[0]
+    err, c_plain_ms = check_c("primaries, all lanes", prim)
+    c_err = max(c_err, err, check_c("bounce-1 pool, all lanes", pool)[0])
+    err, a_plain_ms = check_a("bounce-0 shadow, all lanes", shd0)
+    a_err = max(a_err, err, check_a("bounce-1 shadow, all lanes", shd1)[0])
+
+    n = prim[2].shape[0]
+    stats_c = torch.zeros(3, dtype=torch.int64, device=dev)
+    stats_a = torch.zeros(3, dtype=torch.int64, device=dev)
+    closest(pack, *prim, stats=stats_c)
+    any_hit(pack, *shd0, stats=stats_a)
+    c_ms = cuda_time_ms(lambda: closest(pack, *prim), TIMING_REPS)
+    pool_ms = cuda_time_ms(lambda: closest(pack, *pool), TIMING_REPS)
+    a_ms = cuda_time_ms(lambda: any_hit(pack, *shd0), TIMING_REPS)
+    c_bound, c_by = bound(pack, n, 16, stats_c.cpu())
+    a_bound, a_by = bound(pack, n, 1, stats_a.cpu())
+    mr = lambda ms: n / (ms * 1e-3) / 1e6
+    print(f"  {kc} primaries: {c_ms:.3f} ms ({mr(c_ms):.1f} Mrays/s), "
+          f"bounce-1 pool: {pool_ms:.3f} ms ({mr(pool_ms):.1f} Mrays/s), "
+          f"plain {c_plain_ms:.1f} ms, bound {c_bound:.3f} ms ({c_by}); "
+          f"{tests_done(stats_c.cpu())}")
+    print(f"  {ka} bounce-0 shadow: {a_ms:.3f} ms ({mr(a_ms):.1f} Mrays/s), "
+          f"plain {a_plain_ms:.1f} ms, bound {a_bound:.3f} ms ({a_by}); "
+          f"{tests_done(stats_a.cpu())}")
+    return dict(
+        lanes=n, primaries=prim,
+        closest=dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
+                     bound_ms=c_bound, bound_by=c_by),
+        any_hit=dict(max_abs_err=a_err, ms=a_ms, plain_ms=a_plain_ms,
+                     bound_ms=a_bound, bound_by=a_by))
+
+
+def render_phase(label: str, scene, cam, cfg, frames: int, want: dict,
+                 seed_iter: int) -> tuple:
+    """wavefront.render of `frames` 1080p frames after a warm-up frame,
+    with every launch counter zeroed just before and read just after: they
+    must equal `want` and every other counter 0. No capped ray, a good
+    image. Then the device busy share of one profiled frame. Returns (ms a
+    frame by the host clock, the counters, the image, the raycaster)."""
+    import torch
+
+    from tpt_torch.integrators import common, wavefront
+
+    rc = common.make_raycaster(scene, cfg)
+    wavefront.trace_frame(scene, rc, cam, cfg, seed_iter)   # warm-up frame
+    torch.cuda.synchronize()
+    counts = zero_launches()
+    tr = time.perf_counter()
+    img = wavefront.render(scene, cam, cfg, iterations=frames, raycaster=rc)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - tr) * 1e3 / frames
+    launches = expect_launches(label, counts, want)
+    if int(rc.capped):
+        raise RuntimeError(f"{label} had {int(rc.capped)} capped rays")
+    check_image(label, img)
+    profiled_frame(label, lambda: wavefront.trace_frame(scene, rc, cam, cfg,
+                                                        seed_iter + 1))
+    return frame_ms, launches, img, rc
 
 
 def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float) -> tuple:
     """The binary_kernels and binary_render phases on the binary pack
     `bscene` (the wide `scene` times K2 beside K8a); returns the K8a and
     K8b entries of the kernels line and the binary frame's ms."""
-    import numpy as np
     import torch
 
     from tpt_torch.bvh import packet_traverse as pt
     from tpt_torch.config import RayCastBackend, RenderConfig
-    from tpt_torch.integrators import common, wavefront
-
-    bpack = bscene.pack
-    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
 
     # ---- binary_kernels: the casts of bounces 0 and 1 ----------------------
     t0 = time.perf_counter()
-    rec = Recorder(common.make_raycaster(bscene, cfg))
-    vp = wavefront.camera_view_proj(cam)
-    carry = wavefront.batched_raygen(cam, cfg, 1, dev)
-    for depth in range(2):
-        carry = wavefront._bounce_body(bscene, rec.raycaster, cam, cfg, vp, vp,
-                                       depth, carry)
-    del carry
-    (p_o, p_d, p_t), (b_o, b_d, b_t) = rec.ext
-    (s0_o, s0_d, s0_t), (s1_o, s1_d, s1_t) = rec.shadow
-    half = N_COMPARE // 2
-    ext = cat_rays(pick(p_o, p_d, p_t, p_t > 0, half),
-                   pick(b_o, b_d, b_t, b_t > 0, half))
-    shd = cat_rays(pick(s0_o, s0_d, s0_t, s0_t > 0, half),
-                   pick(s1_o, s1_d, s1_t, s1_t > 0, half))
-
-    def k8a(label, o, d, t):
-        res_k = pt.packet_closest_hit(bpack, o, d, t)
-        res_p, plain_ms = timed_once(lambda: pt.closest_hit_plain(bpack, o, d,
-                                                                  t))
-        return check_k8a(label, res_k, res_p), plain_ms
-
-    def k8b(label, o, d, t):
-        res_k = pt.packet_any_hit(bpack, o, d, t)
-        res_p, plain_ms = timed_once(lambda: pt.any_hit_plain(bpack, o, d, t))
-        return check_k1(label, res_k, res_p, t, kernel="K8b"), plain_ms
-
-    # 262,144 live rays, then every lane of each cast as the render
-    # launches it, dead lanes included
-    k8a_err = k8a("picked live rays", *ext)[0]
-    k8b_err = k8b("picked live rays", *shd)[0]
-    err, k8a_plain_ms = k8a("primaries, all lanes", p_o, p_d, p_t)
-    k8a_err = max(k8a_err, err, k8a("bounce-1 pool, all lanes", b_o, b_d,
-                                    b_t)[0])
-    err, k8b_plain_ms = k8b("bounce-0 shadow, all lanes", s0_o, s0_d, s0_t)
-    k8b_err = max(k8b_err, err, k8b("bounce-1 shadow, all lanes", s1_o, s1_d,
-                                    s1_t)[0])
-    del ext, shd
-
-    n_full = p_t.shape[0]
-    stats_a, stats_b, stats_2 = (torch.zeros(3, dtype=torch.int64, device=dev)
-                                 for _ in range(3))
-    pt.packet_closest_hit(bpack, p_o, p_d, p_t, stats=stats_a)
-    pt.packet_any_hit(bpack, s0_o, s0_d, s0_t, stats=stats_b)
-    pt.packet_closest_hit_wide(scene.pack, p_o, p_d, p_t, stats=stats_2)
-    k8a_ms = cuda_time_ms(lambda: pt.packet_closest_hit(bpack, p_o, p_d, p_t),
-                          TIMING_REPS)
-    k8a_b_ms = cuda_time_ms(
-        lambda: pt.packet_closest_hit(bpack, b_o, b_d, b_t), TIMING_REPS)
-    k8b_ms = cuda_time_ms(
-        lambda: pt.packet_any_hit(bpack, s0_o, s0_d, s0_t), TIMING_REPS)
-    k2_ms = cuda_time_ms(
-        lambda: pt.packet_closest_hit_wide(scene.pack, p_o, p_d, p_t),
-        TIMING_REPS)
-    k8a_bound, k8a_by = bound(bpack, n_full, 16, stats_a.cpu())
-    k8b_bound, k8b_by = bound(bpack, n_full, 1, stats_b.cpu())
-    mr = lambda ms: n_full / (ms * 1e-3) / 1e6
-    tests = lambda st: (f"node visits {int(st[0])}, slab tests {int(st[1])}, "
-                        f"tri tests {int(st[2])}")
-    print(f"  K8a primaries: {k8a_ms:.3f} ms ({mr(k8a_ms):.1f} Mrays/s), "
-          f"bounce-1 pool: {k8a_b_ms:.3f} ms, plain {k8a_plain_ms:.1f} ms, "
-          f"bound {k8a_bound:.3f} ms ({k8a_by}); {tests(stats_a.cpu())}")
+    res = cast_phase(bscene, cam, dev, ("K8a", "K8b"), pt.packet_closest_hit,
+                     pt.packet_any_hit, pt.closest_hit_plain,
+                     pt.any_hit_plain, exact=True)
+    prim = res.pop("primaries")
+    stats_2 = torch.zeros(3, dtype=torch.int64, device=dev)
+    pt.packet_closest_hit_wide(scene.pack, *prim, stats=stats_2)
+    k2_ms = cuda_time_ms(lambda: pt.packet_closest_hit_wide(scene.pack, *prim),
+                         TIMING_REPS)
+    k8a_ms, k8b_ms = res["closest"]["ms"], res["any_hit"]["ms"]
     print(f"  K2 on the same primaries (wide pack): {k2_ms:.3f} ms, "
-          f"K8a/K2 {k8a_ms / k2_ms:.2f}x; {tests(stats_2.cpu())}")
-    print(f"  K8b bounce-0 shadow: {k8b_ms:.3f} ms ({mr(k8b_ms):.1f} "
-          f"Mrays/s), plain {k8b_plain_ms:.1f} ms, bound {k8b_bound:.3f} ms "
-          f"({k8b_by}); {tests(stats_b.cpu())}")
-    phase("binary_kernels", t0, n_compare=N_COMPARE, lanes=n_full,
-          nodes=bpack.num_nodes, k8a_ms=f"{k8a_ms:.3f}",
+          f"K8a/K2 {k8a_ms / k2_ms:.2f}x; {tests_done(stats_2.cpu())}")
+    phase("binary_kernels", t0, n_compare=N_COMPARE, lanes=res["lanes"],
+          nodes=bscene.pack.num_nodes, k8a_ms=f"{k8a_ms:.3f}",
           k8b_ms=f"{k8b_ms:.3f}", k2_ms=f"{k2_ms:.3f}")
-    del rec
+    del prim
 
     # ---- binary_render: BVH_PALLAS on the binary pack -----------------------
     t0 = time.perf_counter()
-    rc = common.make_raycaster(bscene, cfg)
-    wavefront.trace_frame(bscene, rc, cam, cfg, 400)   # warm-up frame
-    torch.cuda.synchronize()
-    counts = zero_launches()
-    tr = time.perf_counter()
-    img = wavefront.render(bscene, cam, cfg, iterations=BINARY_FRAMES,
-                           raycaster=rc)
-    torch.cuda.synchronize()
-    render_s = time.perf_counter() - tr
-    launches = expect_launches(
-        "binary render", counts,
-        dict(packet_closest_hit=DEPTH * BINARY_FRAMES,
-             packet_any_hit=DEPTH * BINARY_FRAMES))
-    if int(rc.capped):
-        raise RuntimeError(f"binary render had {int(rc.capped)} capped rays")
-    if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
-            or not img.mean() > 0:
-        raise RuntimeError(f"bad binary image: shape {img.shape}, "
-                           f"mean {float(np.nanmean(img))}")
-    frame_ms = render_s * 1e3 / BINARY_FRAMES
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
+    per = DEPTH * BINARY_FRAMES
+    frame_ms, launches, img, rc = render_phase(
+        "binary render", bscene, cam, cfg, BINARY_FRAMES,
+        dict(packet_closest_hit=per, packet_any_hit=per), 400)
     print(f"  against the wide BVH_PALLAS frame of this run: "
           f"{frame_ms / pallas_frame_ms:.2f}x ({frame_ms:.1f} ms vs "
           f"{pallas_frame_ms:.1f} ms)")
@@ -711,19 +754,16 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float) -> tuple:
                               ).replace(" ", ""),
           capped=int(rc.capped), image_mean=f"{float(img.mean()):.5f}")
 
+    source = "tpt_torch/csrc/packet_wide.cu"
     entries = [
-        dict(name="packet_closest_hit", route="cuda",
-             source="tpt_torch/csrc/packet_wide.cu",
+        dict(name="packet_closest_hit", route="cuda", source=source,
              replaces="tpt/bvh/pallas_traverse.py:350",
-             launches=launches["packet_closest_hit"], max_abs_err=k8a_err,
-             ms=k8a_ms, plain_ms=k8a_plain_ms, bound_ms=k8a_bound,
-             bound_by=k8a_by, library_ms=None),
-        dict(name="packet_any_hit", route="cuda",
-             source="tpt_torch/csrc/packet_wide.cu",
+             launches=launches["packet_closest_hit"], **res["closest"],
+             library_ms=None),
+        dict(name="packet_any_hit", route="cuda", source=source,
              replaces="tpt/bvh/pallas_traverse.py:394",
-             launches=launches["packet_any_hit"], max_abs_err=k8b_err,
-             ms=k8b_ms, plain_ms=k8b_plain_ms, bound_ms=k8b_bound,
-             bound_by=k8b_by, library_ms=None),
+             launches=launches["packet_any_hit"], **res["any_hit"],
+             library_ms=None),
     ]
     return entries, frame_ms
 
@@ -769,27 +809,27 @@ def mega_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
     if int(r.raycaster.capped):
         raise RuntimeError(f"megakernel had {int(r.raycaster.capped)} "
                            "capped rays")
-    if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
-            or not img.mean() > 0:
-        raise RuntimeError(f"bad megakernel image: shape {img.shape}, "
-                           f"mean {float(np.nanmean(img))}")
+    check_image("megakernel (binary pack)", img)
     if r.iteration != MEGA_FRAMES + 1:
         raise RuntimeError(f"megakernel Renderer at iteration {r.iteration}")
-    # one frame on the wide pack
+    busy = profiled_frame("megakernel (binary pack)", r.frame)
+    # the wide pack, timed as the binary one
     wide = Renderer(scene, cam, cfg)
-    wide_ms, counts, wimg = frames(wide, 1)
+    wide.frame()                                   # warm-up frame
+    wide_ms, counts, wimg = frames(wide, MEGA_FRAMES)
     wide_launches = expect_launches(
         "megakernel (wide pack)", counts,
-        dict(packet_closest_hit_wide=DEPTH, packet_any_hit_wide=DEPTH))
-    if int(wide.raycaster.capped) or not np.isfinite(wimg).all() \
-            or not wimg.mean() > 0:
-        raise RuntimeError("bad wide megakernel frame")
-    busy = profiled_frame(r.frame)
+        dict(packet_closest_hit_wide=per, packet_any_hit_wide=per))
+    if int(wide.raycaster.capped):
+        raise RuntimeError(f"wide megakernel had {int(wide.raycaster.capped)} "
+                           "capped rays")
+    check_image("megakernel (wide pack)", wimg)
     mp = lambda ms: npx / (ms * 1e-3) / 1e6
-    print(f"  binary pack: {frame_ms:.1f} ms a frame over {MEGA_FRAMES} "
-          f"frames ({mp(frame_ms):.3f} Mpaths/s); wide pack {wide_ms:.1f} ms "
-          f"(its first frame); wavefront frames of this run: binary "
-          f"{binary_frame_ms:.1f} ms, wide {pallas_frame_ms:.1f} ms")
+    print(f"  {MEGA_FRAMES} frames after a warm-up frame: binary pack "
+          f"{frame_ms:.1f} ms a frame ({mp(frame_ms):.3f} Mpaths/s), wide "
+          f"pack {wide_ms:.1f} ms ({mp(wide_ms):.3f} Mpaths/s); wavefront "
+          f"frames of this run: binary {binary_frame_ms:.1f} ms, wide "
+          f"{pallas_frame_ms:.1f} ms")
     phase("mega_render", t0, frame_ms=f"{frame_ms:.1f}",
           mpaths_s=f"{mp(frame_ms):.3f}", wide_ms=f"{wide_ms:.1f}",
           busy=f"{busy:.3f}",
@@ -1805,8 +1845,6 @@ def main() -> int:
     from tpt_torch.bvh import packet_traverse as pt
     from tpt_torch.bvh import sweep as sw
     from tpt_torch.bvh import treelet_traverse as tlt
-    from tpt_torch.bvh.pack import build_packet_bvh
-    from tpt_torch.bvh.sah import build_sah_bvh
     from tpt_torch.config import RayCastBackend, RenderConfig
     from tpt_torch.core.camera import Camera
     from tpt_torch.denoise import stencil
@@ -1846,13 +1884,9 @@ def main() -> int:
     scene = host.build(with_bvh=True, sweep_chunk_align=SWEEP_ALIGN, device=dev)
     cam = host.camera
     pack = scene.pack
-    # the binary pack from the same (deterministic) SAH build, at the
-    # same cluster size
-    bvh = build_sah_bvh(host.mesh)
-    bscene = dataclasses.replace(
-        scene, sweep=None,
-        pack=build_packet_bvh(host.mesh, bvh,
-                              max_cluster=pack.max_cluster).to(dev))
+    # the binary pack, built by the host layer from the same
+    # (deterministic) SAH BVH at the same cluster size
+    bscene = host.build(with_bvh=True, packet_arity=2, device=dev)
     phase("scene", t0, triangles=host.mesh.num_triangles,
           nodes=pack.num_nodes, tri_rows=pack.tri_f32.shape[0],
           arity=pack.arity, cluster=pack.max_cluster,
@@ -1864,102 +1898,25 @@ def main() -> int:
 
     # ---- kernels vs plain ---------------------------------------------------
     t0 = time.perf_counter()
-    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
-    rec = Recorder(make_raycaster(scene, cfg))
-    vp = wavefront.camera_view_proj(cam)
-    carry = wavefront.batched_raygen(cam, cfg, 1, dev)
-    for depth in range(2):
-        carry = wavefront._bounce_body(scene, rec.raycaster, cam, cfg, vp, vp,
-                                       depth, carry)
-    (p_o, p_d, p_t), (b_o, b_d, b_t) = rec.ext
-    (s0_o, s0_d, s0_t), (s1_o, s1_d, s1_t) = rec.shadow
-    half = N_COMPARE // 2
-    ext = cat_rays(pick(p_o, p_d, p_t, p_t > 0, half),
-                   pick(b_o, b_d, b_t, b_t > 0, half))
-    shd = cat_rays(pick(s0_o, s0_d, s0_t, s0_t > 0, half),
-                   pick(s1_o, s1_d, s1_t, s1_t > 0, half))
-
-    k2 = lambda o, d, t: (pt.packet_closest_hit_wide(pack, o, d, t),
-                          pt.closest_hit_wide_plain(pack, o, d, t))
-    k1 = lambda o, d, t: (pt.packet_any_hit_wide(pack, o, d, t),
-                          pt.any_hit_wide_plain(pack, o, d, t))
-    k2_err = check_k2("picked live rays", *k2(*ext))
-    k1_err = check_k1("picked live rays", *k1(*shd), shd[2])
-    # every lane of each cast, dead lanes included, as the render launches
-    # them: the camera primaries, the sorted bounce-1 pool and the shadow
-    # rays of both bounces
-    k2_err = max(k2_err, check_k2("primaries, all lanes", *k2(p_o, p_d, p_t)),
-                 check_k2("bounce-1 pool, all lanes", *k2(b_o, b_d, b_t)))
-    k1_err = max(k1_err,
-                 check_k1("bounce-0 shadow, all lanes", *k1(s0_o, s0_d, s0_t),
-                          s0_t),
-                 check_k1("bounce-1 shadow, all lanes", *k1(s1_o, s1_d, s1_t),
-                          s1_t))
-
-    # timings on all lanes: K2 on the camera primaries, K1 on the bounce-0
-    # shadow rays (dead lanes included, as the render launches them)
-    n_full = p_t.shape[0]
-    stats2 = torch.zeros(3, dtype=torch.int64, device=dev)
-    stats1 = torch.zeros(3, dtype=torch.int64, device=dev)
-    pt.packet_closest_hit_wide(pack, p_o, p_d, p_t, stats=stats2)
-    pt.packet_any_hit_wide(pack, s0_o, s0_d, s0_t, stats=stats1)
-    k2_ms = cuda_time_ms(lambda: pt.packet_closest_hit_wide(pack, p_o, p_d, p_t),
-                         TIMING_REPS)
-    k2b_ms = cuda_time_ms(lambda: pt.packet_closest_hit_wide(pack, b_o, b_d, b_t),
-                          TIMING_REPS)
-    k1_ms = cuda_time_ms(lambda: pt.packet_any_hit_wide(pack, s0_o, s0_d, s0_t),
-                         TIMING_REPS)
-    k2_plain_ms = cuda_time_ms(
-        lambda: pt.closest_hit_wide_plain(pack, p_o, p_d, p_t), 1)
-    k1_plain_ms = cuda_time_ms(
-        lambda: pt.any_hit_wide_plain(pack, s0_o, s0_d, s0_t), 1)
-    k2_bound, k2_by = bound(pack, n_full, 16, stats2.cpu())
-    k1_bound, k1_by = bound(pack, n_full, 1, stats1.cpu())
-    mr = lambda ms: n_full / (ms * 1e-3) / 1e6
-    print(f"  K2 primaries: {k2_ms:.3f} ms ({mr(k2_ms):.1f} Mrays/s), "
-          f"bounce-1 pool: {k2b_ms:.3f} ms ({mr(k2b_ms):.1f} Mrays/s), "
-          f"plain {k2_plain_ms:.1f} ms, bound {k2_bound:.3f} ms ({k2_by}); "
-          f"node visits {int(stats2[0])}, slab tests {int(stats2[1])}, "
-          f"tri tests {int(stats2[2])}")
-    print(f"  K1 bounce-0 shadow: {k1_ms:.3f} ms ({mr(k1_ms):.1f} Mrays/s), "
-          f"plain {k1_plain_ms:.1f} ms, bound {k1_bound:.3f} ms ({k1_by}); "
-          f"node visits {int(stats1[0])}, slab tests {int(stats1[1])}, "
-          f"tri tests {int(stats1[2])}")
+    res = cast_phase(scene, cam, dev, ("K2", "K1"), pt.packet_closest_hit_wide,
+                     pt.packet_any_hit_wide, pt.closest_hit_wide_plain,
+                     pt.any_hit_wide_plain, exact=False)
+    del res["primaries"]
     print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
           "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject, "
           "K8a packet_closest_hit, K8b packet_any_hit, K9 treelet_scan, "
           "K10 treelet_closest_hit ported (cuda); K7, K11 not yet ported")
-    phase("kernels", t0, n_compare=N_COMPARE, lanes=n_full,
-          k2_ms=f"{k2_ms:.3f}", k1_ms=f"{k1_ms:.3f}")
-    del rec, carry, ext, shd
+    phase("kernels", t0, n_compare=N_COMPARE, lanes=res["lanes"],
+          k2_ms=f"{res['closest']['ms']:.3f}",
+          k1_ms=f"{res['any_hit']['ms']:.3f}")
 
     # ---- render: the main path ------------------------------------------------
     t0 = time.perf_counter()
-    rc = make_raycaster(scene, cfg)
-    wavefront.trace_frame(scene, rc, cam, cfg, 100)   # warm-up frame
-    torch.cuda.synchronize()
-    zero_launches()
-    tr = time.perf_counter()
-    img = wavefront.render(scene, cam, cfg, iterations=RENDER_ITERS,
-                           raycaster=rc)
-    torch.cuda.synchronize()
-    render_s = time.perf_counter() - tr
-    launches = dict(pt.LAUNCHES)
-    if min(launches[k] for k in WIDE) == 0 or any(launches[k] for k in BINARY):
-        raise RuntimeError(f"main path skipped a kernel or launched a "
-                           f"binary one: {launches}")
-    if any(sw.LAUNCHES.values()):
-        raise RuntimeError(f"BVH_PALLAS path launched sweep kernels: "
-                           f"{sw.LAUNCHES}")
-    if int(rc.capped):
-        raise RuntimeError(f"render had {int(rc.capped)} capped rays")
-    import numpy as np
-
-    if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
-            or not img.mean() > 0:
-        raise RuntimeError(f"bad image: shape {img.shape}, "
-                           f"mean {float(np.nanmean(img))}")
-    frame_ms = render_s * 1e3 / RENDER_ITERS
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
+    per = DEPTH * RENDER_ITERS
+    frame_ms, launches, img, rc = render_phase(
+        "render", scene, cam, cfg, RENDER_ITERS,
+        dict(packet_closest_hit_wide=per, packet_any_hit_wide=per), 100)
     # where one frame's time goes: the casts (CUDA events around each
     # launch) against the whole frame (events around the frame)
     timer = CastTimer(rc)
@@ -1967,7 +1924,7 @@ def main() -> int:
     e_ev = torch.cuda.Event(enable_timing=True)
     th = time.perf_counter()
     s_ev.record()
-    wavefront.trace_frame(scene, timer.raycaster, cam, cfg, 101)
+    wavefront.trace_frame(scene, timer.raycaster, cam, cfg, 102)
     e_ev.record()
     host_ms = (time.perf_counter() - th) * 1e3   # enqueue only, no sync
     e_ev.synchronize()
@@ -1978,10 +1935,10 @@ def main() -> int:
           f"{k1_f:.1f} ms ({len(timer.events['any_hit'])} launches), rest "
           f"(raygen, sort, shading, PyTorch launches) {f_ms - k2_f - k1_f:.1f} ms; "
           f"host enqueue {host_ms:.1f} ms")
-    profiled_frame(lambda: wavefront.trace_frame(scene, rc, cam, cfg, 102))
     phase("render", t0, frame_ms=f"{frame_ms:.1f}",
           mpaths_s=f"{cam.num_pixels / (frame_ms * 1e-3) / 1e6:.3f}",
-          launches=json.dumps(launches).replace(" ", ""),
+          launches=json.dumps({k: launches[k] for k in WIDE + BINARY}
+                              ).replace(" ", ""),
           image_mean=f"{float(img.mean()):.5f}")
 
     # ---- agreement: kernels vs plain versions, whole renders ------------------
@@ -2021,19 +1978,16 @@ def main() -> int:
     del bscene
     treelet_kernels = treelet_phases(scene, cam, dev, frame_ms)
 
+    source = "tpt_torch/csrc/packet_wide.cu"
     kernels = [
-        dict(name="packet_closest_hit_wide", route="cuda",
-             source="tpt_torch/csrc/packet_wide.cu",
+        dict(name="packet_closest_hit_wide", route="cuda", source=source,
              replaces="tpt/bvh/pallas_traverse.py:893",
-             launches=launches["packet_closest_hit_wide"],
-             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
-             bound_ms=k2_bound, bound_by=k2_by, library_ms=None),
-        dict(name="packet_any_hit_wide", route="cuda",
-             source="tpt_torch/csrc/packet_wide.cu",
+             launches=launches["packet_closest_hit_wide"], **res["closest"],
+             library_ms=None),
+        dict(name="packet_any_hit_wide", route="cuda", source=source,
              replaces="tpt/bvh/pallas_traverse.py:959",
-             launches=launches["packet_any_hit_wide"],
-             max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
-             bound_ms=k1_bound, bound_by=k1_by, library_ms=None),
+             launches=launches["packet_any_hit_wide"], **res["any_hit"],
+             library_ms=None),
     ] + sweep_kernels + svgf_kernels + binary_kernels + treelet_kernels
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
