@@ -17,7 +17,11 @@ RenderMode.MEGAKERNEL) on the binary pack and on the wide one; and the
 BVH_TREELET backend, whose camera rays go through the self-rebinning
 closest hit K10 and whose later bounces run the treelet scan K9, the
 hybrid easy/hard split and one sort, K10 seeded on the easy rays and K2
-on the hard ones. One line per phase (name, seconds, key numbers):
+on the hard ones; and the BVH_SWEEP variants: the lane sweep K7 and K4's
+group and any-hit modes in two wavefront configurations, the megakernel
+and the wavefront without the pool sort on the unsorted sweep cast, and
+the multi-slot top-tree scan K11 feeding the sweep cast. One line per
+phase (name, seconds, key numbers):
 
   device     nvidia-smi name and power limit, torch and CUDA versions
   build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu (K1, K2,
@@ -119,14 +123,47 @@ on the hard ones. One line per phase (name, seconds, key numbers):
              split by CUDA events into K9 and the sort, K10, K2, K1 and
              the rest
   treelet_agreement
-             BVH_TREELET at 240x135, depth 8, both samples in one pool
+             BVH_TREELET at 240x135, depth 4, both samples in one pool
              (spp_batch 2), through the kernels, through the plain versions
              and against the BVH_PALLAS render; it refuses to start with
              less than twice its plain render's time left on the watchdog
+  sweepvar_kernels
+             the BVH_SWEEP variants' kernels on the bench configuration's
+             bounce-1 pools: K7 (demand, and every requested slot) and K4's
+             group mode against their plain versions on whole 1024-lane
+             blocks (262,144 lanes) of the bin-sorted pool, bit for bit,
+             K4's group mode equal to K4 without groups on every lane; K7's
+             and K4's any-hit modes on whole blocks of the shadow rays; K11
+             against its plain version on the first 2,073,600 lanes of the
+             unsorted pool, its slots equal to K3's, then through the bin
+             sort and sweep_cast_sorted to K2's hits on every lane (t
+             bit-equal, triangles up to equal-t ties); CUDA-event times on
+             the whole pools (K7 beside K4), bounds, mean unions, 0 capped
+  sweepvar_render
+             wavefront.render at 1080p in two variants of the bench
+             configuration, 2 frames each after a warm-up frame, with the
+             launch counters zeroed just before and read just after against
+             an expected table: "lane" (sweep_kernel="lane", sweep_shadow:
+             K3, K7, K7 any-hit, K2 and K1 tails) and "cascade"
+             (sweep_groups, sweep_shadow, sweep_cascade, sweep_primary: K3
+             on bounce 0 too, K4's group mode in both cascade phases, K4's
+             any-hit mode); frame ms and Mpaths/s beside the bench frame
+  sweepvar_mega
+             Renderer in RenderMode.MEGAKERNEL on BVH_SWEEP at 1080p, 1 spp,
+             a warm-up frame and 2 timed frames (every cast the unsorted
+             sweep_cast), and one wavefront frame of BVH_SWEEP without
+             sort_bounce_rays, each against its expected launches
+  sweepvar_agreement
+             those four configurations at 240x135, depth 4, through the
+             kernels, through the plain versions and against the bench
+             BVH_SWEEP render, at the golden-image tolerance with 0 capped
+             rays; it refuses to start with less than twice its plain
+             renders' time left on the watchdog
 
-Then one JSON line describing each of the ten ported kernels (K9's and
-K10's with
-the lanes their times and bound were taken on), the nvidia-smi line,
+Then one JSON line describing each of the twelve ported kernels, K4's
+and K7's modes under their own entries (with the lanes their times and
+bound were taken on where these are not the main path's), the
+nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Any failed check raises, so the
 run exits nonzero and prints no result; so does a run without a CUDA
 device or outside the repository. A watchdog ends the whole run, with a
@@ -197,10 +234,30 @@ TREELET_SEEDED_PACKETS = 128
 TREELET_PRIMARY_PACKETS = 64
 TREELET_FRAMES = 2
 TREELET_REPS = 3
-# the plain 240x135 BVH_TREELET render of treelet_agreement, at most, on an
-# H100 80GB HBM3 at 700 W: 113-138 s; its sequential steps are set by the
-# slowest packet, so a slower host takes longer
-TREELET_PLAIN_RENDER_S = 140.0
+# treelet_agreement renders at depth 4: its plain 240x135 BVH_TREELET
+# render took 97-141 s at depth 8 (NVIDIA H100 80GB HBM3, 700 W), which
+# with the later phases left too little of the watchdog; at most this
+# long at depth 4 (its sequential steps are set by the slowest packet, so
+# a slower host takes longer)
+TREELET_AGREE_DEPTH = 4
+TREELET_PLAIN_RENDER_S = 80.0
+
+# the BVH_SWEEP variants on the bench configuration: frames of each timed
+# render, the two wavefront configurations, K11's lanes (a 1080p frame's
+# worth of the unsorted bounce-1 pool), and the plain 240x135 renders of
+# sweepvar_agreement together, at most
+SWEEPVAR_FRAMES = 2
+SWEEPVAR = {
+    "lane": dict(sweep_kernel="lane", sweep_shadow=True),
+    "cascade": dict(sweep_groups=True, sweep_shadow=True, sweep_cascade=True,
+                    sweep_primary=True),
+}
+K11_LANES = 2_073_600
+# sweepvar_agreement renders at depth 4, not 8: its four plain renders took
+# 84.4 s together at depth 8 (NVIDIA H100 80GB HBM3, 700 W), too long for
+# the watchdog behind the treelet phases; at most this long at depth 4
+SWEEPVAR_AGREE_DEPTH = 4
+SWEEPVAR_PLAIN_RENDERS_S = 60.0
 
 # launch-counter keys of the wide (K2, K1) and binary (K8a, K8b) casts
 WIDE = ("packet_closest_hit_wide", "packet_any_hit_wide")
@@ -481,8 +538,7 @@ class Patch:
 
 
 def plain_kernels() -> Patch:
-    """Route K1-K6, K8a/K8b, K9 and K10 to their plain PyTorch versions
-    (on the card)."""
+    """Route K1-K11 to their plain PyTorch versions (on the card)."""
     from tpt_torch.bvh import packet_traverse as pt
     from tpt_torch.bvh import sweep as sw
     from tpt_torch.bvh import treelet_traverse as tlt
@@ -491,6 +547,8 @@ def plain_kernels() -> Patch:
     p = Patch()
     p.set(tlt, "treelet_scan", tlt.treelet_scan_plain)
     p.set(tlt, "treelet_closest_hit", tlt.treelet_closest_hit_plain)
+    p.set(tlt, "treelet_scan_multi", tlt.treelet_scan_multi_plain)
+    p.set(sw, "sweep_closest_hit", sw.sweep_closest_hit_plain)
     p.set(stencil, "atrous", stencil.atrous_plain)
     p.set(reproject, "reproject", svgf._reproject_taps)
     p.set(sw, "dense_scan", sw.dense_scan_plain)
@@ -583,12 +641,20 @@ def zero_launches() -> tuple:
     return counts
 
 
-def expect_launches(label: str, counts, want: dict) -> dict:
-    """Every counter equals want's entry for it, or 0; returns them."""
+def expect_launches(label: str, counts, want: dict,
+                    frames: int = 1) -> dict:
+    """Every counter within want's entry times `frames` (an int, or
+    (least, most) for a cast that runs only when some lane needs it, as a
+    tail does), every other counter 0; returns them."""
     got = {k: v for c in counts for k, v in c.items()}
-    if any(v != want.get(k, 0) for k, v in got.items()):
-        raise RuntimeError(f"{label} launches {got}, expected {want} and no "
-                           "other kernel")
+    for k, v in got.items():
+        lo = hi = want.get(k, 0)
+        if isinstance(lo, tuple):
+            lo, hi = lo
+        if not lo * frames <= v <= hi * frames:
+            raise RuntimeError(f"{label} launches {got}, expected {want} a "
+                               f"frame over {frames} frames and no other "
+                               "kernel")
     return got
 
 
@@ -903,9 +969,9 @@ def sweep_bound(n: int, in_bytes: int, out_bytes: int, table_bytes: int,
     return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
 
 
-def sweep_phases(scene, cam, dev) -> list:
+def sweep_phases(scene, cam, dev) -> tuple:
     """The sweep_kernels, sweep_render and sweep_agreement phases; returns
-    the K3 and K4 entries of the kernels line."""
+    the K3 and K4 entries of the kernels line and the bench frame's ms."""
     import numpy as np
     import torch
 
@@ -1052,22 +1118,18 @@ def sweep_phases(scene, cam, dev) -> list:
     rc = common.make_raycaster(scene, cfg)
     wavefront.trace_frame(scene, rc, cam, cfg, 200)   # warm-up frame
     torch.cuda.synchronize()
-    zero_launches()
+    counts = zero_launches()
     tr = time.perf_counter()
     img = wavefront.render(scene, cam, cfg,
                            iterations=SWEEP_FRAMES * cfg.spp_batch,
                            raycaster=rc)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - tr
-    launches = dict(pt.LAUNCHES, **sw.LAUNCHES)
-    if min(launches[k] for k in WIDE + tuple(sw.LAUNCHES)) == 0 \
-            or any(launches[k] for k in BINARY):
-        raise RuntimeError(f"sweep path skipped a kernel or launched a "
-                           f"binary one: {launches}")
-    per_frame = (DEPTH - 1) * SWEEP_FRAMES
-    if launches["dense_scan"] != per_frame or \
-            launches["sweep8_closest_hit"] != per_frame:
-        raise RuntimeError(f"expected {per_frame} K3/K4 launches: {launches}")
+    # K2 on the camera rays, then on the tails that have lanes
+    launches = expect_launches("sweep render", counts, dict(
+        dense_scan=DEPTH - 1, sweep8_closest_hit=DEPTH - 1,
+        packet_closest_hit_wide=(1, DEPTH), packet_any_hit_wide=DEPTH),
+        SWEEP_FRAMES)
     if int(rc.capped):
         raise RuntimeError(f"sweep render had {int(rc.capped)} capped rays")
     if img.shape != (RES[1], RES[0], 3) or not np.isfinite(img).all() \
@@ -1085,10 +1147,10 @@ def sweep_phases(scene, cam, dev) -> list:
     inner = common.make_raycaster(scene, cfg)
     primaries = timer.timed("primaries (K2)", inner.closest_hit)
 
-    def closest(o, dd, t_max=None, sweep_slots=None):
+    def closest(o, dd, t_max=None, sweep_slots=None, **kw):
         if sweep_slots is None:   # camera rays
-            return primaries(o, dd, t_max)
-        return inner.closest_hit(o, dd, t_max, sweep_slots=sweep_slots)
+            return primaries(o, dd, t_max, **kw)
+        return inner.closest_hit(o, dd, t_max, sweep_slots=sweep_slots, **kw)
 
     timed_rc = common.Raycaster(
         closest_hit=closest, any_hit=timer.timed("shadow (K1)", inner.any_hit),
@@ -1156,7 +1218,7 @@ def sweep_phases(scene, cam, dev) -> list:
              launches=launches["sweep8_closest_hit"], max_abs_err=k4_err,
              ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound,
              bound_by=k4_by, library_ms=None),
-    ]
+    ], frame_ms
 
 
 def panned(cam, k: int):
@@ -1789,7 +1851,7 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
     # both samples in one pool: the plain K10 takes as many sequential
     # steps as the slowest packet of a cast needs, so one cast of twice
     # the packets costs about as much as one of one sample
-    acfg = cfg.with_(spp_batch=AGREE_ITERS)
+    acfg = cfg.with_(spp_batch=AGREE_ITERS, trace_depth=TREELET_AGREE_DEPTH)
     rc_k = common.make_raycaster(scene, acfg)
     img_k = wavefront.render(scene, small, acfg, iterations=AGREE_ITERS,
                              raycaster=rc_k)
@@ -1802,14 +1864,14 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
         plain_s = time.perf_counter() - tp
     finally:
         patch.restore()
-    pcfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH,
-                        spp_batch=AGREE_ITERS)
+    pcfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS,
+                        trace_depth=TREELET_AGREE_DEPTH, spp_batch=AGREE_ITERS)
     rc_w = common.make_raycaster(scene, pcfg)
     img_w = wavefront.render(scene, small, pcfg, iterations=AGREE_ITERS,
                              raycaster=rc_w)
     if int(rc_k.capped) or int(rc_p.capped) or int(rc_w.capped):
         raise RuntimeError("treelet agreement renders had capped lanes")
-    out = {"plain_render_s": f"{plain_s:.1f}"}
+    out = {"plain_render_s": f"{plain_s:.1f}", "depth": TREELET_AGREE_DEPTH}
     for label, ref in (("plain", img_p), ("pallas", img_w)):
         close, _, max_abs = golden_agree(f"treelet render vs {label}", img_k,
                                          ref)
@@ -1830,6 +1892,382 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
              launches=launches["treelet_closest_hit"], max_abs_err=k10_err,
              ms=k10s_ms, plain_ms=k10_plain_ms, bound_ms=k10s_b,
              bound_by=k10s_by, library_ms=None, lanes=int(idx.numel())),
+    ]
+
+
+def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
+    """The sweepvar_kernels, sweepvar_render, sweepvar_mega and
+    sweepvar_agreement phases (the BVH_SWEEP variants and K11); returns
+    the entries of the kernels line for K7, K7's any-hit mode, K4's group
+    and any-hit modes and K11."""
+    import torch
+
+    from tpt_torch import Renderer
+    from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.bvh import sweep as sw
+    from tpt_torch.bvh import sweepcast as tsc
+    from tpt_torch.bvh import treelet_traverse as tlt
+    from tpt_torch.config import RayCastBackend, RenderConfig, RenderMode
+    from tpt_torch.core.camera import Camera
+    from tpt_torch.core.vec import Vec3
+    from tpt_torch.integrators import common, megakernel, wavefront
+
+    tables, pack = scene.sweep, scene.pack
+    cfg = RenderConfig(backend=RayCastBackend.BVH_SWEEP, **SWEEP_KNOBS)
+    S, unroll, spp = cfg.sweep_slots, cfg.sweep_unroll, cfg.spp_batch
+    sub = lambda v, idx: Vec3(v.x[idx].contiguous(), v.y[idx].contiguous(),
+                              v.z[idx].contiguous())
+    table_bytes = (tables.tri_f32.numel() + tables.ranges.numel()) * 4
+    D = DEPTH
+
+    # ---- sweepvar_kernels: bounce 1 of one bench frame ----------------------
+    t0 = time.perf_counter()
+    grabbed = {}
+    scan_keys, bin_sort = wavefront._sweep_scan_keys, wavefront._sweep_bin_sort
+    depth_now = [0]
+
+    def grab_scan(scn, c, pool):
+        grabbed["unsorted"] = pool
+        return scan_keys(scn, c, pool)
+
+    def grab_sort(c, pool, keys, raw):
+        grabbed["sorted"] = bin_sort(c, pool, keys, raw)
+        return grabbed["sorted"]
+
+    inner = common.make_raycaster(scene, cfg)
+
+    def grab_any(o, dd, t_max):
+        if depth_now[0] == 1:
+            grabbed["shadow"] = (o, dd, t_max)
+        return inner.any_hit(o, dd, t_max)
+
+    rc = common.Raycaster(closest_hit=inner.closest_hit, any_hit=grab_any,
+                          name="recorder", capped=inner.capped)
+    patch = Patch()
+    patch.set(wavefront, "_sweep_scan_keys", grab_scan)
+    patch.set(wavefront, "_sweep_bin_sort", grab_sort)
+    try:
+        vp = wavefront.camera_view_proj(cam)
+        carry = wavefront.batched_raygen(cam, cfg, 1, dev)
+        for depth in range(2):
+            depth_now[0] = depth
+            carry = wavefront._bounce_body(scene, rc, cam, cfg, vp, vp, depth,
+                                           carry)
+    finally:
+        patch.restore()
+    del carry
+    spool, (s_o, s_t, thr) = grabbed["sorted"]
+    ori, d = spool[0], spool[1]
+    tmax = torch.where(spool[5], 3.4e38, -1.0)
+    n = tmax.numel()
+    nb4, nb7 = -(-n // sw.LANES), -(-n // sw.LANES_K7)
+    # whole 1024-lane blocks (so also whole 128-lane ones) for the plain
+    idx = whole_blocks(n, N_COMPARE, dev, lanes=sw.LANES_K7)
+    pick_c = lambda: (sub(ori, idx), sub(d, idx), tmax[idx].contiguous(),
+                      s_o[:, idx].contiguous(), s_t[:, idx].contiguous())
+
+    def held(label, kernel_fn, plain_fn, args) -> float:
+        """kernel vs plain on the same lanes, bit for bit; the plain's ms"""
+        hk = kernel_fn(*args)
+        hp, plain_ms = timed_once(lambda: plain_fn(*args))
+        equal_hits(label, hk, hp)
+        print(f"  {label} vs plain: {args[2].numel()} lanes "
+              f"({int((args[2] <= 0).sum())} dead, {int((hk.tri >= 0).sum())} "
+              f"hits), bit-equal")
+        return plain_ms
+
+    def timed_stats(fn, size: int):
+        """(median ms over the whole pool, stats of one launch)"""
+        ms = cuda_time_ms(fn, TIMING_REPS)
+        st = torch.zeros(size, dtype=torch.int64, device=dev)
+        fn(stats=st)
+        return ms, st.cpu()
+
+    # K7, demand closest hit (and every requested slot), against plain on
+    # whole blocks of the bin-sorted bounce-1 pool; then K7 and K4 on it
+    k7 = lambda *a, **kw: sw.sweep_closest_hit(tables, *a, **kw)
+    k7p = lambda *a, **kw: sw.sweep_closest_hit_plain(tables, *a, **kw)
+    c = pick_c()
+    k7_plain_ms = held("K7 demand, bin-sorted bounce-1 pool", k7, k7p, c)
+    held("K7 every requested slot, bin-sorted bounce-1 pool",
+         lambda *a: k7(*a[:4]), lambda *a: k7p(*a[:4]), c)
+    k7_ms, st7 = timed_stats(lambda **kw: k7(ori, d, tmax, s_o, s_t, **kw), 3)
+    k4_ms, st4 = timed_stats(lambda **kw: sw.sweep8_closest_hit(
+        tables, ori, d, tmax, s_o, s_t, unroll=unroll, **kw), 3)
+    k7_b = sweep_bound(n, 28 + 8 * S, 16, table_bytes,
+                       OPS_PER_TRI * int(st7[1]))
+    # K4's group mode: against plain on the same blocks, and its raw hits
+    # on every lane equal to K4's without groups
+    k4g = lambda *a, **kw: sw.sweep8_closest_hit(tables, *a, unroll=unroll,
+                                                 use_groups=True, **kw)
+    k4g_plain_ms = held(
+        "K4 groups, bin-sorted bounce-1 pool", k4g,
+        lambda *a: sw.sweep8_closest_hit_plain(tables, *a, unroll=unroll,
+                                               use_groups=True), c)
+    equal_hits("K4 groups vs K4 without, every lane",
+               k4g(ori, d, tmax, s_o, s_t),
+               sw.sweep8_closest_hit(tables, ori, d, tmax, s_o, s_t,
+                                     unroll=unroll))
+    k4g_ms, st4g = timed_stats(lambda **kw: k4g(ori, d, tmax, s_o, s_t, **kw),
+                               3)
+    # group tests: 8 boxes a treelet sweep for every lane of the block
+    group_slabs = 8 * sw.LANES * int(st4g[0])
+    k4g_b = sweep_bound(n, 28 + 8 * S, 16, table_bytes
+                        + tables.group_boxes.numel() * 4,
+                        OPS_PER_TRI * int(st4g[1]) + OPS_PER_SLAB * group_slabs)
+    del c
+
+    # the any-hit modes on the bounce-1 shadow rays and their K3 slots
+    o_sh, d_sh, t_sh = grabbed["shadow"]
+    n_sh = t_sh.numel()
+    st_sh, so_sh, _ = sw.dense_scan(tables, o_sh, d_sh, t_sh, slots=S)
+    idx_sh = whole_blocks(n_sh, N_COMPARE, dev, lanes=sw.LANES_K7)
+    c = (sub(o_sh, idx_sh), sub(d_sh, idx_sh), t_sh[idx_sh].contiguous(),
+         so_sh[:, idx_sh].contiguous(), st_sh[:, idx_sh].contiguous())
+    k7a_plain_ms = held("K7 any-hit, bounce-1 shadow rays",
+                        lambda *a: k7(*a, any_hit=True),
+                        lambda *a: k7p(*a, any_hit=True), c)
+    k4a = lambda *a, **kw: sw.sweep8_closest_hit(
+        tables, *a, unroll=unroll, any_hit=True, use_groups=True, **kw)
+    k4a_plain_ms = held(
+        "K4 any-hit (groups), bounce-1 shadow rays", k4a,
+        lambda *a: sw.sweep8_closest_hit_plain(
+            tables, *a, unroll=unroll, any_hit=True, use_groups=True), c)
+    k7a_ms, st7a = timed_stats(lambda **kw: k7(
+        o_sh, d_sh, t_sh, so_sh, st_sh, any_hit=True, **kw), 3)
+    k4a_ms, st4a = timed_stats(lambda **kw: k4a(o_sh, d_sh, t_sh, so_sh,
+                                                st_sh, **kw), 3)
+    k7a_b = sweep_bound(n_sh, 28 + 8 * S, 16, table_bytes,
+                        OPS_PER_TRI * int(st7a[1]))
+    k4a_b = sweep_bound(n_sh, 28 + 8 * S, 16, table_bytes
+                        + tables.group_boxes.numel() * 4,
+                        OPS_PER_TRI * int(st4a[1])
+                        + OPS_PER_SLAB * 8 * sw.LANES * int(st4a[0]))
+    del c, o_sh, d_sh, t_sh, st_sh, so_sh, spool, ori, d, tmax, s_o, s_t, thr
+
+    # K11 on the first K11_LANES lanes of the unsorted bounce-1 pool
+    upool = grabbed.pop("unsorted")
+    m = min(K11_LANES, upool[5].numel())
+    part = slice(0, m)
+    ou, du = sub(upool[0], part), sub(upool[1], part)
+    tu = torch.where(upool[5][:m], 3.4e38, -1.0)
+    del upool, grabbed
+    k11 = tlt.treelet_scan_multi(pack, ou, du, tu, slots=S)
+    k11p, k11_plain_ms = timed_once(lambda: tlt.treelet_scan_multi_plain(
+        pack, ou, du, tu, slots=S))
+    for a, b, what in zip(k11, k11p, ("entry t", "ordinal", "thr", "capped")):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"K11 {what} differs from plain")
+    if int(k11[3]):
+        raise RuntimeError(f"K11 capped {int(k11[3])} lanes")
+    k3 = sw.dense_scan(tables, ou, du, tu, slots=S)
+    if not (torch.equal(k11[1], k3[1]) and torch.equal(k11[0], k3[0])
+            and bool((k11[2] <= k3[2]).all())):
+        raise RuntimeError("K11's slots differ from K3's, or its thr lies "
+                           "above K3's")
+    counts = zero_launches()
+    s_t11, s_o11, thr11, _ = tlt.treelet_scan_multi(pack, ou, du, tu, slots=S)
+    k11_launches = tlt.LAUNCHES["treelet_scan_multi"]
+    key = tsc.bin_key(s_o11, du, tables.num_treelets, S)
+    perm = tsc.bin_sort_perm([torch.where(tu > 0, key, 1 << 30)])
+    g = lambda a: a[..., perm].contiguous()
+    os_, ds_, ts_ = sub(ou, perm), sub(du, perm), g(tu)
+    fin, capped = tsc.sweep_cast_sorted(pack, tables, os_, ds_, ts_, g(s_o11),
+                                        g(s_t11), g(thr11), unroll=unroll)
+    expect_launches("K11 into the sweep cast", counts, dict(
+        treelet_scan_multi=1, sweep8_closest_hit=1,
+        packet_closest_hit_wide=(0, 1)), 1)
+    ref, capped2 = pt.packet_closest_hit_wide(pack, os_, ds_, ts_)
+    if int(capped) or int(capped2):
+        raise RuntimeError(f"capped rays: K11 sweep cast {int(capped)}, K2 "
+                           f"{int(capped2)}")
+    if not torch.equal(fin.t, ref.t):
+        raise RuntimeError(f"K11-seeded sweep cast t differs from K2 on "
+                           f"{int((fin.t != ref.t).sum())} lanes")
+    tri_diff = int((fin.tri != ref.tri).sum())
+    if tri_diff > TAIL_TRI_MISMATCH_MAX * int((tu > 0).sum()):
+        raise RuntimeError(f"K11-seeded sweep cast triangle differs from K2 "
+                           f"on {tri_diff} lanes")
+    k11_ms, st11 = timed_stats(lambda **kw: tlt.treelet_scan_multi(
+        pack, ou, du, tu, slots=S, **kw), 2)
+    top_bytes = sum(a.numel() * 4 for a in (pack.top_f32, pack.top_child,
+                                            pack.top_tord))
+    k11_b = sweep_bound(m, 28, 8 * S + 4, top_bytes,
+                        OPS_PER_SLAB * int(st11[1]))
+    del ou, du, tu, k11, k11p, k3, fin, ref, os_, ds_, ts_
+    mr = lambda ms, k: k / (ms * 1e-3) / 1e6
+    print(f"  whole bin-sorted bounce-1 pool ({n} lanes): K7 {k7_ms:.3f} ms "
+          f"({mr(k7_ms, n):.1f} Mrays/s; treelet sweeps {int(st7[0])} over "
+          f"{nb7} blocks, mean union {int(st7[0]) / nb7:.2f}; tri tests "
+          f"{int(st7[1])}), K4 {k4_ms:.3f} ms (mean union "
+          f"{int(st4[0]) / nb4:.2f}; tri tests {int(st4[1])}), K7/K4 "
+          f"{k7_ms / k4_ms:.2f}x; K4 groups {k4g_ms:.3f} ms (tri tests "
+          f"{int(st4g[1])}, {100 * int(st4g[1]) / max(1, int(st4[1])):.1f}% "
+          f"of K4's)")
+    print(f"  bounce-1 shadow rays ({n_sh} lanes): K7 any-hit {k7a_ms:.3f} ms "
+          f"(tri tests {int(st7a[1])}), K4 any-hit with groups "
+          f"{k4a_ms:.3f} ms (tri tests {int(st4a[1])})")
+    print(f"  K11 on {m} lanes: {k11_ms:.3f} ms ({mr(k11_ms, m):.1f} Mrays/s), "
+          f"plain {k11_plain_ms:.1f} ms, top pops {int(st11[0])}, slab tests "
+          f"{int(st11[1])}; slots equal to K3's; its sweep cast equals K2 "
+          f"(t bit-equal, tri differs on {tri_diff}), 0 capped")
+    for label, (b_ms, by), ms, pms in (
+            ("K7", k7_b, k7_ms, k7_plain_ms),
+            ("K4 groups", k4g_b, k4g_ms, k4g_plain_ms),
+            ("K7 any-hit", k7a_b, k7a_ms, k7a_plain_ms),
+            ("K4 any-hit", k4a_b, k4a_ms, k4a_plain_ms),
+            ("K11", k11_b, k11_ms, k11_plain_ms)):
+        print(f"  {label}: {ms:.3f} ms, bound {b_ms:.3f} ms ({by}), plain "
+              f"{pms:.1f} ms")
+    phase("sweepvar_kernels", t0, lanes=n, k7_ms=f"{k7_ms:.3f}",
+          k4_ms=f"{k4_ms:.3f}", k4_groups_ms=f"{k4g_ms:.3f}",
+          k7_any_ms=f"{k7a_ms:.3f}", k4_any_ms=f"{k4a_ms:.3f}",
+          k11_ms=f"{k11_ms:.3f}", k7_union=f"{int(st7[0]) / nb7:.2f}",
+          k4_union=f"{int(st4[0]) / nb4:.2f}", capped=0)
+
+    # ---- sweepvar_render: the "lane" and "cascade" wavefronts at 1080p -----
+    t0 = time.perf_counter()
+    tail = (1, D)      # a primary K2 or K1, then the tails that have lanes
+    want = {
+        "lane": dict(dense_scan=2 * D - 1, sweep_closest_hit=D - 1,
+                     **{"sweep_closest_hit/any_hit": D},
+                     packet_closest_hit_wide=tail, packet_any_hit_wide=tail),
+        "cascade": dict(dense_scan=2 * D,
+                        **{"sweep8_closest_hit/groups": (D, 2 * D - 1),
+                           "sweep8_closest_hit/any_hit": D},
+                        packet_closest_hit_wide=tail,
+                        packet_any_hit_wide=tail),
+    }
+    out = {}
+    for label, knobs in SWEEPVAR.items():
+        vcfg = cfg.with_(**knobs)
+        rc = common.make_raycaster(scene, vcfg)
+        wavefront.trace_frame(scene, rc, cam, vcfg, 500)   # warm-up frame
+        torch.cuda.synchronize()
+        counts = zero_launches()
+        tr = time.perf_counter()
+        img = wavefront.render(scene, cam, vcfg,
+                               iterations=SWEEPVAR_FRAMES * spp, raycaster=rc)
+        torch.cuda.synchronize()
+        f_ms = (time.perf_counter() - tr) * 1e3 / SWEEPVAR_FRAMES
+        launches = expect_launches(f"{label} render", counts, want[label],
+                                SWEEPVAR_FRAMES)
+        if int(rc.capped):
+            raise RuntimeError(f"{label} render had {int(rc.capped)} capped")
+        check_image(f"{label} render", img)
+        print(f"  {label} ({knobs}): {f_ms:.1f} ms a frame "
+              f"({cam.num_pixels * spp / (f_ms * 1e-3) / 1e6:.3f} Mpaths/s), "
+              f"{f_ms / bench_frame_ms:.2f}x the bench frame of this run "
+              f"({bench_frame_ms:.1f} ms); launches {json.dumps(launches)}")
+        out[f"{label}_ms"] = f"{f_ms:.1f}"
+        if label == "lane":
+            k7_launches = launches
+        else:
+            k4_launches = launches
+    phase("sweepvar_render", t0, bench_ms=f"{bench_frame_ms:.1f}", **out)
+
+    # ---- sweepvar_mega: the megakernel and the unsorted wavefront ----------
+    t0 = time.perf_counter()
+    mcfg = cfg.with_(spp_batch=1, mode=RenderMode.MEGAKERNEL)
+    r = Renderer(scene, cam, mcfg)
+    r.frame()                                      # warm-up frame
+    counts = zero_launches()
+    tr = time.perf_counter()
+    for _ in range(SWEEPVAR_FRAMES):
+        img = r.frame()
+    torch.cuda.synchronize()
+    mega_ms = (time.perf_counter() - tr) * 1e3 / SWEEPVAR_FRAMES
+    expect_launches("BVH_SWEEP megakernel", counts, dict(
+        dense_scan=D, sweep8_closest_hit=D, packet_closest_hit_wide=(1, D),
+        packet_any_hit_wide=D), SWEEPVAR_FRAMES)
+    if int(r.raycaster.capped):
+        raise RuntimeError("BVH_SWEEP megakernel had capped rays")
+    check_image("BVH_SWEEP megakernel", img)
+    del r
+    ucfg = cfg.with_(sort_bounce_rays=False)
+    rc = common.make_raycaster(scene, ucfg)
+    counts = zero_launches()
+    tr = time.perf_counter()
+    img = wavefront.render(scene, cam, ucfg, iterations=spp, raycaster=rc)
+    torch.cuda.synchronize()
+    unsorted_ms = (time.perf_counter() - tr) * 1e3
+    expect_launches("unsorted BVH_SWEEP", counts, dict(
+        dense_scan=D - 1, sweep8_closest_hit=D - 1,
+        packet_closest_hit_wide=(1, D), packet_any_hit_wide=D), 1)
+    if int(rc.capped):
+        raise RuntimeError("unsorted BVH_SWEEP render had capped rays")
+    check_image("unsorted BVH_SWEEP", img)
+    print(f"  megakernel on BVH_SWEEP: {mega_ms:.1f} ms a frame "
+          f"({cam.num_pixels / (mega_ms * 1e-3) / 1e6:.3f} Mpaths/s, 1 spp); "
+          f"wavefront without the pool sort: {unsorted_ms:.1f} ms for one "
+          f"frame of {spp} spp "
+          f"({cam.num_pixels * spp / (unsorted_ms * 1e-3) / 1e6:.3f} "
+          f"Mpaths/s), {unsorted_ms / bench_frame_ms:.2f}x the bench frame")
+    phase("sweepvar_mega", t0, mega_ms=f"{mega_ms:.1f}",
+          unsorted_ms=f"{unsorted_ms:.1f}")
+
+    # ---- sweepvar_agreement: each variant vs plain and vs the bench --------
+    t0 = time.perf_counter()
+    left = WATCHDOG_S - (t0 - T_START)
+    if left < 2 * SWEEPVAR_PLAIN_RENDERS_S:
+        raise RuntimeError(
+            f"sweepvar_agreement: its plain renders take up to "
+            f"{SWEEPVAR_PLAIN_RENDERS_S:.0f} s and only {left:.0f} s of the "
+            f"{WATCHDOG_S} s watchdog are left, less than twice that")
+    small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
+                         cam.fovy_deg)
+    acfg = cfg.with_(spp_batch=1, trace_depth=SWEEPVAR_AGREE_DEPTH)
+    rc_b = common.make_raycaster(scene, acfg)
+    img_b = wavefront.render(scene, small, acfg, iterations=AGREE_ITERS,
+                             raycaster=rc_b)
+    cases = [(k, wavefront.render, acfg.with_(**v)) for k, v in SWEEPVAR.items()]
+    cases += [("unsorted", wavefront.render, acfg.with_(sort_bounce_rays=False)),
+              ("mega", megakernel.render, acfg)]
+    out = {}
+    for label, render, vcfg in cases:
+        rc_k = common.make_raycaster(scene, vcfg)
+        img_k = render(scene, small, vcfg, iterations=AGREE_ITERS,
+                       raycaster=rc_k)
+        patch = plain_kernels()
+        try:
+            rc_p = common.make_raycaster(scene, vcfg)
+            tp = time.perf_counter()
+            img_p = render(scene, small, vcfg, iterations=AGREE_ITERS,
+                           raycaster=rc_p)
+            out[f"{label}_plain_s"] = f"{time.perf_counter() - tp:.1f}"
+        finally:
+            patch.restore()
+        if int(rc_k.capped) or int(rc_p.capped) or int(rc_b.capped):
+            raise RuntimeError(f"{label} agreement renders had capped rays")
+        for ref_label, ref in (("plain", img_p), ("bench", img_b)):
+            close, _, max_abs = golden_agree(
+                f"{label} render vs {ref_label}", img_k, ref)
+            out[f"{label}_{ref_label}"] = f"{close:.6f}/{max_abs:.3g}"
+    phase("sweepvar_agreement", t0, depth=SWEEPVAR_AGREE_DEPTH, **out)
+
+    src = "tpt_torch/csrc/sweep.cu"
+    entry = lambda name, launches, ms, pms, b, **kw: dict(
+        name=name, route="cuda", source=kw.pop("source", src),
+        replaces=kw.pop("replaces", "tpt/bvh/pallas_sweep.py:168"),
+        launches=launches, max_abs_err=0.0, ms=ms, plain_ms=pms,
+        bound_ms=b[0], bound_by=b[1], library_ms=None, **kw)
+    return [
+        entry("sweep_closest_hit", k7_launches["sweep_closest_hit"], k7_ms,
+              k7_plain_ms, k7_b, lanes=n, plain_lanes=int(idx.numel())),
+        entry("sweep_closest_hit/any_hit",
+              k7_launches["sweep_closest_hit/any_hit"], k7a_ms, k7a_plain_ms,
+              k7a_b, lanes=n_sh, plain_lanes=int(idx_sh.numel())),
+        entry("sweep8_closest_hit/groups",
+              k4_launches["sweep8_closest_hit/groups"], k4g_ms, k4g_plain_ms,
+              k4g_b, replaces="tpt/bvh/pallas_sweep.py:623", lanes=n,
+              plain_lanes=int(idx.numel())),
+        entry("sweep8_closest_hit/any_hit",
+              k4_launches["sweep8_closest_hit/any_hit"], k4a_ms, k4a_plain_ms,
+              k4a_b, replaces="tpt/bvh/pallas_sweep.py:623", lanes=n_sh,
+              plain_lanes=int(idx_sh.numel())),
+        entry("treelet_scan_multi", k11_launches, k11_ms, k11_plain_ms, k11_b,
+              source="tpt_torch/csrc/treelet.cu",
+              replaces="tpt/bvh/pallas_treelet.py:769", lanes=m),
     ]
 
 
@@ -1904,8 +2342,9 @@ def main() -> int:
     del res["primaries"]
     print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
           "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject, "
-          "K8a packet_closest_hit, K8b packet_any_hit, K9 treelet_scan, "
-          "K10 treelet_closest_hit ported (cuda); K7, K11 not yet ported")
+          "K7 sweep_closest_hit, K8a packet_closest_hit, K8b packet_any_hit, "
+          "K9 treelet_scan, K10 treelet_closest_hit, K11 treelet_scan_multi: "
+          "all 12 ported (cuda)")
     phase("kernels", t0, n_compare=N_COMPARE, lanes=res["lanes"],
           k2_ms=f"{res['closest']['ms']:.3f}",
           k1_ms=f"{res['any_hit']['ms']:.3f}")
@@ -1970,13 +2409,14 @@ def main() -> int:
     phase("agreement", t0, close=f"{close:.6f}", mean_rel=f"{mean_rel:.3g}",
           max_abs=f"{max_abs:.3g}")
 
-    sweep_kernels = sweep_phases(scene, cam, dev)
+    sweep_kernels, bench_frame_ms = sweep_phases(scene, cam, dev)
     svgf_kernels = svgf_phases(scene, cam, dev)
     binary_kernels, binary_frame_ms = binary_phases(scene, bscene, cam, dev,
                                                     frame_ms)
     mega_phases(scene, bscene, cam, dev, frame_ms, binary_frame_ms)
     del bscene
     treelet_kernels = treelet_phases(scene, cam, dev, frame_ms)
+    sweepvar_kernels = sweepvar_phases(scene, cam, dev, bench_frame_ms)
 
     source = "tpt_torch/csrc/packet_wide.cu"
     kernels = [
@@ -1988,7 +2428,8 @@ def main() -> int:
              replaces="tpt/bvh/pallas_traverse.py:959",
              launches=launches["packet_any_hit_wide"], **res["any_hit"],
              library_ms=None),
-    ] + sweep_kernels + svgf_kernels + binary_kernels + treelet_kernels
+    ] + (sweep_kernels + svgf_kernels + binary_kernels + treelet_kernels
+         + sweepvar_kernels)
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -188,7 +188,7 @@ def test_unported_modes_raise(cornell):
     # options it lacks still raise
     mega = CFG.with_(mode=RenderMode.MEGAKERNEL)
     with pytest.raises(NotImplementedError, match="item 6"):
-        Renderer(data, host.camera, mega.with_(backend=RayCastBackend.BVH_SWEEP))
+        Renderer(data, host.camera, mega.with_(debug_no_shadow=True))
     with pytest.raises(NotImplementedError, match="heavy_shading_iters"):
         Renderer(data, host.camera, mega.with_(heavy_shading_iters=4))
     with pytest.raises(NotImplementedError, match="item 6"):

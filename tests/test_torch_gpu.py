@@ -1,8 +1,9 @@
 """tpt_torch's CUDA kernels (K2 closest hit, K1 any hit, K3 dense scan,
-K4 demand sweep, K5 a-trous stencil, K6 temporal reprojection, K9
-treelet scan, K10 treelet closest hit, K8a/K8b binary closest and any
-hit) on the card, each against its plain PyTorch version, and the
-megakernel on the card against the CPU.
+K4 demand sweep with its any-hit and group modes, K7 lane sweep, K5
+a-trous stencil, K6 temporal reprojection, K9 treelet scan, K10 treelet
+closest hit, K11 multi-slot scan, K8a/K8b binary closest and any hit) on
+the card, each against its plain PyTorch version, and the megakernel and
+the sweep variants on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor tpt, so it also runs on a GPU machine without
@@ -251,6 +252,7 @@ def _plain_kernels(monkeypatch):
     are looked up through their modules at call time)."""
     monkeypatch.setattr(sw, "dense_scan", sw.dense_scan_plain)
     monkeypatch.setattr(sw, "sweep8_closest_hit", sw.sweep8_closest_hit_plain)
+    monkeypatch.setattr(sw, "sweep_closest_hit", sw.sweep_closest_hit_plain)
     monkeypatch.setattr(pt, "packet_closest_hit_wide", pt.closest_hit_wide_plain)
     monkeypatch.setattr(pt, "packet_any_hit_wide", pt.any_hit_wide_plain)
 
@@ -263,14 +265,130 @@ def test_sweep_render_kernels_equal_plain(cornell, cuda, monkeypatch):
     rc = common.make_raycaster(data, cfg)
     before = dict(sw.LAUNCHES)
     img_k = wavefront.render(data, host.camera, cfg, iterations=2, raycaster=rc)
-    assert all(sw.LAUNCHES[k] == before[k] + 4 for k in before)
+    main = ("dense_scan", "sweep8_closest_hit")
+    want = {k: before[k] + 4 * (k in main) for k in before}
+    assert sw.LAUNCHES == want
     _plain_kernels(monkeypatch)
     rc_p = common.make_raycaster(data, cfg)
     img_p = wavefront.render(data, host.camera, cfg, iterations=2,
                              raycaster=rc_p)
-    assert sw.LAUNCHES == {k: before[k] + 4 for k in before}
+    assert sw.LAUNCHES == want
     assert int(rc.capped) == 0 and int(rc_p.capped) == 0
     np.testing.assert_array_equal(img_k, img_p)
+
+
+def _sorted_pool(tables, n, seed, S, device):
+    """The adversarial pool sorted by the bin key of its scan planes, as
+    the wavefront sorts a bounce pool."""
+    o, d, t_max = _adversarial_pool(n, device, seed)
+    s_t, s_o, thr = sw.dense_scan(tables, o, d, t_max, slots=S)
+    key = tsc.bin_key(s_o, d, tables.num_treelets, S)
+    perm = tsc.bin_sort_perm([torch.where(t_max > 0, key, 1 << 30)])
+    g = lambda a: a[..., perm].contiguous()
+    return (Vec3(g(o.x), g(o.y), g(o.z)), Vec3(g(d.x), g(d.y), g(d.z)),
+            g(t_max), g(s_o), g(s_t))
+
+
+def _hits_equal(got, want):
+    for f in ("t", "tri", "u", "v"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("S,mode", [(1, "demand"), (2, "demand"),
+                                    (4, "demand"), (8, "demand"), (2, "all"),
+                                    (8, "all"), (4, "any")])
+def test_sweep_lane_kernel_equals_plain(tables, cuda, S, mode):
+    """K7 (1024-lane blocks) with and without entry planes and in any-hit
+    mode, on the bin-sorted adversarial pool (the any-hit case on short
+    segments), bit for bit."""
+    o, d, t_max, s_o, s_t = _sorted_pool(tables, 5000, 24 + S, S, cuda)
+    if mode == "any":
+        t_max = torch.where(t_max > 0, torch.clamp_max(t_max, 6.0), t_max)
+    entry = None if mode == "all" else s_t
+    key = "sweep_closest_hit" + ("/any_hit" if mode == "any" else "")
+    before = sw.LAUNCHES[key]
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = sw.sweep_closest_hit(tables, o, d, t_max, s_o, entry,
+                               any_hit=mode == "any", stats=stats)
+    assert sw.LAUNCHES[key] == before + 1
+    want = sw.sweep_closest_hit_plain(tables, o, d, t_max, s_o, entry,
+                                      any_hit=mode == "any")
+    _hits_equal(got, want)
+    assert int(stats[2]) == int((t_max > 0).sum())
+    assert bool((got.tri[~(t_max > 0)] == -1).all())
+    assert bool((got.tri >= 0).any())
+
+
+def _grouped_tables(device):
+    """Synthetic tables at chunk_align 4 (treelets of 4..32 8-row chunks,
+    so 8 groups cover each) with their group boxes."""
+    from tpt_torch.bvh.treelet import group_boxes
+
+    base = _synthetic_tables(300, 27, "cpu", max_chunks=8)
+    chunks = base.ranges[:, 1].numpy() * 4
+    start = np.concatenate([[0], np.cumsum(chunks * 8)[:-1]])
+    tri = np.zeros((int(chunks.sum()) * 8, 16), np.float32)
+    count = np.zeros(len(chunks), np.int64)
+    old = base.tri_f32.numpy()
+    for t, (s0, c0) in enumerate(base.ranges.numpy()):
+        rows = old[s0:s0 + c0 * 8]
+        rows = np.concatenate([rows] * 4)                 # 4x the triangles
+        rows[len(rows) // 4:, 0:3] += np.random.default_rng(t).normal(
+            scale=0.5, size=(len(rows) - len(rows) // 4, 3))
+        tri[start[t]:start[t] + len(rows)] = rows
+        count[t] = len(rows)
+    gbox = group_boxes(tri, start, count, chunks, 4, 8)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return SweepTables(tri_f32=dev(tri),
+                       ranges=dev(np.stack([start, chunks], 1).astype(np.int32)),
+                       boxes=base.boxes.to(device), group_boxes=dev(gbox),
+                       num_treelets=base.num_treelets,
+                       max_chunks=int(chunks.max()), unroll=8, chunk_align=4)
+
+
+@pytest.mark.parametrize("unroll,any_hit,groups", [
+    (1, True, False), (4, True, False), (1, False, True), (2, False, True),
+    (4, True, True)])
+def test_sweep8_modes_equal_plain(cuda, unroll, any_hit, groups):
+    """K4's any-hit and group modes, bit for bit; group mode's raw hits
+    are also the ungrouped kernel's."""
+    tables = _grouped_tables(cuda)
+    assert tables.max_chunks <= 8 * tables.chunk_align
+    o, d, t_max, s_o, s_t = _sorted_pool(tables, 4000, 28, 4, cuda)
+    if any_hit:
+        t_max = torch.where(t_max > 0, torch.clamp_max(t_max, 6.0), t_max)
+    key = "sweep8_closest_hit" + ("/any_hit" if any_hit else "/groups")
+    before = sw.LAUNCHES[key]
+    kw = dict(unroll=unroll, any_hit=any_hit, use_groups=groups)
+    got = sw.sweep8_closest_hit(tables, o, d, t_max, s_o, s_t, **kw)
+    assert sw.LAUNCHES[key] == before + 1
+    _hits_equal(got, sw.sweep8_closest_hit_plain(tables, o, d, t_max, s_o,
+                                                 s_t, **kw))
+    if groups:
+        flat = sw.sweep8_closest_hit(tables, o, d, t_max, s_o, s_t,
+                                     unroll=unroll, any_hit=any_hit)
+        _hits_equal(got, flat)
+    assert bool((got.tri >= 0).any())
+
+
+def test_sweep_variant_render_on_card_matches_cpu(cornell, cuda):
+    """The "lane" and "cascade" variants on the card (K3, K7, K4's modes,
+    K1, K2) against the same renders on the CPU (plain versions), at the
+    golden-image tolerance."""
+    host, data = cornell
+    cpu = host.build(with_bvh=True, device="cpu")
+    for knobs in (dict(sweep_kernel="lane", sweep_shadow=True),
+                  dict(sweep_groups=True, sweep_shadow=True,
+                       sweep_cascade=True, sweep_primary=True)):
+        cfg = RenderConfig(backend=RayCastBackend.BVH_SWEEP, trace_depth=3,
+                           **knobs)
+        rc = common.make_raycaster(data, cfg)
+        gpu = wavefront.render(data, host.camera, cfg, iterations=2,
+                               raycaster=rc)
+        ref = wavefront.render(cpu, host.camera, cfg, iterations=2)
+        assert int(rc.capped) == 0
+        assert np.isclose(gpu, ref, atol=5e-3, rtol=1e-3).mean() > 0.97
+        np.testing.assert_allclose(gpu.mean(), ref.mean(), rtol=0.02)
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +633,42 @@ def test_treelet_closest_hit_kernel_equals_plain(treelet_scenes, cuda, mt, n,
     ref = intersect.brute_force_closest_hit(data.mesh, o, d, tm)
     assert torch.equal(got.tri, ref.tri)
     assert int(stats[3]) > 0 and int(stats[5]) <= int(stats[3])
+
+
+@pytest.mark.parametrize("n,group,S", [(1, 2, 4), (2049, 2, 4), (2049, 1, 8),
+                                       (6000, 2, 1), (6000, 1, 2)])
+def test_treelet_scan_multi_kernel_equals_plain(treelet_scenes, cuda, n, group,
+                                                S):
+    data = treelet_scenes[64]
+    o, d, tm = _treelet_rays(data, n, 41 + n, cuda)
+    before = tlt.LAUNCHES["treelet_scan_multi"]
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = tlt.treelet_scan_multi(data.pack, o, d, tm, slots=S, group=group,
+                                 stats=stats)
+    assert tlt.LAUNCHES["treelet_scan_multi"] == before + 1
+    want = tlt.treelet_scan_multi_plain(data.pack, o, d, tm, slots=S,
+                                        group=group)
+    for a, b in zip(got, want):
+        _bits_equal(a, b)
+    assert int(got[3]) == 0 and int(stats[0]) > 0
+
+
+def test_treelet_scan_multi_dead_pool_and_cycle(treelet_scenes, cuda):
+    """A dead pool walks nothing; a top root that lists itself as its
+    children is capped, not hung."""
+    data = treelet_scenes[64]
+    o, d, _ = _treelet_rays(data, 3000, 42, cuda)
+    s_t, s_o, thr, capped = tlt.treelet_scan_multi(
+        data.pack, o, d, torch.full((3000,), -1.0, device=cuda))
+    assert bool((s_o == sw.NONE_ORD).all()) and bool((thr == 3.0e38).all())
+    assert int(capped) == 0
+    child = data.pack.top_child.clone()
+    child[0, :data.pack.arity] = 0
+    bad = replace(data.pack, top_child=child)
+    tm = torch.full((3000,), 3.4e38, device=cuda)
+    _, _, _, capped = tlt.treelet_scan_multi(bad, o, d, tm, node_pops=1)
+    torch.cuda.synchronize()
+    assert int(capped) == 3000
 
 
 def test_treelet_max_rounds_is_capped(treelet_scenes, cuda):

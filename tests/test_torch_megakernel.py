@@ -186,9 +186,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="heavy_shading_iters"):
         megakernel.render(data, s.camera, cfg.with_(heavy_shading_iters=2),
                           iterations=1)
-    with pytest.raises(NotImplementedError, match="BVH_SWEEP"):
+    with pytest.raises(NotImplementedError, match="BVH_XLA"):
         megakernel.make_sample_fn(data, s.camera,
-                                  cfg.with_(backend=RayCastBackend.BVH_SWEEP))
+                                  cfg.with_(backend=RayCastBackend.BVH_XLA))
     assert megakernel.render(data, s.camera, cfg, iterations=0).shape == \
         (PALLAS_RES[1], PALLAS_RES[0], 3)
 

@@ -170,17 +170,17 @@ def test_frame_output(small):
 def test_unported_options_raise(small):
     s, data = small
     sweep = RayCastBackend.BVH_SWEEP
-    for cfg in (RenderConfig(backend=sweep, sweep_kernel="lane"),
-                RenderConfig(backend=sweep, sweep_cascade=True),
-                RenderConfig(backend=sweep, sweep_primary=True),
-                RenderConfig(backend=sweep, sweep_groups=True),
-                RenderConfig(backend=sweep, sweep_shadow=True),
-                RenderConfig(backend=sweep, sort_bounce_rays=False),
+    for cfg in (RenderConfig(backend=sweep, debug_no_shadow=True),
+                RenderConfig(backend=sweep, heavy_shading_iters=2),
+                RenderConfig(backend=sweep, sweep_kernel="warp"),
+                RenderConfig(backend=sweep, sweep_slots=9),
+                RenderConfig(backend=RayCastBackend.BVH_XLA),
+                RenderConfig(backend=sweep, nearfield_frac=0.5),
                 RenderConfig(backend=RayCastBackend.BVH_PALLAS,
                              nearfield_frac=0.5),
                 RenderConfig(backend=RayCastBackend.BVH_PALLAS, trav_group=8),
                 RenderConfig(backend=RayCastBackend.BVH_PALLAS,
-                             sweep_shadow=True),
+                             trav_cluster_pops=2),
                 RenderConfig(backend=RayCastBackend.BVH_PALLAS, sort_every=2)):
         with pytest.raises(NotImplementedError):
             wavefront.render(data, s.camera, cfg, iterations=1)

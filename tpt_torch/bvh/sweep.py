@@ -1,7 +1,7 @@
-"""Dense treelet scan and demand sweep: K3 `dense_scan` and K4
-`sweep8_closest_hit`, the port's counterparts of the Pallas kernels in
-`tpt/bvh/pallas_sweep.py` (:337 and :623; demand mode, closest hit, no
-group culling).
+"""Dense treelet scan and demand sweeps: K3 `dense_scan`, K4
+`sweep8_closest_hit` and K7 `sweep_closest_hit`, the port's counterparts
+of the Pallas kernels in `tpt/bvh/pallas_sweep.py` (:337, :623 with its
+demand closest-hit, any-hit and group modes, and :168).
 
 On CUDA tensors each wrapper launches its hand-written kernel
 (`tpt_torch/csrc/sweep.cu`, built with nvcc for sm_90a on first use and
@@ -16,10 +16,15 @@ could not hold (3e38 if none). K4 sweeps, per 128-lane block, every
 treelet that some lane of the block still demands (slot k is demanded
 while its entry t precedes the lane's best hit) and returns the closest
 hit among those triangles; like tpt's kernel, its raw result depends on
-which lanes share a block. The plain versions compute the same functions
-by other means (K3: the S+1 smallest of every ray's candidates; K4: all
-blocks' union walks at once) with the kernels' float32 arithmetic, so
-kernel and plain agree bit for bit.
+which lanes share a block. K7 is the same sweep over 1024-lane blocks,
+with or without entry planes (without them every requested slot is
+swept). In any-hit mode a lane that holds a hit before t_max - 1e-3
+demands nothing more (it still tests what its block sweeps); K4's group
+mode sweeps only the rows of a treelet's group boxes that some lane of
+the block enters, which leaves the raw result unchanged. The plain
+versions compute the same functions by other means (K3: the S+1 smallest
+of every ray's candidates; K4/K7: all blocks' union walks at once) with
+the kernels' float32 arithmetic, so kernel and plain agree bit for bit.
 """
 
 from __future__ import annotations
@@ -33,18 +38,23 @@ import torch
 from .. import _build
 from ..core.vec import Vec3
 from ..integrators.intersect import FLT_MAX, HitRecord, safe_inv
-from .packet_traverse import HEADERS, NVCC_FLAGS, _mt_rows
+from .packet_traverse import HEADERS, NVCC_FLAGS, _mt_rows, _slab
 from .treelet import SweepTables
 
 # ordinal of "no candidate": sorts past every real ordinal
 NONE_ORD = 0x7FFFFF
 _INF = 3.0e38        # K3's initial entry t and thr (pallas_sweep.py _INF)
-LANES = 128          # lanes per K4 block (csrc/sweep.cu SWEEP_LANES)
+LANES = 128          # lanes per K4 block (csrc/sweep.cu SWEEP8_LANES)
+LANES_K7 = 1024      # lanes per K7 block (csrc/sweep.cu SWEEP_LANES)
+K7_ROWS = 8          # rows a chunk in tpt's K7 (always called with unroll=8)
 MAX_SLOTS = 8        # slot counts the library instantiates
 
 # launches of each CUDA kernel in this process (chip_smoke.py resets and
-# reads them around the main path to show the path went through them)
-LAUNCHES = {"dense_scan": 0, "sweep8_closest_hit": 0}
+# reads them around the main path to show the path went through them);
+# K4 and K7 count each mode on its own
+LAUNCHES = {"dense_scan": 0, "sweep8_closest_hit": 0,
+            "sweep8_closest_hit/groups": 0, "sweep8_closest_hit/any_hit": 0,
+            "sweep_closest_hit": 0, "sweep_closest_hit/any_hit": 0}
 
 SOURCE = os.path.join(_build.PKG_DIR, "csrc", "sweep.cu")
 BUILD_TIMEOUT_S = 600.0
@@ -65,7 +75,10 @@ def _lib() -> ctypes.CDLL:
         lib.tpt_dense_scan.argtypes = [p] * 7 + [i, p, i, i] + [p] * 5
         lib.tpt_sweep8_closest_hit.restype = ctypes.c_int
         lib.tpt_sweep8_closest_hit.argtypes = ([p] * 7 + [i, i] + [p] * 4
-                                               + [i] + [p] * 6)
+                                               + [i, i, p, i] + [p] * 6)
+        lib.tpt_sweep_closest_hit.restype = ctypes.c_int
+        lib.tpt_sweep_closest_hit.argtypes = ([p] * 7 + [i, i] + [p] * 4
+                                              + [i, i] + [p] * 6)
         lib.tpt_sweep_max_slots.restype = ctypes.c_int
         lib.tpt_sweep_max_slots.argtypes = []
         if lib.tpt_sweep_max_slots() != MAX_SLOTS:
@@ -118,8 +131,8 @@ def _ptr(a: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if a is None else a.data_ptr())
 
 
-def _run(name: str, dev: torch.device, *args) -> None:
-    _build.launch(_lib, LAUNCHES, name, dev, *args)
+def _run(name: str, dev: torch.device, *args, count_as=None) -> None:
+    _build.launch(_lib, LAUNCHES, name, dev, *args, count_as=count_as)
 
 
 def _slots(slots: int, most: int = MAX_SLOTS) -> int:
@@ -166,37 +179,114 @@ def _check_unroll(sweep: SweepTables, unroll: int) -> None:
          f"chunk_align={unroll})")
 
 
+def _group_align(sweep: SweepTables, unroll: int, use_groups: bool) -> int:
+    """chunk_align of K4's group mode, or 0 where tpt does not apply it
+    (pallas_sweep.py:649-659: use_groups and unroll < max_chunks)."""
+    if not use_groups or unroll >= sweep.max_chunks:
+        return 0
+    if sweep.max_chunks > 8 * sweep.chunk_align:
+        raise ValueError(f"group culling needs max_chunks={sweep.max_chunks} "
+                         f"<= 8*chunk_align={8 * sweep.chunk_align} (rebuild "
+                         "sweep_tables with a larger chunk_align)")
+    g = sweep.group_boxes
+    if g is None or g.device != sweep.device or g.dtype != torch.float32 \
+            or tuple(g.shape) != (8 * sweep.num_treelets, 8) \
+            or not g.is_contiguous():
+        raise ValueError("group culling needs SweepTables.group_boxes, "
+                         "float32 [8T, 8] on the tables' device")
+    return sweep.chunk_align
+
+
+def _slot_planes(ordinal: Planes, entry_t: Optional[Planes], n: int, dev):
+    o = _planes(ordinal, torch.int32, n, dev)
+    S = _slots(o.shape[0])
+    e = None
+    if entry_t is not None:
+        e = _planes(entry_t, torch.float32, n, dev)
+        if e.shape[0] != S:
+            raise ValueError("ordinal and entry_t have different slot counts")
+    return o, e
+
+
+def _outputs(n: int, dev):
+    return (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev))
+
+
 def sweep8_closest_hit(sweep: SweepTables, ori: Vec3, d: Vec3,
-                       t_max: torch.Tensor, ordinal: Planes, entry_t: Planes,
-                       unroll: int = 4,
+                       t_max: torch.Tensor, ordinal: Planes,
+                       entry_t: Optional[Planes] = None,
+                       unroll: int = 4, any_hit: bool = False,
+                       use_groups: bool = False,
                        stats: Optional[torch.Tensor] = None) -> HitRecord:
     """K4: closest hit over each 128-lane block's demanded treelets.
     `ordinal`/`entry_t` are the scan's slot planes ([S, n] or S tensors of
-    [n]) in pool order. `unroll` is tpt's unroll_chunks and must divide
-    the table's chunk_align; it has no meaning per thread. `stats`, an
-    int64 [3] CUDA tensor, collects (treelet sweeps summed over blocks,
-    triangle tests of live lanes, live lanes)."""
+    [n]) in pool order; without `entry_t` every requested slot is swept. `unroll` is tpt's unroll_chunks and must divide
+    the table's chunk_align; it has no meaning per thread, but decides
+    with `use_groups` whether the group mode runs (only where tpt runs
+    it). `any_hit` is tpt's any-hit mode. `stats`, an int64 [3] CUDA
+    tensor, collects (treelet sweeps summed over blocks, triangle tests of
+    live lanes, live lanes)."""
     _check_unroll(sweep, unroll)
+    galign = _group_align(sweep, unroll, use_groups)
     n = _check_rays(ori, d, t_max)
     dev = ori.x.device
     _check_tables(sweep, dev)
-    o = _planes(ordinal, torch.int32, n, dev)
-    e = _planes(entry_t, torch.float32, n, dev)
-    S = _slots(o.shape[0])
-    if e.shape[0] != S:
-        raise ValueError("ordinal and entry_t have different slot counts")
+    o, e = _slot_planes(ordinal, entry_t, n, dev)
     if dev.type == "cpu":
-        return sweep8_closest_hit_plain(sweep, ori, d, t_max, o, e,
-                                        unroll=unroll)
+        return _sweep_plain(sweep, ori, d, t_max, o, e, LANES, sweep.unroll,
+                            any_hit, galign)
     _check_stats(stats, dev, 3)
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    tri = torch.empty(n, dtype=torch.int32, device=dev)
-    u = torch.empty(n, dtype=torch.float32, device=dev)
-    v = torch.empty(n, dtype=torch.float32, device=dev)
+    t, tri, u, v = _outputs(n, dev)
+    if n == 0:
+        return HitRecord(t=t, tri=tri, u=u, v=v)
     rays = [_ptr(a) for a in (ori.x, ori.y, ori.z, d.x, d.y, d.z, t_max)]
-    _run("sweep8_closest_hit", dev, *rays, n, S, _ptr(o), _ptr(e),
-         _ptr(sweep.ranges), _ptr(sweep.tri_f32), sweep.unroll, _ptr(t),
-         _ptr(tri), _ptr(u), _ptr(v), _ptr(stats))
+    mode = ("/any_hit" if any_hit else "/groups" if galign else "")
+    _run("sweep8_closest_hit", dev, *rays, n, o.shape[0], _ptr(o), _ptr(e),
+         _ptr(sweep.ranges), _ptr(sweep.tri_f32), sweep.unroll, int(any_hit),
+         _ptr(sweep.group_boxes if galign else None), galign, _ptr(t),
+         _ptr(tri), _ptr(u), _ptr(v), _ptr(stats),
+         count_as="sweep8_closest_hit" + mode)
+    return HitRecord(t=t, tri=tri, u=u, v=v)
+
+
+def _check_k7_tables(sweep: SweepTables) -> None:
+    # tpt's K7 is always called with unroll=8 and sweeps ranges[t, 1] * 8
+    # rows (pallas_sweep.py:108-121): on a table of other chunks it would
+    # sweep into the next treelet's rows
+    if sweep.unroll != K7_ROWS:
+        raise ValueError(f"K7 sweeps {K7_ROWS}-row chunks; the table's chunks "
+                         f"have {sweep.unroll} rows (build it with unroll="
+                         f"{K7_ROWS})")
+
+
+def sweep_closest_hit(sweep: SweepTables, ori: Vec3, d: Vec3,
+                      t_max: torch.Tensor, ordinal: Planes,
+                      entry_t: Optional[Planes] = None, any_hit: bool = False,
+                      stats: Optional[torch.Tensor] = None) -> HitRecord:
+    """K7: K4's sweep over 1024-lane blocks. Without `entry_t` every
+    requested ordinal is swept; with it, the demand drop; `any_hit` is
+    tpt's any-hit mode. The table's chunks must have 8 rows. `stats` as
+    for K4."""
+    _check_k7_tables(sweep)
+    n = _check_rays(ori, d, t_max)
+    dev = ori.x.device
+    _check_tables(sweep, dev)
+    o, e = _slot_planes(ordinal, entry_t, n, dev)
+    if dev.type == "cpu":
+        return _sweep_plain(sweep, ori, d, t_max, o, e, LANES_K7, K7_ROWS,
+                            any_hit, 0)
+    _check_stats(stats, dev, 3)
+    t, tri, u, v = _outputs(n, dev)
+    if n == 0:
+        return HitRecord(t=t, tri=tri, u=u, v=v)
+    rays = [_ptr(a) for a in (ori.x, ori.y, ori.z, d.x, d.y, d.z, t_max)]
+    _run("sweep_closest_hit", dev, *rays, n, o.shape[0], _ptr(o), _ptr(e),
+         _ptr(sweep.ranges), _ptr(sweep.tri_f32), K7_ROWS, int(any_hit),
+         _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _ptr(stats),
+         count_as="sweep_closest_hit" + ("/any_hit" if any_hit else ""))
     return HitRecord(t=t, tri=tri, u=u, v=v)
 
 
@@ -257,43 +347,75 @@ def dense_scan_plain(sweep: SweepTables, ori: Vec3, d: Vec3,
 
 def sweep8_closest_hit_plain(sweep: SweepTables, ori: Vec3, d: Vec3,
                              t_max: torch.Tensor, ordinal: Planes,
-                             entry_t: Planes, unroll: int = 4) -> HitRecord:
-    """Plain K4 (any device): every 128-lane block walks its own demand
-    union in ascending ordinal, all blocks at once; each step tests the
-    current treelet's rows against the block's lanes (in block chunks)
-    and keeps the first row of the smallest t below the lane's best."""
+                             entry_t: Optional[Planes] = None, unroll: int = 4,
+                             any_hit: bool = False,
+                             use_groups: bool = False) -> HitRecord:
+    """Plain K4 (any device)."""
     _check_unroll(sweep, unroll)
+    galign = _group_align(sweep, unroll, use_groups)
     n = _check_rays(ori, d, t_max)
+    o, e = _slot_planes(ordinal, entry_t, n, ori.x.device)
+    return _sweep_plain(sweep, ori, d, t_max, o, e, LANES, sweep.unroll,
+                        any_hit, galign)
+
+
+def sweep_closest_hit_plain(sweep: SweepTables, ori: Vec3, d: Vec3,
+                            t_max: torch.Tensor, ordinal: Planes,
+                            entry_t: Optional[Planes] = None,
+                            any_hit: bool = False) -> HitRecord:
+    """Plain K7 (any device)."""
+    _check_k7_tables(sweep)
+    n = _check_rays(ori, d, t_max)
+    o, e = _slot_planes(ordinal, entry_t, n, ori.x.device)
+    return _sweep_plain(sweep, ori, d, t_max, o, e, LANES_K7, K7_ROWS,
+                        any_hit, 0)
+
+
+def _sweep_plain(sweep: SweepTables, ori: Vec3, d: Vec3, t_max: torch.Tensor,
+                 o: torch.Tensor, e: Optional[torch.Tensor], lanes: int,
+                 rpc: int, any_hit: bool, galign: int) -> HitRecord:
+    """K4/K7 (`lanes` a block, `rpc` rows a chunk): every block walks its
+    own demand union in ascending ordinal, all blocks at once; each step
+    tests the current treelet's rows (the group window's, with `galign`)
+    against the block's lanes (in block chunks) and keeps the first row of
+    the smallest t below the lane's best. Lanes past n are tpt's padding
+    (zero rays, t_max 0)."""
+    n = t_max.shape[0]
     dev = ori.x.device
-    o = _planes(ordinal, torch.int32, n, dev)
-    e = _planes(entry_t, torch.float32, n, dev)
     S = o.shape[0]
-    nb = max(1, -(-n // LANES))
-    pad = nb * LANES - n
+    nb = max(1, -(-n // lanes))
+    pad = nb * lanes - n
 
     def blocks(a, fill):
         if pad:
             a = torch.cat([a, a.new_full((pad,), fill)])
-        return a.reshape(nb, LANES)
+        return a.reshape(nb, lanes)
 
     alive = t_max > 0
     tm = blocks(torch.where(alive, t_max, 0.0), 0.0)
     o = torch.stack([blocks(torch.where(alive, o[k], NONE_ORD), NONE_ORD)
-                     for k in range(S)], 1)             # [nb, S, 128]
-    e = torch.stack([blocks(e[k], _INF) for k in range(S)], 1)
+                     for k in range(S)], 1)             # [nb, S, lanes]
+    if e is not None:
+        e = torch.stack([blocks(e[k], _INF) for k in range(S)], 1)
     rays = [blocks(c, 0.0) for c in (ori.x, ori.y, ori.z, d.x, d.y, d.z)]
+    inv = [safe_inv(c) for c in rays[3:]]
     bt = torch.clamp_max(tm, FLT_MAX)
-    brow = torch.full((nb, LANES), -1, dtype=torch.int64, device=dev)
-    bu = torch.zeros((nb, LANES), device=dev)
-    bv = torch.zeros((nb, LANES), device=dev)
+    budget = bt
+    brow = torch.full((nb, lanes), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros((nb, lanes), device=dev)
+    bv = torch.zeros((nb, lanes), device=dev)
     cur = torch.full((nb,), -1, dtype=torch.int32, device=dev)
     none = torch.tensor(NONE_ORD, dtype=torch.int32, device=dev)
-    rpc = sweep.unroll
     max_rows = sweep.max_chunks * rpc
     inf = torch.tensor(float("inf"), device=dev)
-    bchunk = max(1, (1 << 24) // (max_rows * LANES))
+    gbox = (sweep.group_boxes.reshape(sweep.num_treelets, 8, 8) if galign
+            else None)
+    groups = torch.arange(8, device=dev)[None, :, None]
+    bchunk = max(1, (1 << 24) // (max_rows * lanes))
     while True:
-        demand = (o > cur[:, None, None]) & (e < bt[:, None, :])
+        demand = o > cur[:, None, None]
+        if e is not None:
+            demand &= e < budget[:, None, :]
         cur = torch.where(demand, o, none).amin(dim=(1, 2))
         act = torch.nonzero(cur < NONE_ORD).squeeze(1)
         if act.numel() == 0:
@@ -301,27 +423,43 @@ def sweep8_closest_hit_plain(sweep: SweepTables, ori: Vec3, d: Vec3,
         for a in range(0, act.numel(), bchunk):
             blk = act[a:a + bchunk]
             rng = sweep.ranges[cur[blk].long()].long()
-            start, nrows = rng[:, 0], rng[:, 1] * rpc
-            R = int(nrows.max())
-            j = torch.arange(R, device=dev)
-            row = start[:, None] + j[None, :]                 # [b, R]
-            valid = j[None, :] < nrows[:, None]
-            tri = sweep.tri_f32[row.clamp(max=sweep.tri_f32.shape[0] - 1)]
-            rc = lambda c: c[blk][:, None, :]                 # [b, 1, 128]
-            t, u, v, hit = _mt_rows(tri[:, :, None, :],
-                                    (rc(rays[0]), rc(rays[1]), rc(rays[2])),
-                                    (rc(rays[3]), rc(rays[4]), rc(rays[5])))
+            start, nchunks = rng[:, 0], rng[:, 1]
+            lo = torch.zeros_like(start)
+            hi = nchunks * rpc
+            rc = lambda c: c[blk][:, None, :]                 # [b, 1, lanes]
             btb = bt[blk]
-            t_m = torch.where(hit & valid[:, :, None] & (t < btb[:, None, :]),
-                              t, inf)
-            best, arg = torch.min(t_m, dim=1)       # first minimum: lowest row
-            win = best < btb
-            pick = lambda a: a.gather(1, arg[:, None, :]).squeeze(1)
-            bt[blk] = torch.where(win, best, btb)
-            brow[blk] = torch.where(win, pick(row[:, :, None].expand_as(t)),
-                                    brow[blk])
-            bu[blk] = torch.where(win, pick(u), bu[blk])
-            bv[blk] = torch.where(win, pick(v), bv[blk])
+            if gbox is not None:
+                # every lane, dead and padded ones too, slab-tests the
+                # treelet's 8 group boxes at its best t
+                gb = gbox[cur[blk].long()][:, :, None, :6]    # [b, 8, 1, 6]
+                m = _slab(gb, [rc(c) for c in rays[:3]],
+                          [rc(c) for c in inv], btb[:, None, :])
+                first = torch.where(m, groups, 8).amin(dim=(1, 2))
+                last = torch.where(m, groups, -1).amax(dim=(1, 2))
+                lo = first * galign * rpc
+                hi = torch.minimum((last + 1) * galign, nchunks) * rpc
+            R = int(hi.max())
+            if R > 0:
+                j = torch.arange(R, device=dev)
+                row = start[:, None] + j[None, :]                 # [b, R]
+                valid = (j[None, :] >= lo[:, None]) & (j[None, :] < hi[:, None])
+                tri = sweep.tri_f32[row.clamp(max=sweep.tri_f32.shape[0] - 1)]
+                t, u, v, hit = _mt_rows(tri[:, :, None, :],
+                                        (rc(rays[0]), rc(rays[1]), rc(rays[2])),
+                                        (rc(rays[3]), rc(rays[4]), rc(rays[5])))
+                t_m = torch.where(hit & valid[:, :, None]
+                                  & (t < btb[:, None, :]), t, inf)
+                best, arg = torch.min(t_m, dim=1)   # first minimum: lowest row
+                win = best < btb
+                pick = lambda a: a.gather(1, arg[:, None, :]).squeeze(1)
+                bt[blk] = torch.where(win, best, btb)
+                brow[blk] = torch.where(
+                    win, pick(row[:, :, None].expand_as(t)), brow[blk])
+                bu[blk] = torch.where(win, pick(u), bu[blk])
+                bv[blk] = torch.where(win, pick(v), bv[blk])
+        # an occluded lane demands nothing more (any-hit mode)
+        budget = (torch.where(bt < tm - 1e-3, -FLT_MAX, bt) if any_hit
+                  else bt)
     flat = lambda a: a.reshape(-1)[:n]
     brow = flat(brow)
     found = brow >= 0
@@ -330,3 +468,4 @@ def sweep8_closest_hit_plain(sweep: SweepTables, ori: Vec3, d: Vec3,
     return HitRecord(t=torch.where(found, flat(bt), FLT_MAX), tri=tri,
                      u=torch.where(found, flat(bu), 0.0),
                      v=torch.where(found, flat(bv), 0.0))
+

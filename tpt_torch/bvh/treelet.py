@@ -131,8 +131,8 @@ class SweepTables:
     tri_f32: torch.Tensor        # [rows_padded, 16] f32
     ranges: torch.Tensor         # [num_treelets, 2] int32
     boxes: torch.Tensor          # [num_treelets, 8] f32 lo3, hi3, pad
-    # 8 sub-AABBs per treelet, one per `chunk_align` chunks (tpt's group
-    # culling, which the port does not run; kept so the tables equal tpt's)
+    # 8 sub-AABBs per treelet, one per `chunk_align` chunks (K4's group
+    # culling)
     group_boxes: Optional[torch.Tensor] = None  # [num_treelets*8, 8] f32
     num_treelets: int = 0
     max_chunks: int = 0
@@ -192,6 +192,34 @@ def _treelet_ranges(pack: PacketBVH):
     return boxes, start, count
 
 
+def group_boxes(tri: np.ndarray, row_start, count, chunks, chunk_align: int,
+                unroll: int) -> np.ndarray:
+    """The 8 group sub-AABBs of each treelet of a repacked table `tri`
+    (K4's group culling): slot g covers chunks [g*chunk_align,
+    (g+1)*chunk_align) of the treelet's real rows, inflated by 1e-6
+    relative; empty groups keep +3e38. [8T, 8] float32."""
+    G = 8
+    T = len(row_start)
+    gbox = np.zeros((T * G, 8), np.float32)
+    gbox[:, :6] = _GINF
+    rows_per_group = chunk_align * unroll
+    for t in range(T):
+        for g in range(min(G, int(chunks[t]) // chunk_align)):
+            r0 = int(row_start[t]) + g * rows_per_group
+            r1 = min(r0 + rows_per_group, int(row_start[t]) + int(count[t]))
+            if r1 <= r0:
+                continue
+            rows = tri[r0:r1]
+            v0 = rows[:, 0:3]
+            verts = np.concatenate([v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]],
+                                   axis=0)
+            lo, hi = verts.min(0), verts.max(0)
+            pad = 1e-6 * np.maximum(np.abs(lo), np.abs(hi)) + 1e-30
+            gbox[t * G + g, :3] = lo - pad
+            gbox[t * G + g, 3:6] = hi + pad
+    return gbox
+
+
 def sweep_tables(pack: PacketBVH, unroll: int = 8,
                  chunk_align: int = 4) -> SweepTables:
     """The dense-sweep tables of an attach_treelets() pack, on the pack's
@@ -217,27 +245,7 @@ def sweep_tables(pack: PacketBVH, unroll: int = 8,
     boxes8 = np.zeros((T, 8), np.float32)
     boxes8[:, :6] = boxes
 
-    # group sub-AABBs: slot g covers chunks [g*chunk_align, (g+1)*chunk_align)
-    # of the real rows, inflated by 1e-6 relative; empty groups keep +3e38
-    G = 8
-    gbox = np.zeros((T * G, 8), np.float32)
-    gbox[:, :6] = _GINF
-    rows_per_group = chunk_align * unroll
-    for t in range(T):
-        for g in range(min(G, int(chunks[t]) // chunk_align)):
-            r0 = int(row_start[t]) + g * rows_per_group
-            r1 = min(r0 + rows_per_group, int(row_start[t]) + int(count[t]))
-            if r1 <= r0:
-                continue
-            rows = out[r0:r1]
-            v0 = rows[:, 0:3]
-            verts = np.concatenate([v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]],
-                                   axis=0)
-            lo, hi = verts.min(0), verts.max(0)
-            pad = 1e-6 * np.maximum(np.abs(lo), np.abs(hi)) + 1e-30
-            gbox[t * G + g, :3] = lo - pad
-            gbox[t * G + g, 3:6] = hi + pad
-
+    gbox = group_boxes(out, row_start, count, chunks, chunk_align, unroll)
     dev = pack.device
     tens = lambda a: torch.from_numpy(a).to(dev)
     return SweepTables(tri_f32=tens(out), ranges=tens(ranges),

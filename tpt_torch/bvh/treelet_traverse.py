@@ -1,7 +1,9 @@
-"""Treelet traversal: K9 `treelet_scan` and K10 `treelet_closest_hit`,
-the port's counterparts of the Pallas kernels in
-`tpt/bvh/pallas_treelet.py` (:522 and :570), the ray casts of the
-BVH_TREELET backend.
+"""Treelet traversal: K9 `treelet_scan`, K10 `treelet_closest_hit` and
+K11 `treelet_scan_multi`, the port's counterparts of the Pallas kernels
+in `tpt/bvh/pallas_treelet.py` (:522, :570 and :769). K9 and K10 are the
+ray casts of the BVH_TREELET backend; K11, the S-slot candidate scan
+through the top tree, is on no render path of tpt (its tests and
+benchmarks call it) and gives the sweep pipeline K3's planes.
 
 On CUDA tensors each wrapper launches its hand-written kernel
 (`tpt_torch/csrc/treelet.cu`, built with nvcc for sm_90a on first use and
@@ -9,17 +11,19 @@ bound with ctypes); on CPU tensors it runs the plain PyTorch version
 below. There is no fallback between the two: a CUDA tensor launches the
 kernel or raises.
 
-Both walk tpt's super-packets of `group * 1024` consecutive lanes with
-one stack per packet, as the TPU kernels do, because what they return
-depends on the packet: K9's overflow flag and candidate count (the
-hybrid easy/hard split) count every child the packet visits, and K10's
-packet decides which treelet it drains next, which decides equal-t ties.
+All three walk tpt's super-packets of `group * 1024` consecutive lanes
+with one stack per packet, as the TPU kernels do, because what they
+return depends on the packet: K9's overflow flag and candidate count (the
+hybrid easy/hard split) count every child the packet visits, K11's thr is
+lowered by every child its slot window excludes, and K10's packet
+decides which treelet it drains next, which decides equal-t ties.
 K9 gives each lane its lexicographically nearest (entry t, treelet code)
 candidate past the top tree, the candidate's ordinal, an overflow flag
 (another candidate existed or may exist) and a candidate count. K10 runs
 tpt's round machine (scan the top tree into S slots a lane, drain the
 packet-nearest requested treelet, repeat) and returns the closest hit,
-from scratch or from a K9 seed. The plain versions run the same walks
+from scratch or from a K9 seed. K11 keeps each lane's S nearest
+(entry t, ordinal) candidates and thr, as K3 does. The plain versions run the same walks
 vectorised over packets ([packets, lanes] state, a [packets, depth] stack
 per packet), in the kernels' float32 arithmetic, so kernel and plain
 agree bit for bit.
@@ -44,7 +48,7 @@ from ..core.vec import Vec3
 from ..integrators.intersect import FLT_MAX, HitRecord, safe_inv
 from .pack import PacketBVH
 from .packet_traverse import HEADERS, NVCC_FLAGS, _mt_rows, _slab
-from .sweep import _check_rays, _check_stats, _ptr, _slots
+from .sweep import NONE_ORD, _check_rays, _check_stats, _ptr, _slots
 
 NONE_CODE = 0x7FFFFFFF   # empty slot (pallas_treelet.py NONE_CODE)
 INT_MIN = -0x80000000
@@ -63,7 +67,8 @@ SCAN_WAVE = 16           # plain K10: iterations between batched scans
 
 # launches of each CUDA kernel in this process (chip_smoke.py resets and
 # reads them around the main path to show the path went through them)
-LAUNCHES = {"treelet_scan": 0, "treelet_closest_hit": 0}
+LAUNCHES = {"treelet_scan": 0, "treelet_closest_hit": 0,
+            "treelet_scan_multi": 0}
 
 SOURCE = os.path.join(_build.PKG_DIR, "csrc", "treelet.cu")
 BUILD_TIMEOUT_S = 600.0
@@ -86,6 +91,9 @@ def _lib() -> ctypes.CDLL:
         lib.tpt_treelet_closest_hit.argtypes = (
             [p] * 7 + [i, i, i, i] + [p] * 3 + [p, i, p, i, p, i, i]
             + [p, i, p, p, i, i] + [p] * 9)
+        lib.tpt_treelet_scan_multi.restype = ctypes.c_int
+        lib.tpt_treelet_scan_multi.argtypes = ([p] * 7 + [i, i, i, i, p, i, p,
+                                                p, i, i] + [p] * 7)
         for name in ("tpt_treelet_max_slots", "tpt_treelet_threads"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = []
@@ -174,6 +182,42 @@ def treelet_scan(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
              _ptr(st), _ptr(sc), _ptr(so), _ptr(ovf), _ptr(cnt),
              _ptr(capped), _ptr(stats))
     return st, sc, so, ovf, cnt, capped
+
+
+def treelet_scan_multi(pack: PacketBVH, ori: Vec3, d: Vec3,
+                       t_max: torch.Tensor, slots: int = SLOTS,
+                       node_pops: int = NODE_POPS, group: int = 2,
+                       stats: Optional[torch.Tensor] = None):
+    """K11: (entry t [S, n] f32 ascending, ordinal [S, n] int32, NONE_ORD
+    where empty, thr [n] f32, capped) over super-packets of group * 1024
+    lanes: K3's contract through the top tree, with thr a lower bound on
+    every candidate the slots do not hold (3e38: the slots are
+    exhaustive). Dead lanes (t_max <= 0) get empty slots and thr 3e38.
+    `stats`, an int64 [2] CUDA tensor, collects (top node pops summed
+    over packets, slab tests)."""
+    S = _slots(slots, MAX_SLOTS)
+    if node_pops < 1:
+        raise ValueError(f"node_pops must be >= 1, got {node_pops}")
+    n = _check_rays(ori, d, t_max)
+    dev = t_max.device
+    _check_pack(pack, dev, wide=False)
+    L = _packet(group)
+    if dev.type == "cpu":
+        return treelet_scan_multi_plain(pack, ori, d, t_max, slots=S,
+                                        node_pops=node_pops, group=group)
+    _check_stats(stats, dev, 2)
+    s_t = torch.empty((S, n), dtype=torch.float32, device=dev)
+    s_o = torch.empty((S, n), dtype=torch.int32, device=dev)
+    thr = torch.empty(n, dtype=torch.float32, device=dev)
+    capped = torch.zeros((), dtype=torch.int32, device=dev)
+    if n:
+        inv = torch.empty((3, n), dtype=torch.float32, device=dev)
+        _run("treelet_scan_multi", dev, *_rays(ori, d, t_max), n, L, S,
+             node_pops, _ptr(pack.top_f32), pack.top_f32.shape[1],
+             _ptr(pack.top_child), _ptr(pack.top_tord), pack.num_top,
+             pack.arity, _ptr(inv), _ptr(s_t), _ptr(s_o), _ptr(thr),
+             _ptr(capped), _ptr(stats))
+    return s_t, s_o, thr, capped
 
 
 def _check_seed(seed, n: int, dev):
@@ -361,6 +405,78 @@ def treelet_scan_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
     i32 = torch.int32
     return (flat(s_t, torch.float32), flat(s_c, i32), flat(s_o, i32),
             flat(ovf, i32), flat(cnt, i32), _live_capped(inexact, tm))
+
+
+def treelet_scan_multi_plain(pack: PacketBVH, ori: Vec3, d: Vec3,
+                             t_max: torch.Tensor, slots: int = SLOTS,
+                             node_pops: int = NODE_POPS, group: int = 2):
+    """Plain K11 (any device): K9's walk keeping S slots and thr per
+    lane, one stack per packet, all packets at once."""
+    S = _slots(slots, MAX_SLOTS)
+    n = _check_rays(ori, d, t_max)
+    dev = t_max.device
+    _check_pack(pack, dev, wide=False)
+    L = _packet(group)
+    A = pack.arity
+    o, dd, tm, _ = _tiles(ori, d, t_max, L)
+    P = tm.shape[0]
+    inf = torch.tensor(_INF, device=dev)
+    bt = torch.minimum(tm, inf)
+    inv = tuple(safe_inv(c) for c in dd)
+    octant = _octant(dd)
+    top_child = pack.top_child.long()
+    tord = pack.top_tord.long()
+    s_t = [torch.full((P, L), _INF, device=dev) for _ in range(S)]
+    s_o = [torch.full((P, L), NONE_ORD, dtype=torch.int64, device=dev)
+           for _ in range(S)]
+    thr = torch.full((P, L), _INF, device=dev)
+    stack = torch.zeros((P, SCAN_STACK + 2), dtype=torch.int64, device=dev)
+    sp = (bt.amax(1) > 0).long()      # jnp.max: NaN anywhere -> no walk
+    inexact = torch.zeros(P, dtype=torch.bool, device=dev)
+    cap = 8 * pack.num_top + 1024
+    step = 0
+    while bool((sp > 0).any()):
+        if step >= cap:
+            inexact |= sp > 0
+            break
+        step += 1
+        for _ in range(node_pops):
+            code, sp = _pop(stack, sp)
+            vp = (code >= 0)[:, None]
+            nid = code.clamp(0, pack.num_top - 1)
+            row, crow, orow = pack.top_f32[nid], top_child[nid], tord[nid]
+            anyh = []
+            for s in range(A):
+                hit, tn = _slab(row[:, None, 6 * s:6 * s + 6], o, inv, bt,
+                                entry=True)
+                kept = tn <= s_t[S - 1]
+                internal = (crow[:, s] >= 0)[:, None]
+                cand = hit & (tn < bt) & vp & ~internal
+                # anything the slot window excludes lower-bounds thr
+                excl = (cand | (hit & vp & internal)) & ~kept
+                thr = torch.where(excl, torch.minimum(thr, tn), thr)
+                valid = cand & kept
+                cur_t = torch.where(valid, tn, inf)
+                cur_o = torch.where(valid, orow[:, s:s + 1], NONE_ORD)
+                for q in range(S):
+                    swap = _lex_lt(cur_t, cur_o, s_t[q], s_o[q])
+                    s_t[q], cur_t = (torch.where(swap, cur_t, s_t[q]),
+                                     torch.where(swap, s_t[q], cur_t))
+                    s_o[q], cur_o = (torch.where(swap, cur_o, s_o[q]),
+                                     torch.where(swap, s_o[q], cur_o))
+                # the displaced slot (or the uninserted candidate)
+                thr = torch.where(cur_o != NONE_ORD, torch.minimum(thr, cur_t),
+                                  thr)
+                anyh.append((hit & kept & internal & vp).any(1))
+            ordw = crow.gather(1, 8 + octant[:, None]).squeeze(1)
+            csel, hsel = _ordered(crow[:, :A], torch.stack(anyh, 1), ordw, A)
+            sp, dropped = _push(stack, sp, csel, hsel & (csel >= 0),
+                                SCAN_STACK)
+            inexact |= dropped
+    flat = lambda a: a.reshape(-1)[:n]
+    return (torch.stack([flat(a) for a in s_t]).contiguous(),
+            torch.stack([flat(a) for a in s_o]).to(torch.int32).contiguous(),
+            flat(thr).contiguous(), _live_capped(inexact, tm))
 
 
 class _Lanes:

@@ -1,10 +1,12 @@
-// Dense treelet scan and demand sweep for NVIDIA Hopper (sm_90a), with a
+// Dense treelet scan and demand sweeps for NVIDIA Hopper (sm_90a), with a
 // plain C interface for ctypes (tpt_torch/bvh/sweep.py binds them).
 //
 // Replaces the Pallas TPU kernels of tpt/bvh/pallas_sweep.py:
 //   K3 tpt_dense_scan         <- dense_scan         (:337, :371)
-//   K4 tpt_sweep8_closest_hit <- sweep8_closest_hit (:623, :696), demand
-//                                mode, closest hit, no group culling
+//   K4 tpt_sweep8_closest_hit <- sweep8_closest_hit (:623, :696): demand
+//                                closest hit, any-hit and group modes
+//   K7 tpt_sweep_closest_hit  <- sweep_closest_hit  (:168, :216): demand
+//                                or not, closest hit or any-hit
 //
 // K3, dense_scan_kernel. One thread per ray slab-tests every treelet box
 // (SweepTables.boxes [T, 8]) and keeps its S nearest candidates in
@@ -18,25 +20,37 @@
 // as jnp.minimum does: CUDA's fminf/fmaxf drop a NaN, which would give a
 // ray with a NaN origin candidates that tpt never gives it.
 //
-// K4, sweep8_kernel. One block of 128 threads per 128 consecutive pool
-// lanes, one thread per lane, as the Pallas kernel's [1, 128] block: a
-// lane is tested against every treelet of its block's demand union, not
-// only its own, and the raw result depends on the block (the pipeline's
-// tail makes the final hits exact either way). The block walks the
-// union in ascending ordinal: cur = the smallest ordinal > cur that some
-// lane still demands (a slot k is demanded while entry_t[k] < the lane's
-// best t), found by a warp shuffle reduction and a 4-warp step in shared
-// memory, so cur is uniform and __syncthreads is safe. Each treelet's
-// rows are staged in shared memory (9 of the 16 columns, tiles of
-// SWEEP_TILE_ROWS rows) and every thread runs Moller-Trumbore over them
-// in ascending row order, taking a hit only if t < best. Since
-// sweep_tables lays treelets out by ascending ordinal, this serial first
-// minimum is the smallest packed row among equal t, which is what the
-// Pallas kernel's per-sublane reduction (:600-616) picks, so the two
-// agree bit for bit. Bound: operations (rows x 128 lanes triangle tests
-// per treelet of the union; the tables sit in the 50 MB L2).
+// K4 and K7, sweep_kernel. One block per LANES consecutive pool lanes,
+// one thread per lane: 128 for K4 (the Pallas kernel's [1, 128] block),
+// 1024 for K7 (its [8, 128] block). A lane is tested against every
+// treelet of its block's demand union, not only its own, so the raw
+// result depends on the block, and K7's union is larger than K4's (the
+// pipeline's tail makes the final hits exact either way). The block
+// walks the union in ascending ordinal: cur = the smallest ordinal > cur
+// that some lane still demands (slot k is demanded while entry_t[k] is
+// below the lane's budget, its best t; without entry planes every
+// requested slot is), found by a warp shuffle reduction and a step over
+// the warps in shared memory, so cur is uniform and __syncthreads is
+// safe. Each treelet's rows are staged in shared memory (9 of the 16
+// columns, tiles of SWEEP_TILE_ROWS rows) and every thread runs
+// Moller-Trumbore over them in ascending row order, taking a hit only if
+// t < best. Since sweep_tables lays treelets out by ascending ordinal,
+// this serial first minimum is the smallest packed row among equal t:
+// K7's serial scan (:118-131) and K4's per-sublane reduction (:600-616)
+// pick the same, so kernel and Pallas kernel agree bit for bit.
+//   Any-hit mode: after each treelet a lane with a hit before
+// t_max - 1e-3 sets its budget to -3.4e38, so it demands nothing more;
+// it keeps testing the rows its block still sweeps, as tpt's lane does.
+//   Group mode (K4): before each treelet every lane, dead and padded
+// lanes too, slab-tests the treelet's 8 group boxes at its best t; the
+// block sweeps only the rows from the first to the last group some lane
+// enters, clamped to the treelet's rows (:542-583). The rows it skips
+// can hold no hit below any lane's best, so the raw result is the
+// ungrouped one.
+// Bound: operations (rows x lanes triangle tests per treelet of the
+// union; the tables sit in the 50 MB L2).
 //
-// Both are simple kernels that are right; making them fast (warp-level
+// All are simple kernels that are right; making them fast (warp-level
 // candidate compaction, splitting large unions across blocks) is later
 // work. Dead lanes (t_max <= 0) skip the arithmetic but take part in the
 // block's barriers.
@@ -50,8 +64,8 @@
 #define SCAN_BLOCK 128
 #define SCAN_TILE 1024        // boxes per shared tile: 1024 x 6 x 4 B = 24 KB
 #define SCAN_INF 3.0e38f      // pallas_sweep.py _INF
-#define SWEEP_LANES 128
-#define SWEEP_WARPS (SWEEP_LANES / 32)
+#define SWEEP8_LANES 128     // K4's block: tpt's [1, 128] tile
+#define SWEEP_LANES 1024     // K7's block: tpt's [8, 128] tile
 #define SWEEP_TILE_ROWS 256   // rows per shared tile: 256 x 9 x 4 B = 9 KB
 #define MISS_T 3.4e38f        // FLT_MAX of tpt/integrators/intersect.py
 #define MAX_SLOTS 8
@@ -139,7 +153,9 @@ __global__ void __launch_bounds__(SCAN_BLOCK) dense_scan_kernel(
   thr_out[i] = thr;
 }
 
-// block-wide min of v; cur is the same for every thread of the block
+// block-wide min of v over LANES threads; the result is the same for
+// every thread of the block
+template <int LANES>
 __device__ __forceinline__ int block_min(int v, int* swarp) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -149,33 +165,49 @@ __device__ __forceinline__ int block_min(int v, int* swarp) {
   __syncthreads();
   int m = swarp[0];
 #pragma unroll
-  for (int w = 1; w < SWEEP_WARPS; ++w) m = min(m, swarp[w]);
+  for (int w = 1; w < LANES / 32; ++w) m = min(m, swarp[w]);
   return m;
 }
 
-template <int S>
-__global__ void __launch_bounds__(SWEEP_LANES) sweep8_kernel(
+// the ray of a lane past n: tpt pads its tiles with zero origins and
+// directions and t_max 0 (pallas_sweep.py:_tile), and such a lane still
+// takes part in K4's group test
+__device__ __forceinline__ Ray pad_ray() {
+  Ray r{};
+  r.ix = r.iy = r.iz = safe_inv(0.0f);
+  r.oct = 7;
+  return r;
+}
+
+// K4 and K7: the demand sweep over blocks of LANES consecutive lanes.
+// `entry` null sweeps every requested ordinal (no demand drop);
+// `any_hit` drops a lane's remaining demand once it holds a hit before
+// t_max - 1e-3; `gbox` non-null trims each treelet's rows to the window
+// of its 8 group boxes that some lane of the block enters (K4's group
+// mode; `chunk_align` chunks a group).
+template <int S, int LANES>
+__global__ void __launch_bounds__(LANES) sweep_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ tmax, int n, const int* __restrict__ ord,
     const float* __restrict__ entry, const int* __restrict__ ranges,
-    const float* __restrict__ tri, int rows_per_chunk,
+    const float* __restrict__ tri, int rows_per_chunk, int any_hit,
+    const float* __restrict__ gbox, int chunk_align,
     float* __restrict__ t_out, int* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     unsigned long long* __restrict__ stats) {
   __shared__ float srow[SWEEP_TILE_ROWS * 9];
-  __shared__ int swarp[SWEEP_WARPS];
-  const int i = blockIdx.x * SWEEP_LANES + threadIdx.x;
+  __shared__ int swarp[LANES / 32];
+  const int i = blockIdx.x * LANES + threadIdx.x;
   const bool in = i < n;
-  Ray r{};
+  Ray r = in ? load_ray(ox, oy, oz, dx, dy, dz, i) : pad_ray();
   float tm = 0.0f;
   int o[S];
   float e[S];
 #pragma unroll
   for (int k = 0; k < S; ++k) { o[k] = NONE_ORD; e[k] = SCAN_INF; }
   if (in) {
-    r = load_ray(ox, oy, oz, dx, dy, dz, i);
     const float raw = tmax[i];
     // dead lanes (t_max <= 0 or NaN) demand nothing (pallas_sweep.py:673)
     const bool alive = raw > 0.0f;
@@ -183,11 +215,12 @@ __global__ void __launch_bounds__(SWEEP_LANES) sweep8_kernel(
 #pragma unroll
     for (int k = 0; k < S; ++k) {
       o[k] = alive ? ord[(size_t)k * n + i] : NONE_ORD;
-      e[k] = entry[(size_t)k * n + i];
+      if (entry) e[k] = entry[(size_t)k * n + i];
     }
   }
   float bt = fminf(tm, MISS_T);  // tm is >= 0, never NaN
   const bool live = bt > 0.0f;
+  float budget = bt;             // what the demand test holds entries to
   int brow = -1;
   float bu = 0.0f, bv = 0.0f;
   unsigned long long sweeps = 0, rows_swept = 0;
@@ -196,17 +229,47 @@ __global__ void __launch_bounds__(SWEEP_LANES) sweep8_kernel(
     int mine = NONE_ORD;
 #pragma unroll
     for (int k = 0; k < S; ++k)
-      if (o[k] > cur && e[k] < bt) mine = min(mine, o[k]);
-    cur = block_min(mine, swarp);
+      if (o[k] > cur && (!entry || e[k] < budget)) mine = min(mine, o[k]);
+    cur = block_min<LANES>(mine, swarp);
     if (cur >= NONE_ORD) break;
     const int start = ranges[2 * cur];
-    const int nrows = ranges[2 * cur + 1] * rows_per_chunk;
+    const int nchunks = ranges[2 * cur + 1];
+    int r0 = 0, r1 = nchunks * rows_per_chunk;
+    if (gbox) {
+      // slab-test the treelet's 8 group boxes against this lane at its
+      // best t (pallas_sweep.py:550-581); every lane takes part
+      int first = 8, last = -1;
+      const float* gb = gbox + (size_t)cur * 64;
+      for (int g = 0; g < 8; ++g) {
+        const float* b = gb + 8 * g;
+        float t0x = (__ldg(b + 0) - r.ox) * r.ix;
+        float t0y = (__ldg(b + 1) - r.oy) * r.iy;
+        float t0z = (__ldg(b + 2) - r.oz) * r.iz;
+        float t1x = (__ldg(b + 3) - r.ox) * r.ix;
+        float t1y = (__ldg(b + 4) - r.oy) * r.iy;
+        float t1z = (__ldg(b + 5) - r.oz) * r.iz;
+        float tn = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)),
+                        nmax(nmin(t0z, t1z), 0.0f));
+        float tf = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)),
+                        nmin(nmax(t0z, t1z), bt));
+        if (tn <= tf) {
+          first = min(first, g);
+          last = g;
+        }
+      }
+      first = block_min<LANES>(first, swarp);
+      last = -block_min<LANES>(-last, swarp);
+      // rows of groups first..last, clamped to the treelet's own; none
+      // entered (first 8, last -1) leaves r0 > r1: nothing to sweep
+      r0 = first * chunk_align * rows_per_chunk;
+      r1 = min((last + 1) * chunk_align, nchunks) * rows_per_chunk;
+    }
     ++sweeps;
-    rows_swept += nrows;
-    for (int base = 0; base < nrows; base += SWEEP_TILE_ROWS) {
-      const int cnt = min(SWEEP_TILE_ROWS, nrows - base);
+    if (r1 > r0) rows_swept += r1 - r0;
+    for (int base = r0; base < r1; base += SWEEP_TILE_ROWS) {
+      const int cnt = min(SWEEP_TILE_ROWS, r1 - base);
       __syncthreads();  // the previous tile's readers are done
-      for (int k = threadIdx.x; k < cnt * 9; k += SWEEP_LANES)
+      for (int k = threadIdx.x; k < cnt * 9; k += LANES)
         srow[k] = tri[(size_t)(start + base + k / 9) * 16 + k % 9];
       __syncthreads();
       if (!live) continue;
@@ -223,6 +286,10 @@ __global__ void __launch_bounds__(SWEEP_LANES) sweep8_kernel(
         }
       }
     }
+    // an occluded lane (a hit before t_max - 1e-3) demands nothing more
+    // but keeps testing the rows its block sweeps (pallas_sweep.py:136-141,
+    // :587-594)
+    budget = (any_hit && bt < tm - 1e-3f) ? -MISS_T : bt;
   }
   if (stats) {
     int nlive = __syncthreads_count(live);
@@ -252,18 +319,42 @@ int launch_scan(const float* ox, const float* oy, const float* oz,
   return (int)cudaGetLastError();
 }
 
-template <int S>
-int launch_sweep(const float* ox, const float* oy, const float* oz,
-                 const float* dx, const float* dy, const float* dz,
-                 const float* tmax, int n, const int* ord, const float* entry,
-                 const int* ranges, const float* tri, int rows_per_chunk,
-                 float* t, int* tri_id, float* u, float* v,
-                 unsigned long long* stats, cudaStream_t stream) {
-  sweep8_kernel<S><<<(n + SWEEP_LANES - 1) / SWEEP_LANES, SWEEP_LANES, 0,
-                     stream>>>(ox, oy, oz, dx, dy, dz, tmax, n, ord, entry,
-                               ranges, tri, rows_per_chunk, t, tri_id, u, v,
-                               stats);
+struct SweepArgs {
+  const float *ox, *oy, *oz, *dx, *dy, *dz, *tmax;
+  int n;
+  const int* ord;
+  const float* entry;
+  const int* ranges;
+  const float* tri;
+  int rows_per_chunk, any_hit;
+  const float* gbox;
+  int chunk_align;
+  float* t;
+  int* tri_id;
+  float *u, *v;
+  unsigned long long* stats;
+};
+
+template <int S, int LANES>
+int launch_sweep(const SweepArgs& a, cudaStream_t stream) {
+  sweep_kernel<S, LANES><<<(a.n + LANES - 1) / LANES, LANES, 0, stream>>>(
+      a.ox, a.oy, a.oz, a.dx, a.dy, a.dz, a.tmax, a.n, a.ord, a.entry,
+      a.ranges, a.tri, a.rows_per_chunk, a.any_hit, a.gbox, a.chunk_align,
+      a.t, a.tri_id, a.u, a.v, a.stats);
   return (int)cudaGetLastError();
+}
+
+template <int LANES>
+int sweep_slots(int S, const SweepArgs& a, cudaStream_t s) {
+#define SWEEP_CASE(K) \
+  case K:             \
+    return launch_sweep<K, LANES>(a, s);
+  switch (S) {
+    SWEEP_CASE(1) SWEEP_CASE(2) SWEEP_CASE(3) SWEEP_CASE(4)
+    SWEEP_CASE(5) SWEEP_CASE(6) SWEEP_CASE(7) SWEEP_CASE(8)
+  }
+#undef SWEEP_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -295,28 +386,38 @@ int tpt_dense_scan(const float* ox, const float* oy, const float* oz,
   return (int)cudaErrorInvalidValue;
 }
 
-// `stats`, if not null, accumulates (treelet sweeps summed over blocks,
-// triangle tests of live lanes, live lanes).
+// K4 (128-lane blocks) and K7 (1024-lane blocks). `entry` null: every
+// requested ordinal is swept; `any_hit` nonzero: the any-hit
+// demand drop; `gbox` non-null (K4 only): group-window culling with
+// `chunk_align` chunks a group. `stats`, if not null, accumulates
+// (treelet sweeps summed over blocks, triangle tests of live lanes, live
+// lanes).
 int tpt_sweep8_closest_hit(const float* ox, const float* oy, const float* oz,
                            const float* dx, const float* dy, const float* dz,
                            const float* tmax, int n, int S, const int* ord,
                            const float* entry, const int* ranges,
-                           const float* tri, int rows_per_chunk, float* t,
+                           const float* tri, int rows_per_chunk, int any_hit,
+                           const float* gbox, int chunk_align, float* t,
                            int* tri_id, float* u, float* v,
                            unsigned long long* stats, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-#define SWEEP_CASE(K)                                                      \
-  case K:                                                                  \
-    return launch_sweep<K>(ox, oy, oz, dx, dy, dz, tmax, n, ord, entry,    \
-                           ranges, tri, rows_per_chunk, t, tri_id, u, v,   \
-                           stats, s);
-  switch (S) {
-    SWEEP_CASE(1) SWEEP_CASE(2) SWEEP_CASE(3) SWEEP_CASE(4)
-    SWEEP_CASE(5) SWEEP_CASE(6) SWEEP_CASE(7) SWEEP_CASE(8)
-  }
-#undef SWEEP_CASE
-  return (int)cudaErrorInvalidValue;
+  SweepArgs a{ox, oy, oz, dx, dy, dz, tmax, n, ord, entry, ranges, tri,
+              rows_per_chunk, any_hit, gbox, chunk_align, t, tri_id, u, v,
+              stats};
+  return sweep_slots<SWEEP8_LANES>(S, a, (cudaStream_t)stream);
+}
+
+int tpt_sweep_closest_hit(const float* ox, const float* oy, const float* oz,
+                          const float* dx, const float* dy, const float* dz,
+                          const float* tmax, int n, int S, const int* ord,
+                          const float* entry, const int* ranges,
+                          const float* tri, int rows_per_chunk, int any_hit,
+                          float* t, int* tri_id, float* u, float* v,
+                          unsigned long long* stats, void* stream) {
+  if (n <= 0) return 0;
+  SweepArgs a{ox, oy, oz, dx, dy, dz, tmax, n, ord, entry, ranges, tri,
+              rows_per_chunk, any_hit, nullptr, 0, t, tri_id, u, v, stats};
+  return sweep_slots<SWEEP_LANES>(S, a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

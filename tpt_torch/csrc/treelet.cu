@@ -5,6 +5,7 @@
 // Replaces the Pallas TPU kernels of tpt/bvh/pallas_treelet.py:
 //   K9  tpt_treelet_scan        <- treelet_scan        (:522, :544)
 //   K10 tpt_treelet_closest_hit <- treelet_closest_hit (:570, :614)
+//   K11 tpt_treelet_scan_multi  <- treelet_scan_multi  (:769, :792)
 //
 // Tables: the wide pack's node_f32 [Nt, W], node_child [Nt, 16] and
 // tri_f32 [Tp, 16] (packet_wide.cu describes them), and the treelet top
@@ -14,16 +15,17 @@
 // order words), top_tref [Ntop, 8] the treelet root codes (a wide node id
 // >= 0, or a cluster code < -1) and top_tord [Ntop, 8] their ordinals.
 //
-// Design. Both TPU kernels walk one stack per super-packet of consecutive
+// Design. The three TPU kernels walk one stack per super-packet of consecutive
 // lanes (2048 on bounces, 4096 for camera rays), and what they return
 // depends on the packet: a node is pushed when ANY lane of the packet hits
 // it and keeps it, every lane then tests every child of every popped node
 // (K9's overflow flag and candidate count, which decides the hybrid
-// easy/hard split, count those), and the packet's child order comes from
+// easy/hard split, count those, and K11's thr is lowered by every one
+// its slot window excludes), and the packet's child order comes from
 // the octant of its first ray. K10's packet also decides, round by round,
 // which treelet the whole packet drains next, so which triangle a lane
 // finds among equal t depends on its packet too. To give tpt's results
-// tie for tie, both kernels keep tpt's packets: one block of THREADS
+// tie for tie, the kernels keep tpt's packets: one block of THREADS
 // threads per packet, each thread owning packet / THREADS lanes (lanes
 // base + k * THREADS + threadIdx.x), the stacks in shared memory, the
 // "any lane" tests block-wide ORs of per-child bit masks (a warp
@@ -33,6 +35,10 @@
 // Every control decision is computed by every thread from the same
 // shared values, so the control flow is uniform and __syncthreads is
 // safe; only thread 0 writes the stacks.
+//
+// K11 is K9's walk that keeps S candidate slots and thr per lane, as K3
+// does over every treelet box; its slots equal K3's, and its thr, which
+// also counts pruned subtrees, lies at or below K3's.
 //
 // K10 runs tpt's round machine per packet: SCAN rounds walk the top tree
 // and fill each lane's S candidate slots past its (thr_t, thr_c)
@@ -73,6 +79,7 @@
 
 #define THREADS 256
 #define NONE_CODE 0x7FFFFFFF
+#define NONE_ORD 0x7FFFFF     // K11's empty slot (pallas_treelet.py NONE_ORD)
 #define CODE_MIN (-0x7FFFFFFF - 1)
 #define BIG 3.0e38f           // pallas_treelet.py _INF
 #define MISS_T 3.4e38f        // FLT_MAX of tpt/integrators/intersect.py
@@ -796,6 +803,184 @@ int launch_closest(Rays r, int packet, int nt, int max_rounds,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K11: the S nearest treelet candidates per lane and thr
+// (pallas_treelet.py:647-766)
+// ---------------------------------------------------------------------------
+
+// K9's walk with K3's output: each lane keeps S (entry t, ordinal) slots
+// in ascending lexicographic order, and thr, a lower bound on the entry t
+// of every candidate the slots do not hold: it is lowered by each
+// candidate or kept internal child the window (t <= the S-th slot's t)
+// excludes, and by each entry an insert displaces. The lane's state lives
+// in the output planes st/so [S, n] and thr [n], read and written per
+// popped node.
+template <int S>
+__global__ void __launch_bounds__(THREADS) scan_multi_kernel(
+    Rays r, int packet, Top top, int arity, int node_pops,
+    float* __restrict__ inv, float* __restrict__ st, int* __restrict__ so,
+    float* __restrict__ thr, int* __restrict__ capped,
+    unsigned long long* __restrict__ stats) {
+  __shared__ int stack[SCAN_STACK + 2];
+  __shared__ unsigned any_buf[2];
+  __shared__ int s_live;
+  const int n = r.n;
+  const int base = blockIdx.x * packet;
+  const int lpt = packet / THREADS;
+  const int A = arity;
+  bool any_pos = false, any_nan = false;
+  int nlive = 0;
+  for (int k = 0; k < lpt; ++k) {
+    const int i = base + k * THREADS + threadIdx.x;
+    if (i >= n) continue;
+    const float bt = nmin(r.tmax[i], BIG);
+    any_pos |= bt > 0.0f;
+    any_nan |= bt != bt;
+    nlive += r.tmax[i] > 0.0f;
+    inv[i] = safe_inv(r.dx[i]);
+    inv[(size_t)n + i] = safe_inv(r.dy[i]);
+    inv[2 * (size_t)n + i] = safe_inv(r.dz[i]);
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      st[(size_t)q * n + i] = BIG;
+      so[(size_t)q * n + i] = NONE_ORD;
+    }
+    thr[i] = BIG;
+  }
+  if (threadIdx.x == 0) {
+    stack[0] = 0;
+    any_buf[0] = any_buf[1] = 0u;
+    s_live = 0;
+  }
+  __syncthreads();
+  if (nlive) atomicAdd(&s_live, nlive);
+  // jnp.max(bt) > 0: false when any lane's bt is NaN
+  const bool b_pos = __syncthreads_or(any_pos);
+  const bool b_nan = __syncthreads_or(any_nan);
+  const int oct = packet_octant(r, base);
+  int sp = (b_pos && !b_nan) ? 1 : 0;
+  int step = 0, par = 0;
+  bool exact = true;
+  unsigned long long pops = 0, slabs = 0;
+  const int cap = 8 * top.num + 1024;
+  while (sp > 0 && step < cap) {
+    for (int p = 0; p < node_pops; ++p) {
+      __syncthreads();  // the pushes and the buffer reset are visible
+      if (threadIdx.x == 0) any_buf[par ^ 1] = 0u;
+      const int code = sp > 0 ? stack[sp - 1] : -1;
+      if (sp > 0) --sp;
+      unsigned bits = 0;
+      const float* row = top.f32 + (size_t)max(code, 0) * top.width;
+      const int* crow = top.child + (size_t)max(code, 0) * 16;
+      if (code >= 0) {
+        ++pops;
+        const int* orow = top.tord + (size_t)code * 8;
+        for (int k = 0; k < lpt; ++k) {
+          const int i = base + k * THREADS + threadIdx.x;
+          if (i >= n) continue;
+          const float bt = nmin(r.tmax[i], BIG);
+          if (!(bt >= 0.0f)) continue;  // no box can pass: tn >= 0 > limit
+          const float ox = r.ox[i], oy = r.oy[i], oz = r.oz[i];
+          const float ix = inv[i], iy = inv[(size_t)n + i],
+                      iz = inv[2 * (size_t)n + i];
+          float s_t[S];
+          int s_o[S];
+#pragma unroll
+          for (int q = 0; q < S; ++q) {
+            s_t[q] = st[(size_t)q * n + i];
+            s_o[q] = so[(size_t)q * n + i];
+          }
+          float th = thr[i];
+          bool dirty = false;
+          for (int s = 0; s < A; ++s) {
+            float tn;
+            const bool hit =
+                slab_tn(row + 6 * s, ox, oy, oz, ix, iy, iz, bt, tn);
+            ++slabs;
+            if (!hit) continue;
+            const bool kept = tn <= s_t[S - 1];
+            if (__ldg(crow + s) >= 0) {  // an internal top child
+              if (kept) {
+                bits |= 1u << s;
+              } else {
+                th = nmin(th, tn);
+                dirty = true;
+              }
+              continue;
+            }
+            if (!(tn < bt)) continue;
+            dirty = true;
+            if (!kept) {  // outside the slot window
+              th = nmin(th, tn);
+              continue;
+            }
+            // insert (tn, ordinal) in lex order; the displaced entry falls
+            // to thr
+            float ct = tn;
+            int co = __ldg(orow + s);
+#pragma unroll
+            for (int q = 0; q < S; ++q) {
+              const bool swap = lex_lt(ct, co, s_t[q], s_o[q]);
+              const float tt = swap ? s_t[q] : ct;
+              const int oo = swap ? s_o[q] : co;
+              s_t[q] = swap ? ct : s_t[q];
+              s_o[q] = swap ? co : s_o[q];
+              ct = tt;
+              co = oo;
+            }
+            if (co != NONE_ORD) th = nmin(th, ct);
+          }
+          if (dirty) {
+#pragma unroll
+            for (int q = 0; q < S; ++q) {
+              st[(size_t)q * n + i] = s_t[q];
+              so[(size_t)q * n + i] = s_o[q];
+            }
+            thr[i] = th;
+          }
+        }
+      }
+      or_bits(&any_buf[par], bits);
+      __syncthreads();
+      const unsigned any = any_buf[par];
+      par ^= 1;
+      if (code >= 0) {
+        // push the kept top children far to near in the packet's order
+        const unsigned ordw = (unsigned)__ldg(crow + 8 + oct);
+        for (int pos = A - 1; pos >= 0; --pos) {
+          const int slot = (ordw >> (4 * pos)) & 15;
+          if (slot >= A || !((any >> slot) & 1u)) continue;
+          const int csel = __ldg(crow + slot);
+          if (csel < 0) continue;
+          if (sp < SCAN_STACK) {
+            if (threadIdx.x == 0) stack[sp] = csel;
+            ++sp;
+          } else {
+            exact = false;
+          }
+        }
+      }
+    }
+    ++step;
+  }
+  if (sp > 0) exact = false;
+  if (threadIdx.x == 0) {
+    if (!exact && s_live) atomicAdd(capped, s_live);
+    if (stats) atomicAdd(stats + 0, pops);
+  }
+  if (stats && slabs) atomicAdd(stats + 1, slabs);
+}
+
+template <int S>
+int launch_scan_multi(Rays r, int packet, int nt, Top top, int arity,
+                      int node_pops, float* inv, float* st, int* so,
+                      float* thr, int* capped, unsigned long long* stats,
+                      cudaStream_t stream) {
+  scan_multi_kernel<S><<<nt, THREADS, 0, stream>>>(
+      r, packet, top, arity, node_pops, inv, st, so, thr, capped, stats);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -865,6 +1050,38 @@ int tpt_treelet_closest_hit(
     CLOSEST_CASE(5) CLOSEST_CASE(6) CLOSEST_CASE(7) CLOSEST_CASE(8)
   }
 #undef CLOSEST_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// K11. `st`, `so` are f32/int32 [S, n], `thr` f32 [n]; the other
+// arguments as for tpt_treelet_scan, with `node_pops` pops a step (the
+// step cap counts steps). Returns cudaErrorInvalidValue also for S
+// outside 1..MAX_SLOTS.
+int tpt_treelet_scan_multi(const float* ox, const float* oy, const float* oz,
+                           const float* dx, const float* dy, const float* dz,
+                           const float* tmax, int n, int packet, int slots,
+                           int node_pops, const float* top_f32, int top_width,
+                           const int* top_child, const int* top_tord,
+                           int num_top, int arity, float* inv, float* st,
+                           int* so, float* thr, int* capped,
+                           unsigned long long* stats, void* stream) {
+  if (packet <= 0 || packet % THREADS || arity < 2 || arity > MAX_ARITY ||
+      node_pops < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  Rays r{ox, oy, oz, dx, dy, dz, tmax, n};
+  Top top{top_f32, top_width, top_child, nullptr, top_tord, num_top};
+  const int nt = (n + packet - 1) / packet;
+  cudaStream_t s = (cudaStream_t)stream;
+#define MULTI_CASE(K)                                                      \
+  case K:                                                                  \
+    return launch_scan_multi<K>(r, packet, nt, top, arity, node_pops, inv, \
+                                st, so, thr, capped, stats, s);
+  switch (slots) {
+    MULTI_CASE(1) MULTI_CASE(2) MULTI_CASE(3) MULTI_CASE(4)
+    MULTI_CASE(5) MULTI_CASE(6) MULTI_CASE(7) MULTI_CASE(8)
+  }
+#undef MULTI_CASE
   return (int)cudaErrorInvalidValue;
 }
 

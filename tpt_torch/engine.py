@@ -13,7 +13,7 @@ pixel to `acc_mega` and shows its mean, as tpt's engine does (which
 neither denoises nor selects a display channel in that mode). Not ported
 yet, each raising NotImplementedError: DisplayMode.BVH_HEATMAP, which
 needs BVH_XLA's traversal_cost (ROADMAP queue 1 item 6), and the options
-`wavefront._unsupported` and `megakernel._unsupported` refuse (item 6).
+`wavefront._unsupported` refuses (item 6), in either mode.
 """
 
 from __future__ import annotations
@@ -59,8 +59,7 @@ class Renderer:
 
     def __init__(self, scene: SceneData, cam: Camera, cfg: RenderConfig):
         self.mega = cfg.mode == RenderMode.MEGAKERNEL
-        reason = (megakernel._unsupported(cfg) if self.mega
-                  else wavefront._unsupported(cfg))
+        reason = wavefront._unsupported(cfg)
         if reason:
             raise NotImplementedError(f"{reason} is not ported yet (ROADMAP "
                                       "queue 1 item 6)")

@@ -30,14 +30,19 @@ class Raycaster:
     capped: torch.Tensor
 
 
-def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
+def make_raycaster(scene: SceneData, cfg: RenderConfig,
+                   primary_rays: bool = False) -> Raycaster:
     """The backend `cfg.backend` names. The TPU packet-kernel knobs
     (trav_group, pops) keep their defaults: the per-thread K1/K2 and
-    K8a/K8b have no packets, and the treelet kernels K9/K10 walk tpt's default packets;
-    wavefront refuses other values. A BVH_SWEEP raycaster serves both the
-    camera rays (K2) and the bin-sorted bounce pools (sweep pipeline),
-    told apart by `sweep_slots`; a BVH_TREELET raycaster serves the camera
-    rays (`primary=True`) and the seeded bounce pools."""
+    K8a/K8b have no packets, and the treelet kernels K9/K10 walk tpt's
+    default packets; wavefront refuses other values. As tpt's, the
+    `primary_rays` raycaster casts camera rays and the other one every
+    later cast; here one Raycaster holds both, its closest_hit taking
+    `primary` (default `primary_rays`), so that both count into one
+    `capped`. Under BVH_SWEEP a primary cast is K2 (unless
+    cfg.sweep_primary) and any other cast without `sweep_slots` is the
+    unsorted sweep_cast; under BVH_TREELET `primary` picks the camera
+    rays' packets."""
     dev = scene.device
     capped = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.backend == RayCastBackend.BRUTE_FORCE:
@@ -93,7 +98,8 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
         knobs = dict(slots=cfg.treelet_slots,
                      max_rounds=cfg.treelet_max_rounds)
 
-        def closest(o, d, t_max=None, seed=None, hard=None, primary=False):
+        def closest(o, d, t_max=None, seed=None, hard=None,
+                    primary=primary_rays):
             """K10 over super-packets of trav_group_primary * 1024 lanes
             for the camera rays (`primary`), trav_group * 1024 for bounce
             pools, started from the wavefront's K9 `seed` when given.
@@ -131,7 +137,7 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
     if cfg.backend == RayCastBackend.BVH_SWEEP:
         from ..bvh.packet_traverse import (packet_any_hit_wide,
                                            packet_closest_hit_wide)
-        from ..bvh.sweepcast import sweep_cast_sorted
+        from ..bvh.sweepcast import sweep_any_hit, sweep_cast, sweep_cast_sorted
         from .intersect import FLT_MAX
 
         pack, sweep = scene.pack, scene.sweep
@@ -142,26 +148,39 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
             raise ValueError("BVH_SWEEP needs sweep tables "
                              "(HostScene.build(with_bvh=True) attaches them "
                              "to wide packs)")
+        knobs = dict(kernel=cfg.sweep_kernel, unroll=cfg.sweep_unroll,
+                     groups=cfg.sweep_groups)
 
-        def closest(o, d, t_max=None, sweep_slots=None):
-            """With sweep_slots = (s_o, s_t, thr) of a bin-sorted pool
-            (the wavefront's bounces after the first): the sweep pipeline.
-            Without: K2, as tpt's primary raycaster casts raster-order
-            camera rays (cfg.sweep_primary off)."""
+        def closest(o, d, t_max=None, sweep_slots=None, cascade=False,
+                    primary=primary_rays):
+            """With sweep_slots = (s_o, s_t, thr) of a pool sorted by the
+            bin key (the wavefront's bounces after the first) or of the
+            raster-order camera rays (cfg.sweep_primary): the sweep
+            pipeline, with `cascade` the two-phase cascade. Without: K2
+            for camera rays (`primary`, cfg.sweep_primary off), else the
+            unsorted sweep_cast (tpt/integrators/common.py:117-149)."""
             if t_max is None:
                 t_max = torch.full((o.shape[0],), FLT_MAX, device=o.device)
-            if sweep_slots is None:
+            if sweep_slots is not None:
+                s_o, s_t, thr = sweep_slots
+                hit, c = sweep_cast_sorted(pack, sweep, o, d, t_max, s_o, s_t,
+                                           thr, cascade=cascade, **knobs)
+            elif primary and not cfg.sweep_primary:
                 hit, c = packet_closest_hit_wide(pack, o, d, t_max)
             else:
-                s_o, s_t, thr = sweep_slots
-                hit, c = sweep_cast_sorted(pack, sweep, o, d, t_max, s_o,
-                                           s_t, thr, unroll=cfg.sweep_unroll)
+                hit, c = sweep_cast(pack, sweep, o, d, t_max,
+                                    slots=cfg.sweep_slots,
+                                    key_slots=cfg.sweep_key_slots, **knobs)
             capped.add_(c)
             return hit
 
         def any_hit(o, d, t_max):
-            # shadow rays stay on K1 (cfg.sweep_shadow off)
-            occ, c = packet_any_hit_wide(pack, o, d, t_max)
+            # cfg.sweep_shadow: the sweep's any-hit pipeline, else K1
+            if cfg.sweep_shadow:
+                occ, c = sweep_any_hit(pack, sweep, o, d, t_max,
+                                       slots=cfg.sweep_slots, **knobs)
+            else:
+                occ, c = packet_any_hit_wide(pack, o, d, t_max)
             capped.add_(c)
             return occ
 

@@ -6,7 +6,10 @@ radiance (tests).
 
 Unlike the wavefront, the pool is never sorted: every bounce casts the
 whole frame's lanes in pixel order, dead lanes with t_max = -1. On a
-binary pack the casts run K8a/K8b, on a wide one K2/K1.
+binary pack the casts run K8a/K8b, on a wide one K2/K1; under BVH_SWEEP
+every cast goes through the raycaster that is not tpt's primary one, so
+each closest hit is the unsorted sweep_cast (scan, bin sort, sweep,
+tail, unsort), as tpt's megakernel casts.
 
 tpt casts every lane's NEE shadow ray with t_max = the distance to its
 light sample (megakernel.py:160) and reads the result only on the lanes
@@ -30,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import RayCastBackend, RenderConfig
+from ..config import RenderConfig
 from ..core import rng
 from ..core.camera import Camera, generate_camera_rays
 from ..core.mathutil import EPSILON, power_heuristic
@@ -41,15 +44,6 @@ from ..scene.structs import SceneData
 from . import wavefront
 from .common import (Raycaster, apply_russian_roulette, fetch_hit_surface,
                      make_raycaster)
-
-
-def _unsupported(cfg: RenderConfig) -> Optional[str]:
-    """The RenderConfig options the port's megakernel does not implement:
-    the wavefront's, and BVH_SWEEP, whose unsorted sweep_cast tpt's
-    megakernel casts through (ROADMAP queue 1 item 6)."""
-    if cfg.backend == RayCastBackend.BVH_SWEEP:
-        return "BVH_SWEEP in the megakernel"
-    return wavefront._unsupported(cfg)
 
 
 def trace_sample(scene: SceneData, raycaster: Raycaster, cam: Camera,
@@ -160,7 +154,7 @@ def make_sample_fn(scene: SceneData, cam: Camera, cfg: RenderConfig,
     of `cam`, in one pass (cfg.megakernel_tile, tpt's dispatch size,
     selects nothing here). Pass `raycaster` to read its `capped` count
     afterwards."""
-    reason = _unsupported(cfg)
+    reason = wavefront._unsupported(cfg)
     if reason:
         raise NotImplementedError(f"{reason} is not ported yet")
     if raycaster is None:

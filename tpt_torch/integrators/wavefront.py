@@ -18,7 +18,11 @@ similar traversal paths; pixel order is restored once per frame. Under
 BVH_SWEEP that sort is the sweep's bin sort instead: the dense treelet
 scan (K3) runs on the unsorted pool and the pool sorts once by the bin
 key, carrying the scan's slot planes to the sweep cast (tpt's "wide"
-seed mode; its packed and lean modes give the same hits). Under
+seed mode; its packed and lean modes give the same hits), which runs
+tpt's two-phase cascade where tpt does (`_cascade_on`). Its camera rays
+go through K2, or with cfg.sweep_primary through K3 and the sweep in
+raster order; without sort_bounce_rays every later cast is the unsorted
+sweep_cast (scan, bin sort, sweep, unsort) inside the cast. Under
 BVH_TREELET the camera rays go unsorted through K10 with the primary
 packets, and every later bounce runs the treelet scan K9 on the unsorted
 pool, splits easy from hard rays, and sorts once by (treelet key,
@@ -80,6 +84,13 @@ class FrameOutput:
     rays_traced: torch.Tensor  # 0-dim int64 (extension + shadow rays)
 
 
+class _Reals:
+    """Every real number (sweep_cascade_frac sizes a TPU prefix only)."""
+
+    def __contains__(self, x) -> bool:
+        return isinstance(x, (int, float)) and not isinstance(x, bool)
+
+
 # the BVH_SWEEP knobs this port implements, each with the values that
 # give tpt's results (seed mode and tail compaction change how tpt moves
 # data on the TPU, never a hit)
@@ -89,6 +100,12 @@ _SWEEP_KNOBS = {
     "sweep_unroll": range(1, 1 << 10),
     "sweep_seed_mode": ("packed", "lean", "wide"),
     "sweep_tail_compact": ("scatter", "sort"),
+    "sweep_kernel": ("sublane", "lane"),
+    "sweep_groups": (False, True),
+    "sweep_shadow": (False, True),
+    "sweep_primary": (False, True),
+    "sweep_cascade": (False, True),
+    "sweep_cascade_frac": _Reals(),
 }
 # the BVH_TREELET knobs this port implements
 _INT32 = range(-2**31, 2**31)
@@ -121,8 +138,6 @@ def _unsupported(cfg: RenderConfig) -> Optional[str]:
     for name, ok in list(_SWEEP_KNOBS.items()) + list(_TREELET_KNOBS.items()):
         if getattr(cfg, name) not in ok:
             return f"{name}={getattr(cfg, name)!r}"
-    if cfg.backend == RayCastBackend.BVH_SWEEP and not cfg.sort_bounce_rays:
-        return "BVH_SWEEP without sort_bounce_rays"
     if cfg.nearfield_frac > 0.0:
         return "nearfield_frac"
     if cfg.heavy_shading_iters:
@@ -148,6 +163,14 @@ def _sort_pool(scene: SceneData, cfg: RenderConfig, carry_slice):
     gv = lambda v: Vec3(v.x[perm], v.y[perm], v.z[perm])
     return (gv(ori), gv(direction), gv(throughput), g(last_pdf), g(state),
             g(alive), gv(direct), gv(indirect), g(pixel_idx))
+
+
+def _cascade_on(cfg: RenderConfig) -> bool:
+    """Do the bounces after the first run tpt's two-phase cascade
+    (tpt/integrators/wavefront.py:989-991)? Otherwise the one-shot sweep."""
+    return (cfg.sort_bounce_rays and cfg.sweep_cascade and cfg.sweep_slots > 2
+            and cfg.sweep_seed_mode == "packed"
+            and cfg.sweep_kernel == "sublane")
 
 
 def _sweep_scan_keys(scene: SceneData, cfg: RenderConfig, carry_slice):
@@ -254,6 +277,7 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
             keys, slots_raw = _sweep_scan_keys(scene, cfg, pool)
             pool, cast_kw["sweep_slots"] = _sweep_bin_sort(cfg, pool, keys,
                                                            slots_raw)
+            cast_kw["cascade"] = _cascade_on(cfg)
         elif cfg.backend == RayCastBackend.BVH_TREELET:
             pool, cast_kw["seed"], hard, capped = _treelet_seed_sort(
                 scene, cfg, pool)
@@ -265,8 +289,18 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
         (ori, direction, throughput, last_pdf, state, alive, direct,
          indirect, pixel_idx) = pool
 
-    if first and cfg.backend == RayCastBackend.BVH_TREELET:
+    if first and cfg.backend in (RayCastBackend.BVH_TREELET,
+                                 RayCastBackend.BVH_SWEEP):
         cast_kw["primary"] = True   # tpt's primary raycaster
+        if cfg.backend == RayCastBackend.BVH_SWEEP and cfg.sweep_primary:
+            # the camera rays through the sweep: K3 on the raster-order
+            # pool, no bin sort (G-buffers need pixel order)
+            from ..bvh.sweep import dense_scan
+
+            s_t, s_o, thr = dense_scan(scene.sweep, ori, direction,
+                                       torch.where(alive, 3.4e38, -1.0),
+                                       slots=cfg.sweep_slots)
+            cast_kw["sweep_slots"] = (s_o, s_t, thr)
 
     # ---- TraceExtensionRay stage: dead lanes get t_max = -1 -------------
     ext_tmax = torch.where(alive, 3.4e38, -1.0)
