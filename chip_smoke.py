@@ -123,7 +123,7 @@ phase (name, seconds, key numbers):
              split by CUDA events into K9 and the sort, K10, K2, K1 and
              the rest
   treelet_agreement
-             BVH_TREELET at 240x135, depth 4, both samples in one pool
+             BVH_TREELET at 240x135, depth 8, both samples in one pool
              (spp_batch 2), through the kernels, through the plain versions
              and against the BVH_PALLAS render; it refuses to start with
              less than twice its plain render's time left on the watchdog
@@ -138,7 +138,9 @@ phase (name, seconds, key numbers):
              unsorted pool, its slots equal to K3's, then through the bin
              sort and sweep_cast_sorted to K2's hits on every lane (t
              bit-equal, triangles up to equal-t ties); CUDA-event times on
-             the whole pools (K7 beside K4), bounds, mean unions, 0 capped
+             the whole pools (K7 beside K4), mean unions, 0 capped, and
+             bounds from the tests the results need (K7's those K4 makes
+             on the same lanes and slots, K11's a per-ray top-tree walk's)
   sweepvar_render
              wavefront.render at 1080p in two variants of the bench
              configuration, 2 frames each after a warm-up frame, with the
@@ -147,7 +149,8 @@ phase (name, seconds, key numbers):
              K3, K7, K7 any-hit, K2 and K1 tails) and "cascade"
              (sweep_groups, sweep_shadow, sweep_cascade, sweep_primary: K3
              on bounce 0 too, K4's group mode in both cascade phases, K4's
-             any-hit mode); frame ms and Mpaths/s beside the bench frame
+             any-hit mode); frame ms and Mpaths/s beside the bench frame,
+             and the device busy share of one profiled frame of each
   sweepvar_mega
              Renderer in RenderMode.MEGAKERNEL on BVH_SWEEP at 1080p, 1 spp,
              a warm-up frame and 2 timed frames (every cast the unsorted
@@ -234,13 +237,10 @@ TREELET_SEEDED_PACKETS = 128
 TREELET_PRIMARY_PACKETS = 64
 TREELET_FRAMES = 2
 TREELET_REPS = 3
-# treelet_agreement renders at depth 4: its plain 240x135 BVH_TREELET
-# render took 97-141 s at depth 8 (NVIDIA H100 80GB HBM3, 700 W), which
-# with the later phases left too little of the watchdog; at most this
-# long at depth 4 (its sequential steps are set by the slowest packet, so
-# a slower host takes longer)
-TREELET_AGREE_DEPTH = 4
-TREELET_PLAIN_RENDER_S = 80.0
+# the plain 240x135 BVH_TREELET render of treelet_agreement, at most, on an
+# H100 80GB HBM3 at 700 W: 113-138 s; its sequential steps are set by the
+# slowest packet, so a slower host takes longer
+TREELET_PLAIN_RENDER_S = 140.0
 
 # the BVH_SWEEP variants on the bench configuration: frames of each timed
 # render, the two wavefront configurations, K11's lanes (a 1080p frame's
@@ -751,11 +751,12 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
 
 def render_phase(label: str, scene, cam, cfg, frames: int, want: dict,
                  seed_iter: int) -> tuple:
-    """wavefront.render of `frames` 1080p frames after a warm-up frame,
-    with every launch counter zeroed just before and read just after: they
-    must equal `want` and every other counter 0. No capped ray, a good
-    image. Then the device busy share of one profiled frame. Returns (ms a
-    frame by the host clock, the counters, the image, the raycaster)."""
+    """wavefront.render of `frames` 1080p frames of cfg.spp_batch samples
+    after a warm-up frame, with every launch counter zeroed just before
+    and read just after: they must equal `want` a frame (expect_launches)
+    and every other counter 0. No capped ray, a good image. Then the
+    device busy share of one profiled frame. Returns (ms a frame by the
+    host clock, the counters, the image, the raycaster)."""
     import torch
 
     from tpt_torch.integrators import common, wavefront
@@ -765,10 +766,11 @@ def render_phase(label: str, scene, cam, cfg, frames: int, want: dict,
     torch.cuda.synchronize()
     counts = zero_launches()
     tr = time.perf_counter()
-    img = wavefront.render(scene, cam, cfg, iterations=frames, raycaster=rc)
+    img = wavefront.render(scene, cam, cfg, iterations=frames * cfg.spp_batch,
+                           raycaster=rc)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - tr) * 1e3 / frames
-    launches = expect_launches(label, counts, want)
+    launches = expect_launches(label, counts, want, frames)
     if int(rc.capped):
         raise RuntimeError(f"{label} had {int(rc.capped)} capped rays")
     check_image(label, img)
@@ -807,10 +809,9 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float) -> tuple:
     # ---- binary_render: BVH_PALLAS on the binary pack -----------------------
     t0 = time.perf_counter()
     cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
-    per = DEPTH * BINARY_FRAMES
     frame_ms, launches, img, rc = render_phase(
         "binary render", bscene, cam, cfg, BINARY_FRAMES,
-        dict(packet_closest_hit=per, packet_any_hit=per), 400)
+        dict(packet_closest_hit=DEPTH, packet_any_hit=DEPTH), 400)
     print(f"  against the wide BVH_PALLAS frame of this run: "
           f"{frame_ms / pallas_frame_ms:.2f}x ({frame_ms:.1f} ms vs "
           f"{pallas_frame_ms:.1f} ms)")
@@ -1851,7 +1852,7 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
     # both samples in one pool: the plain K10 takes as many sequential
     # steps as the slowest packet of a cast needs, so one cast of twice
     # the packets costs about as much as one of one sample
-    acfg = cfg.with_(spp_batch=AGREE_ITERS, trace_depth=TREELET_AGREE_DEPTH)
+    acfg = cfg.with_(spp_batch=AGREE_ITERS)
     rc_k = common.make_raycaster(scene, acfg)
     img_k = wavefront.render(scene, small, acfg, iterations=AGREE_ITERS,
                              raycaster=rc_k)
@@ -1864,14 +1865,14 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
         plain_s = time.perf_counter() - tp
     finally:
         patch.restore()
-    pcfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS,
-                        trace_depth=TREELET_AGREE_DEPTH, spp_batch=AGREE_ITERS)
+    pcfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH,
+                        spp_batch=AGREE_ITERS)
     rc_w = common.make_raycaster(scene, pcfg)
     img_w = wavefront.render(scene, small, pcfg, iterations=AGREE_ITERS,
                              raycaster=rc_w)
     if int(rc_k.capped) or int(rc_p.capped) or int(rc_w.capped):
         raise RuntimeError("treelet agreement renders had capped lanes")
-    out = {"plain_render_s": f"{plain_s:.1f}", "depth": TREELET_AGREE_DEPTH}
+    out = {"plain_render_s": f"{plain_s:.1f}"}
     for label, ref in (("plain", img_p), ("pallas", img_w)):
         close, _, max_abs = golden_agree(f"treelet render vs {label}", img_k,
                                          ref)
@@ -1893,6 +1894,38 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
              ms=k10s_ms, plain_ms=k10_plain_ms, bound_ms=k10s_b,
              bound_by=k10s_by, library_ms=None, lanes=int(idx.numel())),
     ]
+
+
+def top_walk_need(pack, ori, d, t_max, window) -> int:
+    """Slab tests a per-ray walk of the top tree needs for K11's slots:
+    each live ray opens the root and every internal node whose box it
+    enters within its t_max and no later than `window` [n] (its last
+    slot's entry t, the window's final edge), and tests the child boxes
+    of each node it opens. K11's packets open a node for every lane when
+    one lane keeps it."""
+    import torch
+
+    from tpt_torch.bvh.packet_traverse import _slab
+    from tpt_torch.integrators.intersect import safe_inv
+
+    A = pack.arity
+    o = (ori.x, ori.y, ori.z)
+    inv = tuple(safe_inv(c) for c in (d.x, d.y, d.z))
+    bt = torch.minimum(t_max, torch.tensor(3.0e38, device=t_max.device))
+    child = pack.top_child[:, :A].cpu().tolist()
+    todo, tests = [(0, t_max > 0)], 0
+    while todo:
+        nid, opens = todo.pop()
+        k = int(opens.sum())
+        if not k:
+            continue
+        tests += A * k
+        row = pack.top_f32[nid]
+        for s in range(A):
+            if child[nid][s] >= 0:
+                hit, tn = _slab(row[6 * s:6 * s + 6], o, inv, bt, entry=True)
+                todo.append((child[nid][s], opens & hit & (tn <= window)))
+    return tests
 
 
 def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
@@ -1994,8 +2027,11 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     k7_ms, st7 = timed_stats(lambda **kw: k7(ori, d, tmax, s_o, s_t, **kw), 3)
     k4_ms, st4 = timed_stats(lambda **kw: sw.sweep8_closest_hit(
         tables, ori, d, tmax, s_o, s_t, unroll=unroll, **kw), 3)
+    # K7's bound counts the triangle tests its hits need: K4's on the same
+    # lanes and slots (its 128-lane blocks sweep a smaller union); K7's
+    # own tests are printed beside it as the work it does
     k7_b = sweep_bound(n, 28 + 8 * S, 16, table_bytes,
-                       OPS_PER_TRI * int(st7[1]))
+                       OPS_PER_TRI * int(st4[1]))
     # K4's group mode: against plain on the same blocks, and its raw hits
     # on every lane equal to K4's without groups
     k4g = lambda *a, **kw: sw.sweep8_closest_hit(tables, *a, unroll=unroll,
@@ -2037,8 +2073,14 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
         o_sh, d_sh, t_sh, so_sh, st_sh, any_hit=True, **kw), 3)
     k4a_ms, st4a = timed_stats(lambda **kw: k4a(o_sh, d_sh, t_sh, so_sh,
                                                 st_sh, **kw), 3)
+    # K7 any-hit's bound: the tests of K4's any-hit mode (without
+    # groups, as K7 has none) on the same lanes and slots
+    st4a_ng = torch.zeros(3, dtype=torch.int64, device=dev)
+    sw.sweep8_closest_hit(tables, o_sh, d_sh, t_sh, so_sh, st_sh,
+                          unroll=unroll, any_hit=True, stats=st4a_ng)
+    st4a_ng = st4a_ng.cpu()
     k7a_b = sweep_bound(n_sh, 28 + 8 * S, 16, table_bytes,
-                        OPS_PER_TRI * int(st7a[1]))
+                        OPS_PER_TRI * int(st4a_ng[1]))
     k4a_b = sweep_bound(n_sh, 28 + 8 * S, 16, table_bytes
                         + tables.group_boxes.numel() * 4,
                         OPS_PER_TRI * int(st4a[1])
@@ -2092,24 +2134,30 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
         pack, ou, du, tu, slots=S, **kw), 2)
     top_bytes = sum(a.numel() * 4 for a in (pack.top_f32, pack.top_child,
                                             pack.top_tord))
-    k11_b = sweep_bound(m, 28, 8 * S + 4, top_bytes,
-                        OPS_PER_SLAB * int(st11[1]))
+    # K11's bound: the slab tests a per-ray walk needs for the same slots
+    k11_need = top_walk_need(pack, ou, du, tu, s_t11[S - 1])
+    k11_b = sweep_bound(m, 28, 8 * S + 4, top_bytes, OPS_PER_SLAB * k11_need)
     del ou, du, tu, k11, k11p, k3, fin, ref, os_, ds_, ts_
     mr = lambda ms, k: k / (ms * 1e-3) / 1e6
     print(f"  whole bin-sorted bounce-1 pool ({n} lanes): K7 {k7_ms:.3f} ms "
           f"({mr(k7_ms, n):.1f} Mrays/s; treelet sweeps {int(st7[0])} over "
           f"{nb7} blocks, mean union {int(st7[0]) / nb7:.2f}; tri tests "
-          f"{int(st7[1])}), K4 {k4_ms:.3f} ms (mean union "
-          f"{int(st4[0]) / nb4:.2f}; tri tests {int(st4[1])}), K7/K4 "
+          f"{int(st7[1])}, {int(st7[1]) / int(st4[1]):.2f}x the {int(st4[1])} "
+          f"of K4 that its bound counts), K4 {k4_ms:.3f} ms (mean union "
+          f"{int(st4[0]) / nb4:.2f}), K7/K4 "
           f"{k7_ms / k4_ms:.2f}x; K4 groups {k4g_ms:.3f} ms (tri tests "
           f"{int(st4g[1])}, {100 * int(st4g[1]) / max(1, int(st4[1])):.1f}% "
           f"of K4's)")
     print(f"  bounce-1 shadow rays ({n_sh} lanes): K7 any-hit {k7a_ms:.3f} ms "
-          f"(tri tests {int(st7a[1])}), K4 any-hit with groups "
-          f"{k4a_ms:.3f} ms (tri tests {int(st4a[1])})")
+          f"(tri tests {int(st7a[1])}, {int(st7a[1]) / int(st4a_ng[1]):.2f}x "
+          f"the {int(st4a_ng[1])} of K4's any-hit mode without groups that its "
+          f"bound counts), K4 any-hit with groups {k4a_ms:.3f} ms (tri tests "
+          f"{int(st4a[1])})")
     print(f"  K11 on {m} lanes: {k11_ms:.3f} ms ({mr(k11_ms, m):.1f} Mrays/s), "
           f"plain {k11_plain_ms:.1f} ms, top pops {int(st11[0])}, slab tests "
-          f"{int(st11[1])}; slots equal to K3's; its sweep cast equals K2 "
+          f"{int(st11[1])} ({int(st11[1]) / k11_need:.2f}x the {k11_need} a "
+          f"per-ray walk needs, which its bound counts); slots equal to "
+          f"K3's; its sweep cast equals K2 "
           f"(t bit-equal, tri differs on {tri_diff}), 0 capped")
     for label, (b_ms, by), ms, pms in (
             ("K7", k7_b, k7_ms, k7_plain_ms),
@@ -2139,22 +2187,10 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
                         packet_any_hit_wide=tail),
     }
     out = {}
-    for label, knobs in SWEEPVAR.items():
-        vcfg = cfg.with_(**knobs)
-        rc = common.make_raycaster(scene, vcfg)
-        wavefront.trace_frame(scene, rc, cam, vcfg, 500)   # warm-up frame
-        torch.cuda.synchronize()
-        counts = zero_launches()
-        tr = time.perf_counter()
-        img = wavefront.render(scene, cam, vcfg,
-                               iterations=SWEEPVAR_FRAMES * spp, raycaster=rc)
-        torch.cuda.synchronize()
-        f_ms = (time.perf_counter() - tr) * 1e3 / SWEEPVAR_FRAMES
-        launches = expect_launches(f"{label} render", counts, want[label],
-                                SWEEPVAR_FRAMES)
-        if int(rc.capped):
-            raise RuntimeError(f"{label} render had {int(rc.capped)} capped")
-        check_image(f"{label} render", img)
+    for k, (label, knobs) in enumerate(SWEEPVAR.items()):
+        f_ms, launches, _, _ = render_phase(
+            f"{label} render", scene, cam, cfg.with_(**knobs),
+            SWEEPVAR_FRAMES, want[label], 500 + 10 * k)
         print(f"  {label} ({knobs}): {f_ms:.1f} ms a frame "
               f"({cam.num_pixels * spp / (f_ms * 1e-3) / 1e6:.3f} Mpaths/s), "
               f"{f_ms / bench_frame_ms:.2f}x the bench frame of this run "
@@ -2183,20 +2219,13 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     if int(r.raycaster.capped):
         raise RuntimeError("BVH_SWEEP megakernel had capped rays")
     check_image("BVH_SWEEP megakernel", img)
+    mega_busy = profiled_frame("BVH_SWEEP megakernel", r.frame)
     del r
-    ucfg = cfg.with_(sort_bounce_rays=False)
-    rc = common.make_raycaster(scene, ucfg)
-    counts = zero_launches()
-    tr = time.perf_counter()
-    img = wavefront.render(scene, cam, ucfg, iterations=spp, raycaster=rc)
-    torch.cuda.synchronize()
-    unsorted_ms = (time.perf_counter() - tr) * 1e3
-    expect_launches("unsorted BVH_SWEEP", counts, dict(
-        dense_scan=D - 1, sweep8_closest_hit=D - 1,
-        packet_closest_hit_wide=(1, D), packet_any_hit_wide=D), 1)
-    if int(rc.capped):
-        raise RuntimeError("unsorted BVH_SWEEP render had capped rays")
-    check_image("unsorted BVH_SWEEP", img)
+    unsorted_ms = render_phase(
+        "unsorted BVH_SWEEP", scene, cam, cfg.with_(sort_bounce_rays=False),
+        1, dict(dense_scan=D - 1, sweep8_closest_hit=D - 1,
+                packet_closest_hit_wide=(1, D), packet_any_hit_wide=D),
+        520)[0]
     print(f"  megakernel on BVH_SWEEP: {mega_ms:.1f} ms a frame "
           f"({cam.num_pixels / (mega_ms * 1e-3) / 1e6:.3f} Mpaths/s, 1 spp); "
           f"wavefront without the pool sort: {unsorted_ms:.1f} ms for one "
@@ -2204,7 +2233,7 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
           f"({cam.num_pixels * spp / (unsorted_ms * 1e-3) / 1e6:.3f} "
           f"Mpaths/s), {unsorted_ms / bench_frame_ms:.2f}x the bench frame")
     phase("sweepvar_mega", t0, mega_ms=f"{mega_ms:.1f}",
-          unsorted_ms=f"{unsorted_ms:.1f}")
+          mega_busy=f"{mega_busy:.3f}", unsorted_ms=f"{unsorted_ms:.1f}")
 
     # ---- sweepvar_agreement: each variant vs plain and vs the bench --------
     t0 = time.perf_counter()
@@ -2352,10 +2381,9 @@ def main() -> int:
     # ---- render: the main path ------------------------------------------------
     t0 = time.perf_counter()
     cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH)
-    per = DEPTH * RENDER_ITERS
     frame_ms, launches, img, rc = render_phase(
         "render", scene, cam, cfg, RENDER_ITERS,
-        dict(packet_closest_hit_wide=per, packet_any_hit_wide=per), 100)
+        dict(packet_closest_hit_wide=DEPTH, packet_any_hit_wide=DEPTH), 100)
     # where one frame's time goes: the casts (CUDA events around each
     # launch) against the whole frame (events around the frame)
     timer = CastTimer(rc)

@@ -30,19 +30,17 @@ class Raycaster:
     capped: torch.Tensor
 
 
-def make_raycaster(scene: SceneData, cfg: RenderConfig,
-                   primary_rays: bool = False) -> Raycaster:
+def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
     """The backend `cfg.backend` names. The TPU packet-kernel knobs
     (trav_group, pops) keep their defaults: the per-thread K1/K2 and
     K8a/K8b have no packets, and the treelet kernels K9/K10 walk tpt's
-    default packets; wavefront refuses other values. As tpt's, the
-    `primary_rays` raycaster casts camera rays and the other one every
-    later cast; here one Raycaster holds both, its closest_hit taking
-    `primary` (default `primary_rays`), so that both count into one
-    `capped`. Under BVH_SWEEP a primary cast is K2 (unless
-    cfg.sweep_primary) and any other cast without `sweep_slots` is the
-    unsorted sweep_cast; under BVH_TREELET `primary` picks the camera
-    rays' packets."""
+    default packets; wavefront refuses other values. tpt builds a
+    primary raycaster for camera rays and another for every later cast;
+    here one Raycaster holds both, its closest_hit taking `primary`, so
+    that both count into one `capped`. Under BVH_SWEEP a primary cast is
+    K2 (unless cfg.sweep_primary) and any other cast without
+    `sweep_slots` is the unsorted sweep_cast; under BVH_TREELET
+    `primary` picks the camera rays' packets."""
     dev = scene.device
     capped = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.backend == RayCastBackend.BRUTE_FORCE:
@@ -99,7 +97,7 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig,
                      max_rounds=cfg.treelet_max_rounds)
 
         def closest(o, d, t_max=None, seed=None, hard=None,
-                    primary=primary_rays):
+                    primary=False):
             """K10 over super-packets of trav_group_primary * 1024 lanes
             for the camera rays (`primary`), trav_group * 1024 for bounce
             pools, started from the wavefront's K9 `seed` when given.
@@ -152,7 +150,7 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig,
                      groups=cfg.sweep_groups)
 
         def closest(o, d, t_max=None, sweep_slots=None, cascade=False,
-                    primary=primary_rays):
+                    primary=False):
             """With sweep_slots = (s_o, s_t, thr) of a pool sorted by the
             bin key (the wavefront's bounces after the first) or of the
             raster-order camera rays (cfg.sweep_primary): the sweep

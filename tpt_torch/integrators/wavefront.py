@@ -84,13 +84,6 @@ class FrameOutput:
     rays_traced: torch.Tensor  # 0-dim int64 (extension + shadow rays)
 
 
-class _Reals:
-    """Every real number (sweep_cascade_frac sizes a TPU prefix only)."""
-
-    def __contains__(self, x) -> bool:
-        return isinstance(x, (int, float)) and not isinstance(x, bool)
-
-
 # the BVH_SWEEP knobs this port implements, each with the values that
 # give tpt's results (seed mode and tail compaction change how tpt moves
 # data on the TPU, never a hit)
@@ -105,7 +98,6 @@ _SWEEP_KNOBS = {
     "sweep_shadow": (False, True),
     "sweep_primary": (False, True),
     "sweep_cascade": (False, True),
-    "sweep_cascade_frac": _Reals(),
 }
 # the BVH_TREELET knobs this port implements
 _INT32 = range(-2**31, 2**31)
@@ -116,13 +108,15 @@ _TREELET_KNOBS = {
     "treelet_hard_count": _INT32,
 }
 # RenderConfig knobs of the TPU kernels and their dispatch (packet shape
-# and pops, the sweep variants not ported, sort cadence): the port keeps
+# and pops, sort cadence): the port keeps
 # their defaults (the treelet kernels walk tpt's default packets), so a
 # value other than the default is refused rather than ignored
 _TPU_KNOBS = tuple(f.name for f in fields(RenderConfig)
                    if f.name.startswith(("trav_", "sweep_", "treelet_"))
                    and f.name not in _SWEEP_KNOBS
-                   and f.name not in _TREELET_KNOBS) + ("sort_every",)
+                   and f.name not in _TREELET_KNOBS
+                   # sizes a TPU prefix only: every value gives tpt's hits
+                   and f.name != "sweep_cascade_frac") + ("sort_every",)
 
 
 def _unsupported(cfg: RenderConfig) -> Optional[str]:
