@@ -50,14 +50,17 @@ phase (name, seconds, key numbers):
              K3 against its plain version on every lane of the unsorted
              bounce-1 pool, K4 on every lane of the bin-sorted bounce-1 pool
              and on 262,144 lanes (whole blocks) of the bounce-4 pool, both
-             bit for bit; the final sweep_cast_sorted hits against K2 on
-             every lane of bounce 1 (t bit-equal, triangles up to equal-t
-             ties); CUDA-event timings, bounds, union sizes, tail share
+             bit for bit (floats as bit patterns); the final
+             sweep_cast_sorted hits against K2 on every lane of bounce 1 (t
+             bit-equal, triangles up to equal-t ties); CUDA-event timings,
+             bounds (K4's by the tests its result needs,
+             sweep.sweep_need), union sizes, tail share
   sweep_render
              wavefront.render in the bench configuration (BVH_SWEEP, depth
              8, spp_batch 4, sweep_unroll 8) at 1080p, with all launch
              counters zeroed just before and read just after; frame ms,
-             Mpaths/s, and one frame split by stage with CUDA events
+             Mpaths/s, and one frame split by stage with CUDA events, with
+             K3's and K4's time a bounce
   sweep_agreement
              BVH_SWEEP at 240x135 through the kernels, through the plain
              versions and against the BVH_PALLAS render
@@ -139,8 +142,8 @@ phase (name, seconds, key numbers):
              sort and sweep_cast_sorted to K2's hits on every lane (t
              bit-equal, triangles up to equal-t ties); CUDA-event times on
              the whole pools (K7 beside K4), mean unions, 0 capped, and
-             bounds from the tests the results need (K7's those K4 makes
-             on the same lanes and slots, K11's a per-ray top-tree walk's)
+             bounds from the tests the results need (K7's and K4's modes'
+             by sweep.sweep_need, K11's a per-ray top-tree walk's)
   sweepvar_render
              wavefront.render at 1080p in two variants of the bench
              configuration, 2 frames each after a warm-up frame, with the
@@ -588,12 +591,21 @@ class StageTimer:
         return sum(s.elapsed_time(e) for s, e in self.events.get(label, []))
 
 
+def bit_patterns(a):
+    """A float32 tensor's bit patterns (int32), so that -0 differs from
+    +0 and NaNs compare; other tensors as they are."""
+    import torch
+
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+
 def equal_hits(label: str, a, b) -> None:
-    """Two HitRecords bit for bit (t, tri, u, v)."""
+    """Two HitRecords bit for bit (t, tri, u, v; floats as bit
+    patterns)."""
     import torch
 
     for f in ("t", "tri", "u", "v"):
-        x, y = getattr(a, f), getattr(b, f)
+        x, y = bit_patterns(getattr(a, f)), bit_patterns(getattr(b, f))
         if not torch.equal(x, y):
             raise RuntimeError(f"{label}: {f} differs on "
                                f"{int((x != y).sum())} lanes")
@@ -970,6 +982,17 @@ def sweep_bound(n: int, in_bytes: int, out_bytes: int, table_bytes: int,
     return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
 
 
+def need_bound(n: int, S: int, tables, need) -> tuple:
+    """(bound_ms, bound_by) of a demand sweep over n lanes from
+    sweep.sweep_need's counts: bytes = rays and S slots in, hits out, the
+    tables once (rows, ranges, group boxes); operations = the triangle and
+    group slab tests its result needs, whatever implements it."""
+    table_bytes = 4 * (tables.tri_f32.numel() + tables.ranges.numel()
+                       + tables.group_boxes.numel())
+    return sweep_bound(n, 28 + 8 * S, 16, table_bytes,
+                       OPS_PER_TRI * need[0] + OPS_PER_SLAB * need[1])
+
+
 def sweep_phases(scene, cam, dev) -> tuple:
     """The sweep_kernels, sweep_render and sweep_agreement phases; returns
     the K3 and K4 entries of the kernels line and the bench frame's ms."""
@@ -1028,13 +1051,14 @@ def sweep_phases(scene, cam, dev) -> tuple:
     k3_plain, k3_plain_ms = timed_once(lambda: sw.dense_scan_plain(
         tables, pool[0], pool[1], pre_tmax, slots=S))
     for a, b, what in zip(k3, k3_plain, ("entry t", "ordinal", "thr")):
+        a, b = bit_patterns(a), bit_patterns(b)
         if not torch.equal(a, b):
             raise RuntimeError(f"K3 {what} differs from plain on "
                                f"{int((a != b).sum())} of {a.numel()} values")
     k3_err = max(float((a.float() - b.float()).abs().max())
                  for a, b in zip(k3, k3_plain))
     print(f"  K3 vs plain, unsorted bounce-1 pool: {n} lanes "
-          f"({int((~pool[5]).sum())} dead), bit-equal")
+          f"({int((~pool[5]).sum())} dead), bit patterns equal")
     k3_ms = cuda_time_ms(lambda: sw.dense_scan(tables, pool[0], pool[1],
                                                pre_tmax, slots=S), TIMING_REPS)
     st3 = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -1080,10 +1104,10 @@ def sweep_phases(scene, cam, dev) -> tuple:
     resolved, _ = tsc.resolved_lanes(raw, thr)
     live = tmax > 0
     tail_frac = float((~resolved & live).sum()) / max(1, int(live.sum()))
-    k4_bound, k4_by = sweep_bound(
-        n, 28 + 8 * S, 16,
-        (tables.tri_f32.numel() + tables.ranges.numel()) * 4,
-        OPS_PER_TRI * int(st4[1]))
+    # the bound counts the tests K4's result needs (sweep_need), read from
+    # the inputs and the raw hits; the kernel's own tests are work done
+    need4 = sw.sweep_need(tables, ori, d, tmax, s_o, s_t, raw)
+    k4_bound, k4_by = need_bound(n, S, tables, need4)
     # the final hits of bounce 1 against K2 on the same pool
     fin, capped = tsc.sweep_cast_sorted(scene.pack, tables, ori, d, tmax, s_o,
                                         s_t, thr, unroll=unroll)
@@ -1105,10 +1129,14 @@ def sweep_phases(scene, cam, dev) -> tuple:
           f"{k3_plain_ms:.1f} ms, bound {k3_bound:.3f} ms ({k3_by}); "
           f"slab tests {int(st3[0])}")
     print(f"  K4: {k4_ms:.3f} ms ({mr(k4_ms):.1f} Mrays/s), plain "
-          f"{k4_plain_ms:.1f} ms, bound {k4_bound:.3f} ms ({k4_by}); "
-          f"treelet sweeps {int(st4[0])} over {nb} blocks (mean union "
-          f"{union:.2f}), tri tests {int(st4[1])}, live lanes {int(st4[2])}, "
-          f"unresolved (tail) {100 * tail_frac:.3f}% of live lanes")
+          f"{k4_plain_ms:.1f} ms, bound {k4_bound:.3f} ms ({k4_by}) by the "
+          f"need: {need4[0]} tri tests and {need4[1]} group slab tests over "
+          f"a mean {need4[2] / nb:.2f} needed treelets a block; treelet "
+          f"sweeps {int(st4[0])} over {nb} blocks (mean union "
+          f"{union:.2f}), tri tests made {int(st4[1])} "
+          f"({int(st4[1]) / max(1, need4[0]):.2f}x the need), live lanes "
+          f"{int(st4[2])}, unresolved (tail) {100 * tail_frac:.3f}% of "
+          f"live lanes")
     phase("sweep_kernels", t0, lanes=n, k3_ms=f"{k3_ms:.3f}",
           k4_ms=f"{k4_ms:.3f}", mean_union=f"{union:.2f}",
           tail_pct=f"{100 * tail_frac:.3f}")
@@ -1142,6 +1170,7 @@ def sweep_phases(scene, cam, dev) -> tuple:
     # one frame split by stage: CUDA events around each stage's calls
     timer = StageTimer()
     timer.wrap(wavefront, "_sweep_scan_keys", "scan (K3 + keys)")
+    timer.wrap(sw, "dense_scan", "K3")
     timer.wrap(wavefront, "_sweep_bin_sort", "bin sort")
     timer.wrap(sw, "sweep8_closest_hit", "sweep (K4)")
     timer.wrap(tsc, "_tail_compact_cast", "tail (K2)")
@@ -1169,10 +1198,17 @@ def sweep_phases(scene, cam, dev) -> tuple:
         timer.patch.restore()
     f_ms = s_ev.elapsed_time(e_ev)
     split = {k: timer.ms(k) for k in timer.events}
+    split["bin keys"] = split.pop("scan (K3 + keys)") - split["K3"]
     split["shading and the rest"] = f_ms - sum(split.values())
     print(f"  one frame: {f_ms:.1f} ms by CUDA events (host enqueue "
           f"{host_ms:.1f} ms); " + "; ".join(
               f"{k} {v:.1f} ms ({100 * v / f_ms:.1f}%)" for k, v in split.items()))
+    # K3 and K4 a bounce (bounces 1..DEPTH-1 scan and sweep once each)
+    bounce_ms = {k: [s.elapsed_time(e) for s, e in timer.events[k]]
+                 for k in ("K3", "sweep (K4)")}
+    print("  per bounce 1.." + str(DEPTH - 1) + ": " + "; ".join(
+        f"{k} " + ", ".join(f"{v:.2f}" for v in vals) + " ms"
+        for k, vals in bounce_ms.items()))
     phase("sweep_render", t0, frame_ms=f"{frame_ms:.1f}",
           mpaths_s=f"{paths / (frame_ms * 1e-3) / 1e6:.3f}",
           launches=json.dumps(launches).replace(" ", ""), capped=int(rc.capped),
@@ -2027,11 +2063,12 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     k7_ms, st7 = timed_stats(lambda **kw: k7(ori, d, tmax, s_o, s_t, **kw), 3)
     k4_ms, st4 = timed_stats(lambda **kw: sw.sweep8_closest_hit(
         tables, ori, d, tmax, s_o, s_t, unroll=unroll, **kw), 3)
-    # K7's bound counts the triangle tests its hits need: K4's on the same
-    # lanes and slots (its 128-lane blocks sweep a smaller union); K7's
-    # own tests are printed beside it as the work it does
-    k7_b = sweep_bound(n, 28 + 8 * S, 16, table_bytes,
-                       OPS_PER_TRI * int(st4[1]))
+    # each bound counts the tests its kernel's result needs (sweep_need,
+    # from the inputs and the raw hits); the kernels' own tests are printed
+    # beside them as the work they do
+    need7 = sw.sweep_need(tables, ori, d, tmax, s_o, s_t,
+                          k7(ori, d, tmax, s_o, s_t), lanes=sw.LANES_K7)
+    k7_b = need_bound(n, S, tables, need7)
     # K4's group mode: against plain on the same blocks, and its raw hits
     # on every lane equal to K4's without groups
     k4g = lambda *a, **kw: sw.sweep8_closest_hit(tables, *a, unroll=unroll,
@@ -2046,11 +2083,9 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
                                      unroll=unroll))
     k4g_ms, st4g = timed_stats(lambda **kw: k4g(ori, d, tmax, s_o, s_t, **kw),
                                3)
-    # group tests: 8 boxes a treelet sweep for every lane of the block
-    group_slabs = 8 * sw.LANES * int(st4g[0])
-    k4g_b = sweep_bound(n, 28 + 8 * S, 16, table_bytes
-                        + tables.group_boxes.numel() * 4,
-                        OPS_PER_TRI * int(st4g[1]) + OPS_PER_SLAB * group_slabs)
+    need4 = sw.sweep_need(tables, ori, d, tmax, s_o, s_t,
+                          k4g(ori, d, tmax, s_o, s_t))
+    k4g_b = need_bound(n, S, tables, need4)
     del c
 
     # the any-hit modes on the bounce-1 shadow rays and their K3 slots
@@ -2073,18 +2108,13 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
         o_sh, d_sh, t_sh, so_sh, st_sh, any_hit=True, **kw), 3)
     k4a_ms, st4a = timed_stats(lambda **kw: k4a(o_sh, d_sh, t_sh, so_sh,
                                                 st_sh, **kw), 3)
-    # K7 any-hit's bound: the tests of K4's any-hit mode (without
-    # groups, as K7 has none) on the same lanes and slots
-    st4a_ng = torch.zeros(3, dtype=torch.int64, device=dev)
-    sw.sweep8_closest_hit(tables, o_sh, d_sh, t_sh, so_sh, st_sh,
-                          unroll=unroll, any_hit=True, stats=st4a_ng)
-    st4a_ng = st4a_ng.cpu()
-    k7a_b = sweep_bound(n_sh, 28 + 8 * S, 16, table_bytes,
-                        OPS_PER_TRI * int(st4a_ng[1]))
-    k4a_b = sweep_bound(n_sh, 28 + 8 * S, 16, table_bytes
-                        + tables.group_boxes.numel() * 4,
-                        OPS_PER_TRI * int(st4a[1])
-                        + OPS_PER_SLAB * 8 * sw.LANES * int(st4a[0]))
+    need7a = sw.sweep_need(tables, o_sh, d_sh, t_sh, so_sh, st_sh,
+                           k7(o_sh, d_sh, t_sh, so_sh, st_sh, any_hit=True),
+                           lanes=sw.LANES_K7, any_hit=True)
+    need4a = sw.sweep_need(tables, o_sh, d_sh, t_sh, so_sh, st_sh,
+                           k4a(o_sh, d_sh, t_sh, so_sh, st_sh), any_hit=True)
+    k7a_b = need_bound(n_sh, S, tables, need7a)
+    k4a_b = need_bound(n_sh, S, tables, need4a)
     del c, o_sh, d_sh, t_sh, st_sh, so_sh, spool, ori, d, tmax, s_o, s_t, thr
 
     # K11 on the first K11_LANES lanes of the unsorted bounce-1 pool
@@ -2139,20 +2169,19 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     k11_b = sweep_bound(m, 28, 8 * S + 4, top_bytes, OPS_PER_SLAB * k11_need)
     del ou, du, tu, k11, k11p, k3, fin, ref, os_, ds_, ts_
     mr = lambda ms, k: k / (ms * 1e-3) / 1e6
+    made = lambda st, need: (f"tri tests made {int(st[1])}, "
+                             f"{int(st[1]) / max(1, need[0]):.2f}x the "
+                             f"{need[0]} its result needs")
     print(f"  whole bin-sorted bounce-1 pool ({n} lanes): K7 {k7_ms:.3f} ms "
           f"({mr(k7_ms, n):.1f} Mrays/s; treelet sweeps {int(st7[0])} over "
-          f"{nb7} blocks, mean union {int(st7[0]) / nb7:.2f}; tri tests "
-          f"{int(st7[1])}, {int(st7[1]) / int(st4[1]):.2f}x the {int(st4[1])} "
-          f"of K4 that its bound counts), K4 {k4_ms:.3f} ms (mean union "
-          f"{int(st4[0]) / nb4:.2f}), K7/K4 "
-          f"{k7_ms / k4_ms:.2f}x; K4 groups {k4g_ms:.3f} ms (tri tests "
-          f"{int(st4g[1])}, {100 * int(st4g[1]) / max(1, int(st4[1])):.1f}% "
-          f"of K4's)")
+          f"{nb7} blocks, mean union {int(st7[0]) / nb7:.2f}; "
+          f"{made(st7, need7)}), K4 {k4_ms:.3f} ms (mean union "
+          f"{int(st4[0]) / nb4:.2f}), K7/K4 {k7_ms / k4_ms:.2f}x; K4 groups "
+          f"{k4g_ms:.3f} ms ({made(st4g, need4)}; "
+          f"{100 * int(st4g[1]) / max(1, int(st4[1])):.1f}% of K4's)")
     print(f"  bounce-1 shadow rays ({n_sh} lanes): K7 any-hit {k7a_ms:.3f} ms "
-          f"(tri tests {int(st7a[1])}, {int(st7a[1]) / int(st4a_ng[1]):.2f}x "
-          f"the {int(st4a_ng[1])} of K4's any-hit mode without groups that its "
-          f"bound counts), K4 any-hit with groups {k4a_ms:.3f} ms (tri tests "
-          f"{int(st4a[1])})")
+          f"({made(st7a, need7a)}), K4 any-hit with groups {k4a_ms:.3f} ms "
+          f"({made(st4a, need4a)})")
     print(f"  K11 on {m} lanes: {k11_ms:.3f} ms ({mr(k11_ms, m):.1f} Mrays/s), "
           f"plain {k11_plain_ms:.1f} ms, top pops {int(st11[0])}, slab tests "
           f"{int(st11[1])} ({int(st11[1]) / k11_need:.2f}x the {k11_need} a "

@@ -1,5 +1,6 @@
 """tpt_torch's CUDA kernels (K2 closest hit, K1 any hit, K3 dense scan,
-K4 demand sweep with its any-hit and group modes, K7 lane sweep, K5
+K4 demand sweep with its any-hit and group modes and per-warp group
+culling, K7 lane sweep, K5
 a-trous stencil, K6 temporal reprojection, K9 treelet scan, K10 treelet
 closest hit, K11 multi-slot scan, K8a/K8b binary closest and any hit) on
 the card, each against its plain PyTorch version, and the megakernel and
@@ -389,6 +390,188 @@ def test_sweep_variant_render_on_card_matches_cpu(cornell, cuda):
         assert int(rc.capped) == 0
         assert np.isclose(gpu, ref, atol=5e-3, rtol=1e-3).mean() > 0.97
         np.testing.assert_allclose(gpu.mean(), ref.mean(), rtol=0.02)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4/K7 as redesigned for the card: floats held as bit patterns,
+# per-warp group culling
+# ---------------------------------------------------------------------------
+
+def _bits(a):
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+
+def _bits_equal_hits(got, want):
+    for f in ("t", "tri", "u", "v"):
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
+
+
+def _edge_pool(tables, n, seed, device):
+    """The adversarial pool, with origins on box planes (each face of 40
+    treelet boxes, the ray inside the face), zero and negative-zero
+    direction components and NaN origins."""
+    o, d, t_max = _adversarial_pool(n, device, seed)
+    ox, oy, oz = o.x.cpu(), o.y.cpu(), o.z.cpu()
+    dx, dy, dz = d.x.cpu(), d.y.cpu(), d.z.cpu()
+    boxes = tables.boxes.cpu()
+    for k in range(40):
+        b = boxes[(7 * k) % tables.num_treelets]
+        c = (b[:3] + b[3:6]) / 2
+        c[k % 3] = b[k % 3 + 3 * ((k // 3) % 2)]
+        ox[40 + k], oy[40 + k], oz[40 + k] = c
+    dx[100:120] = 0.0
+    dy[110:130] = -0.0
+    dz[125:135] = 0.0
+    ox[140], oy[141], oz[142] = float("nan"), float("nan"), float("nan")
+    t_max[40:143] = 3.4e38
+    dev = lambda a: a.to(device)
+    return (Vec3(dev(ox), dev(oy), dev(oz)), Vec3(dev(dx), dev(dy), dev(dz)),
+            t_max)
+
+
+@pytest.mark.parametrize("S", [1, 4, 8])
+def test_dense_scan_bits_equal_plain(tables, cuda, S):
+    """K3 on 1100 treelets (two tiles, the second part full) bit for bit,
+    the sign of zero included: no entry t is -0."""
+    o, d, t_max = _edge_pool(tables, 4001, 31, cuda)
+    stats = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = sw.dense_scan(tables, o, d, t_max, slots=S, stats=stats)
+    want = sw.dense_scan_plain(tables, o, d, t_max, slots=S)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int(stats[0]) == int((t_max > 0).sum()) * tables.num_treelets
+    assert not bool((_bits(got[0]) == torch.iinfo(torch.int32).min).any())
+    assert bool((got[0][0, 40:100] == 0.0).any())     # origins in boxes
+    assert bool((got[1][:, 140:143] == sw.NONE_ORD).all())
+
+
+def _tail_tables(device):
+    """The synthetic tables (chunk_align 1, up to 40 8-row chunks a
+    treelet) with group boxes of one chunk each: the rows past the 8th
+    group of a treelet are swept by every warp with a live lane."""
+    from tpt_torch.bvh.treelet import group_boxes
+
+    base = _synthetic_tables(300, 33, "cpu")
+    start, chunks = base.ranges[:, 0].numpy(), base.ranges[:, 1].numpy()
+    gbox = group_boxes(base.tri_f32.numpy(), start, chunks * 8 - 1, chunks,
+                       1, 8)
+    return replace(base, group_boxes=torch.from_numpy(gbox)).to(device)
+
+
+@pytest.fixture(scope="module")
+def culled_tables(cuda):
+    return {"grouped": _grouped_tables(cuda), "tail": _tail_tables(cuda)}
+
+
+def _shuffled(pool, seed):
+    o, d, t_max, s_o, s_t = pool
+    perm = torch.randperm(t_max.numel(), generator=torch.Generator().manual_seed(
+        seed)).to(t_max.device)
+    g = lambda a: a[..., perm].contiguous()
+    return (Vec3(g(o.x), g(o.y), g(o.z)), Vec3(g(d.x), g(d.y), g(d.z)),
+            g(t_max), g(s_o), g(s_t))
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("kind,mode", [("grouped", "closest"),
+                                       ("grouped", "any"),
+                                       ("grouped", "groups"),
+                                       ("tail", "closest"), ("tail", "any")])
+def test_sweep8_culled_bits_equal_plain(culled_tables, cuda, kind, mode,
+                                        order):
+    """K4 with per-warp group culling, closest hit, any-hit and group
+    modes, on the bin-sorted pool and on the same pool shuffled (warps of
+    unrelated lanes), bit for bit; group mode's raw hits equal the plain
+    mode's."""
+    tables = culled_tables[kind]
+    pool = _sorted_pool(tables, 4000, 34, 4, cuda)
+    if order == "shuffled":
+        pool = _shuffled(pool, 35)
+    o, d, t_max, s_o, s_t = pool
+    if mode == "any":
+        t_max = torch.where(t_max > 0, torch.clamp_max(t_max, 6.0), t_max)
+    kw = dict(unroll=tables.chunk_align, any_hit=mode == "any",
+              use_groups=mode == "groups")
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = sw.sweep8_closest_hit(tables, o, d, t_max, s_o, s_t, stats=stats,
+                                **kw)
+    _bits_equal_hits(got, sw.sweep8_closest_hit_plain(tables, o, d, t_max,
+                                                      s_o, s_t, **kw))
+    if mode == "groups":
+        _bits_equal_hits(got, sw.sweep8_closest_hit(
+            tables, o, d, t_max, s_o, s_t, unroll=tables.chunk_align))
+    assert int(stats[2]) == int((t_max > 0).sum())
+    assert bool((got.tri >= 0).any())
+
+
+def test_sweep8_culled_tests_at_most_the_union(culled_tables, cuda):
+    """The triangle tests K4 makes (stats[1]) are at most those of a sweep
+    of each block's whole walked union, and above the need."""
+    from torch_sweep_walk import union_tests
+
+    tables = culled_tables["grouped"]
+    o, d, t_max, s_o, s_t = _sorted_pool(tables, 2048, 36, 4, cuda)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    hits = sw.sweep8_closest_hit(tables, o, d, t_max, s_o, s_t, unroll=4,
+                                 stats=stats)
+    union = union_tests(tables, o, d, t_max, s_o, s_t, sw.LANES,
+                        tables.unroll)
+    need = sw.sweep_need(tables, o, d, t_max, s_o, s_t, hits)
+    assert need[0] <= int(stats[1]) <= union
+    assert int(stats[1]) < union
+
+
+def test_sweep8_warps_on_disjoint_treelets(culled_tables, cuda):
+    """One 128-lane block whose four warps each demand their own 8
+    treelets from origins inside them: the block walks all 32, each warp
+    tests only the groups its lanes enter, and the hits are the plain
+    sweep's, bit for bit."""
+    tables = culled_tables["grouped"]
+    boxes = tables.boxes.cpu()
+    rs = np.random.default_rng(37)
+    ords = rs.permutation(tables.num_treelets)[:32].reshape(4, 8)
+    lane_ord = np.repeat(ords, 4, axis=1).reshape(-1)        # [128]
+    b = boxes[torch.from_numpy(lane_ord).long()]
+    o = (b[:, :3] + (b[:, 3:6] - b[:, :3])
+         * torch.from_numpy(rs.uniform(0.2, 0.8, (128, 3))).float())
+    dd = torch.from_numpy(rs.normal(size=(128, 3))).float()
+    dd /= dd.norm(dim=1, keepdim=True)
+    v = lambda a: Vec3(a[:, 0].contiguous().to(cuda),
+                       a[:, 1].contiguous().to(cuda),
+                       a[:, 2].contiguous().to(cuda))
+    o, dd = v(o), v(dd)
+    t_max = torch.full((128,), 3.4e38, device=cuda)
+    s_o = torch.full((4, 128), sw.NONE_ORD, dtype=torch.int32)
+    s_o[0] = torch.from_numpy(lane_ord)
+    s_o = s_o.to(cuda)
+    s_t = torch.where(s_o == sw.NONE_ORD, 3.0e38, 0.0).float()
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = sw.sweep8_closest_hit(tables, o, dd, t_max, s_o, s_t, unroll=4,
+                                stats=stats)
+    _bits_equal_hits(got, sw.sweep8_closest_hit_plain(tables, o, dd, t_max,
+                                                      s_o, s_t, unroll=4))
+    assert int(stats[0]) == 32
+    rows = int(tables.ranges[torch.from_numpy(ords.reshape(-1)).long().to(
+        cuda), 1].sum()) * tables.unroll
+    assert int(stats[1]) < rows * 128
+    assert bool((got.tri >= 0).any())
+
+
+@pytest.mark.parametrize("kind", ["grouped", "tail"])
+@pytest.mark.parametrize("mode", ["demand", "all", "any"])
+def test_sweep_lane_culled_bits_equal_plain(culled_tables, cuda, kind, mode):
+    """K7 on the culled template (1024-lane blocks), with and without
+    entry planes and in any-hit mode, bit for bit."""
+    tables = culled_tables[kind]
+    o, d, t_max, s_o, s_t = _sorted_pool(tables, 5000, 38, 4, cuda)
+    if mode == "any":
+        t_max = torch.where(t_max > 0, torch.clamp_max(t_max, 6.0), t_max)
+    entry = None if mode == "all" else s_t
+    got = sw.sweep_closest_hit(tables, o, d, t_max, s_o, entry,
+                               any_hit=mode == "any")
+    _bits_equal_hits(got, sw.sweep_closest_hit_plain(
+        tables, o, d, t_max, s_o, entry, any_hit=mode == "any"))
+    assert bool((got.tri >= 0).any())
 
 
 # ---------------------------------------------------------------------------

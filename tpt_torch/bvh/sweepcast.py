@@ -10,8 +10,9 @@ pipeline. Counterpart of `tpt/bvh/sweepcast.py`.
    The wavefront folds it into its pool sort (`wavefront._sweep_bin_sort`);
    `sweep_cast` does it itself.
 3. SWEEP, demand mode: K4 `sweep.sweep8_closest_hit` over 128-lane
-   blocks (kernel "sublane"; with `groups`, its group-window culling), or
-   K7 `sweep.sweep_closest_hit` over 1024-lane blocks (kernel "lane").
+   blocks (kernel "sublane"; with `groups`, tpt's group-window mode), or
+   K7 `sweep.sweep_closest_hit` over 1024-lane blocks (kernel "lane");
+   the kernels cull each warp's rows by group boxes in every mode.
 4. RESOLUTION: a lane is exact iff its best t <= thr (no uncaptured
    candidate can beat it) or thr is 3e38 (the slots held every
    candidate).

@@ -180,7 +180,9 @@ class RenderConfig:
     # group-window culling in the sublane sweep kernel: slab-test each
     # treelet's 8 group sub-AABBs (SweepTables.group_boxes) per 128-ray
     # block and trim the dense MT range to the [first, last] hit groups.
-    # Results identical (tests); default off until the TPU A/B lands
+    # Results identical (tests); default off until the TPU A/B lands.
+    # The port's kernels cull by group boxes per warp whatever this says
+    # (the same raw hits); it selects tpt's path and its launch count
     sweep_groups: bool = False
     # split-mode seed-sort shape (the TPU backend compiler has an operand
     # cliff: 20-operand pool sorts compile in ~6 min, 31-operand never

@@ -8,149 +8,207 @@
 //   K7 tpt_sweep_closest_hit  <- sweep_closest_hit  (:168, :216): demand
 //                                or not, closest hit or any-hit
 //
-// K3, dense_scan_kernel. One thread per ray slab-tests every treelet box
-// (SweepTables.boxes [T, 8]) and keeps its S nearest candidates in
-// ascending (entry t, ordinal) order in registers, plus thr, the smallest
-// entry t of every candidate it rejected or displaced. Every thread of a
-// block reads the same box at the same time, so the boxes are staged in
-// shared memory in tiles of SCAN_TILE boxes (24 KB), and any T fits.
-// Bound: operations (T slab tests per ray; a ray reads 28 bytes and
-// writes 8S+4). The arithmetic is the Pallas kernel's, operation for
-// operation (pallas_sweep.py:278-322), with min/max that propagate NaN
-// as jnp.minimum does: CUDA's fminf/fmaxf drop a NaN, which would give a
-// ray with a NaN origin candidates that tpt never gives it.
+// K3, dense_scan_kernel. Each thread carries SCAN_RAYS rays and
+// slab-tests every treelet box (SweepTables.boxes [T, 8]) against each,
+// keeping for each ray its S nearest candidates in ascending (entry t,
+// ordinal) order in registers, plus thr, the smallest entry t of every
+// candidate it rejected or displaced. Bound: operations (T slab tests a
+// ray: 6 sub, 6 mul, 12 min/max, compares; a ray reads 28 bytes and
+// writes 8S+4). So the design spends as few instructions as it can
+// beside those: every thread of a block reads the same box at the same
+// time, so the boxes are staged in shared memory, 1024 a tile (32 KB, any
+// T fits), each as the two float4 of its [8]-float row, and read with two
+// 128-bit broadcast loads that serve all SCAN_RAYS rays of the thread;
+// min/max are one instruction each (ray_common.cuh: PTX min.NaN/max.NaN,
+// which propagate NaN as jnp.minimum does, so a ray with a NaN origin
+// gets no candidate). A ray slot whose lanes are dead across the whole
+// warp skips the arithmetic. The arithmetic is the Pallas kernel's,
+// operation for operation (pallas_sweep.py:278-322).
 //
 // K4 and K7, sweep_kernel. One block per LANES consecutive pool lanes,
 // one thread per lane: 128 for K4 (the Pallas kernel's [1, 128] block),
-// 1024 for K7 (its [8, 128] block). A lane is tested against every
-// treelet of its block's demand union, not only its own, so the raw
-// result depends on the block, and K7's union is larger than K4's (the
-// pipeline's tail makes the final hits exact either way). The block
-// walks the union in ascending ordinal: cur = the smallest ordinal > cur
-// that some lane still demands (slot k is demanded while entry_t[k] is
-// below the lane's budget, its best t; without entry planes every
-// requested slot is), found by a warp shuffle reduction and a step over
-// the warps in shared memory, so cur is uniform and __syncthreads is
-// safe. Each treelet's rows are staged in shared memory (9 of the 16
-// columns, tiles of SWEEP_TILE_ROWS rows) and every thread runs
-// Moller-Trumbore over them in ascending row order, taking a hit only if
-// t < best. Since sweep_tables lays treelets out by ascending ordinal,
-// this serial first minimum is the smallest packed row among equal t:
-// K7's serial scan (:118-131) and K4's per-sublane reduction (:600-616)
-// pick the same, so kernel and Pallas kernel agree bit for bit.
+// 1024 for K7 (its [8, 128] block). The contract is tpt's: a lane is
+// tested against its block's demand union, not only its own treelets, so
+// the raw result depends on the block (the pipeline's tail makes the
+// final hits exact either way). The block walks the union in ascending
+// ordinal: cur = the smallest ordinal > cur that some lane still demands
+// (slot k is demanded while entry_t[k] is below the lane's budget, its
+// best t; without entry planes every requested slot is), found by a warp
+// shuffle reduction and a step over the warps in shared memory, so cur is
+// uniform and __syncthreads is safe.
+//   Bound: operations, the Moller-Trumbore tests a lane's result needs.
+// So inside the union each warp tests only the rows one of its own lanes
+// can hit. Before a treelet is swept, every live lane slab-tests its 8
+// group boxes (SweepTables.group_boxes: chunks [g*chunk_align,
+// (g+1)*chunk_align) of the treelet, inflated 1e-6 relative) at its best
+// t; a warp ORs its lanes' masks (__reduce_or_sync), and the block ORs the
+// warps'. The block stages only the rows of groups some warp enters, and
+// each warp runs Moller-Trumbore only over the groups one of its lanes
+// enters; the rows past the 8th group (a treelet of more than
+// 8*chunk_align chunks) and, without group boxes, all rows are swept by
+// every warp with a live lane. A group a lane does not enter at its best
+// t holds no triangle it could take (a hit needs t < best), so every
+// lane's best t and row after each treelet are those of a sweep of all
+// the treelet's rows, and so, by induction over the ordinals, is the
+// union walked: group culling leaves the raw result unchanged, and tpt's
+// group mode (a window of groups for the whole block) is the same code.
+// Rows go to shared memory with cp.async (3 x 16 bytes, the 9 floats of
+// a row and its id), in two buffers of SWEEP_TILE_ROWS rows: the next
+// tile loads while the current one is tested. A lane tests its rows in
+// ascending packed row and takes a hit only if t < best; since
+// sweep_tables lays treelets out by ascending ordinal, this serial first
+// minimum is the smallest packed row among equal t, which K7's serial
+// scan (:118-131) and K4's per-sublane reduction (:600-616) pick too, so
+// kernel and Pallas kernel agree bit for bit.
 //   Any-hit mode: after each treelet a lane with a hit before
 // t_max - 1e-3 sets its budget to -3.4e38, so it demands nothing more;
-// it keeps testing the rows its block still sweeps, as tpt's lane does.
-//   Group mode (K4): before each treelet every lane, dead and padded
-// lanes too, slab-tests the treelet's 8 group boxes at its best t; the
-// block sweeps only the rows from the first to the last group some lane
-// enters, clamped to the treelet's rows (:542-583). The rows it skips
-// can hold no hit below any lane's best, so the raw result is the
-// ungrouped one.
-// Bound: operations (rows x lanes triangle tests per treelet of the
-// union; the tables sit in the 50 MB L2).
+// it keeps testing the rows its warp sweeps, as tpt's lane does.
 //
-// All are simple kernels that are right; making them fast (warp-level
-// candidate compaction, splitting large unions across blocks) is later
-// work. Dead lanes (t_max <= 0) skip the arithmetic but take part in the
+// Dead lanes (t_max <= 0) skip the arithmetic but take part in the
 // block's barriers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "ray_common.cuh"
 
 #define NONE_ORD 0x7FFFFF
 #define SCAN_BLOCK 128
-#define SCAN_TILE 1024        // boxes per shared tile: 1024 x 6 x 4 B = 24 KB
+// rays a K3 thread carries: 1, 2 and 4 ran within a few percent of each
+// other on an H100 (the min/max bound K3, not the box loads)
+#define SCAN_RAYS 2
+#define SCAN_TILE 1024        // boxes per shared tile: 1024 x 32 B = 32 KB
 #define SCAN_INF 3.0e38f      // pallas_sweep.py _INF
-#define SWEEP8_LANES 128     // K4's block: tpt's [1, 128] tile
-#define SWEEP_LANES 1024     // K7's block: tpt's [8, 128] tile
-#define SWEEP_TILE_ROWS 256   // rows per shared tile: 256 x 9 x 4 B = 9 KB
+#define SWEEP8_LANES 128      // K4's block: tpt's [1, 128] tile
+#define SWEEP_LANES 1024      // K7's block: tpt's [8, 128] tile
+#define SWEEP_TILE_ROWS 128   // rows per shared tile: 128 x 48 B = 6 KB
 #define MISS_T 3.4e38f        // FLT_MAX of tpt/integrators/intersect.py
 #define MAX_SLOTS 8
+#define GROUPS 8              // group boxes a treelet (SweepTables.group_boxes)
+#define REST GROUPS           // segment of the rows past the groups
+#define FULL_MASK 0xffffffffu
 
 namespace {
 
+// one slab test of box (lo.xyz, (lo.w, hi.x, hi.y)) against a ray at
+// limit `bt`: (entry t, exit t); the box is entered iff tn <= tf
+__device__ __forceinline__ void slab(float4 lo, float4 hi, float ox,
+                                     float oy, float oz, float ix, float iy,
+                                     float iz, float bt, float* tn,
+                                     float* tf) {
+  const float t0x = (lo.x - ox) * ix;
+  const float t0y = (lo.y - oy) * iy;
+  const float t0z = (lo.z - oz) * iz;
+  const float t1x = (lo.w - ox) * ix;
+  const float t1y = (hi.x - oy) * iy;
+  const float t1z = (hi.y - oz) * iz;
+  *tn = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)),
+             nmax(nmin(t0z, t1z), 0.0f));
+  *tf = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)),
+             nmin(nmax(t0z, t1z), bt));
+}
+
+// K3's slot insert: (tn, ordinal) into S slots in (t, ordinal) order; the
+// displaced or rejected entry lowers thr
 template <int S>
+__device__ __forceinline__ void insert(float (&st)[S], int (&so)[S],
+                                       float& thr, float tn, int ordinal) {
+  if (!(tn <= st[S - 1])) {  // rejected: the slots hold S nearer
+    thr = nmin(thr, tn);
+    return;
+  }
+  float ct = tn;
+  int co = ordinal;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const bool swap = ct < st[k] || (ct == st[k] && co < so[k]);
+    const float tt = swap ? st[k] : ct;
+    const int oo = swap ? so[k] : co;
+    st[k] = swap ? ct : st[k];
+    so[k] = swap ? co : so[k];
+    ct = tt;
+    co = oo;
+  }
+  if (co != NONE_ORD) thr = nmin(thr, ct);
+}
+
+// rays of a K3 block: lane j of thread x is pool lane
+// blockIdx.x * SCAN_BLOCK * R + j * SCAN_BLOCK + x (coalesced loads and
+// stores)
+template <int S, int R>
 __global__ void __launch_bounds__(SCAN_BLOCK) dense_scan_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tmax, int n, const float* __restrict__ boxes,
+    const float* __restrict__ tmax, int n, const float4* __restrict__ boxes,
     int T, float* __restrict__ st_out, int* __restrict__ so_out,
     float* __restrict__ thr_out, unsigned long long* __restrict__ stats) {
-  __shared__ float sbox[SCAN_TILE * 6];
-  const int i = blockIdx.x * SCAN_BLOCK + threadIdx.x;
-  const bool in = i < n;
-  Ray r{};
-  float bt = 0.0f;
-  if (in) {
-    r = load_ray(ox, oy, oz, dx, dy, dz, i);
-    float tm = tmax[i];
-    tm = tm > 0.0f ? tm : 0.0f;
-    bt = nmin(tm, SCAN_INF);
-  }
-  // a ray with bt = 0 can have no candidate: tn >= 0 (or NaN) < 0 fails
-  const bool live = bt > 0.0f;
-  if (stats) {
-    int nlive = __syncthreads_count(live);
-    if (threadIdx.x == 0)
-      atomicAdd(stats, (unsigned long long)nlive * (unsigned long long)T);
-  }
-  float st[S];
-  int so[S];
+  __shared__ float4 sbox[2 * SCAN_TILE];
+  const int first = blockIdx.x * (SCAN_BLOCK * R) + threadIdx.x;
+  float rox[R], roy[R], roz[R], rix[R], riy[R], riz[R], bt[R], thr[R];
+  float st[R][S];
+  int so[R][S];
+  unsigned warp_live = 0;  // bit j: some lane of the warp has ray j live
+  int nlive = 0;
 #pragma unroll
-  for (int k = 0; k < S; ++k) { st[k] = SCAN_INF; so[k] = NONE_ORD; }
-  float thr = SCAN_INF;
+  for (int j = 0; j < R; ++j) {
+    const int i = first + j * SCAN_BLOCK;
+    rox[j] = roy[j] = roz[j] = rix[j] = riy[j] = riz[j] = 0.0f;
+    bt[j] = 0.0f;
+    if (i < n) {
+      const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+      rox[j] = r.ox; roy[j] = r.oy; roz[j] = r.oz;
+      rix[j] = r.ix; riy[j] = r.iy; riz[j] = r.iz;
+      float tm = tmax[i];
+      tm = tm > 0.0f ? tm : 0.0f;
+      bt[j] = nmin(tm, SCAN_INF);
+    }
+    // a ray with bt = 0 can have no candidate: tn >= 0 (or NaN) < 0 fails
+    const bool live = bt[j] > 0.0f;
+    nlive += live;
+    if (__any_sync(FULL_MASK, live)) warp_live |= 1u << j;
+    thr[j] = SCAN_INF;
+#pragma unroll
+    for (int k = 0; k < S; ++k) { st[j][k] = SCAN_INF; so[j][k] = NONE_ORD; }
+  }
+  if (stats) {
+    const int w = __reduce_add_sync(FULL_MASK, nlive);
+    if ((threadIdx.x & 31) == 0 && w)
+      atomicAdd(stats, (unsigned long long)w * (unsigned long long)T);
+  }
 
   for (int base = 0; base < T; base += SCAN_TILE) {
     const int cnt = min(SCAN_TILE, T - base);
     __syncthreads();  // the previous tile's readers are done
-    for (int k = threadIdx.x; k < cnt * 6; k += SCAN_BLOCK)
-      sbox[k] = boxes[(size_t)(base + k / 6) * 8 + k % 6];
+    for (int k = threadIdx.x; k < 2 * cnt; k += SCAN_BLOCK)
+      sbox[k] = __ldg(boxes + 2 * (size_t)base + k);
     __syncthreads();
-    if (!live) continue;
+    if (!warp_live) continue;
     for (int b = 0; b < cnt; ++b) {
-      const float* bx = sbox + 6 * b;
-      float t0x = (bx[0] - r.ox) * r.ix;
-      float t0y = (bx[1] - r.oy) * r.iy;
-      float t0z = (bx[2] - r.oz) * r.iz;
-      float t1x = (bx[3] - r.ox) * r.ix;
-      float t1y = (bx[4] - r.oy) * r.iy;
-      float t1z = (bx[5] - r.oz) * r.iz;
-      float tn = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)),
-                      nmax(nmin(t0z, t1z), 0.0f));
-      float tf = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)),
-                      nmin(nmax(t0z, t1z), bt));
-      if (!(tn <= tf && tn < bt)) continue;
-      if (!(tn <= st[S - 1])) {  // rejected: the slots hold S nearer
-        thr = nmin(thr, tn);
-        continue;
-      }
-      // insert (tn, ordinal) in lex order; the displaced entry falls out
-      float ct = tn;
-      int co = base + b;
+      const float4 lo = sbox[2 * b], hi = sbox[2 * b + 1];
 #pragma unroll
-      for (int k = 0; k < S; ++k) {
-        bool swap = ct < st[k] || (ct == st[k] && co < so[k]);
-        float tt = swap ? st[k] : ct;
-        int oo = swap ? so[k] : co;
-        st[k] = swap ? ct : st[k];
-        so[k] = swap ? co : so[k];
-        ct = tt;
-        co = oo;
+      for (int j = 0; j < R; ++j) {
+        if (!(warp_live >> j & 1u)) continue;  // uniform over the warp
+        float tn, tf;
+        slab(lo, hi, rox[j], roy[j], roz[j], rix[j], riy[j], riz[j], bt[j],
+             &tn, &tf);
+        if (tn <= tf && tn < bt[j]) insert<S>(st[j], so[j], thr[j], tn,
+                                              base + b);
       }
-      if (co != NONE_ORD) thr = nmin(thr, ct);
     }
   }
-  if (!in) return;
 #pragma unroll
-  for (int k = 0; k < S; ++k) {
-    st_out[(size_t)k * n + i] = st[k];
-    so_out[(size_t)k * n + i] = so[k];
+  for (int j = 0; j < R; ++j) {
+    const int i = first + j * SCAN_BLOCK;
+    if (i >= n) continue;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      st_out[(size_t)k * n + i] = st[j][k];
+      so_out[(size_t)k * n + i] = so[j][k];
+    }
+    thr_out[i] = thr[j];
   }
-  thr_out[i] = thr;
 }
 
 // block-wide min of v over LANES threads; the result is the same for
@@ -159,7 +217,7 @@ template <int LANES>
 __device__ __forceinline__ int block_min(int v, int* swarp) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = min(v, __shfl_xor_sync(FULL_MASK, v, off));
   __syncthreads();  // earlier readers of swarp are done
   if ((threadIdx.x & 31) == 0) swarp[threadIdx.x >> 5] = v;
   __syncthreads();
@@ -169,9 +227,73 @@ __device__ __forceinline__ int block_min(int v, int* swarp) {
   return m;
 }
 
+// 16 bytes global -> shared without a register round trip (cp.async.cg:
+// cached in L2 only); a host compile (a CPU emulation) copies directly
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
+}
+
+// the rows of a treelet in segments: group g < GROUPS holds rows
+// [g * group_rows, min((g + 1) * group_rows, nrows)), REST the rows from
+// rest0 on (past the groups; all rows without group boxes)
+struct Segments {
+  int nrows, group_rows, rest0;
+  __device__ __forceinline__ int lo(int g) const {
+    return g == REST ? rest0 : g * group_rows;
+  }
+  __device__ __forceinline__ int hi(int g) const {
+    return g == REST ? nrows : min((g + 1) * group_rows, nrows);
+  }
+};
+
+// packed row of the v-th row over the segments in `mask`, in order
+__device__ __forceinline__ int segment_row(const Segments& sg,
+                                           unsigned mask, int v) {
+  for (int g = 0; g <= REST; ++g) {
+    if (!(mask >> g & 1u)) continue;
+    const int size = sg.hi(g) - sg.lo(g);
+    if (v < size) return sg.lo(g) + v;
+    v -= size;
+  }
+  return -1;
+}
+
+// stage tile k of the rows of the segments in `mask` (rows
+// k*SWEEP_TILE_ROWS.. in their order): one row a thread, as one copy group
+__device__ __forceinline__ void stage_rows(float4* dst, const float* rows,
+                                           const Segments& sg, unsigned mask,
+                                           int k, int total) {
+  const int v = k * SWEEP_TILE_ROWS + (int)threadIdx.x;
+  if (threadIdx.x < SWEEP_TILE_ROWS && v < total) {
+    const float* src = rows + (size_t)segment_row(sg, mask, v) * 16;
+    dst += 3 * threadIdx.x;
+    copy16(dst, src);
+    copy16(dst + 1, src + 4);
+    copy16(dst + 2, src + 8);
+  }
+  copy_commit();
+}
+
 // the ray of a lane past n: tpt pads its tiles with zero origins and
-// directions and t_max 0 (pallas_sweep.py:_tile), and such a lane still
-// takes part in K4's group test
+// directions and t_max 0 (pallas_sweep.py:_tile)
 __device__ __forceinline__ Ray pad_ray() {
   Ray r{};
   r.ix = r.iy = r.iz = safe_inv(0.0f);
@@ -182,9 +304,8 @@ __device__ __forceinline__ Ray pad_ray() {
 // K4 and K7: the demand sweep over blocks of LANES consecutive lanes.
 // `entry` null sweeps every requested ordinal (no demand drop);
 // `any_hit` drops a lane's remaining demand once it holds a hit before
-// t_max - 1e-3; `gbox` non-null trims each treelet's rows to the window
-// of its 8 group boxes that some lane of the block enters (K4's group
-// mode; `chunk_align` chunks a group).
+// t_max - 1e-3; `gbox` (SweepTables.group_boxes, null for none) culls
+// each warp's rows to the groups of group_rows rows that its lanes enter.
 template <int S, int LANES>
 __global__ void __launch_bounds__(LANES) sweep_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
@@ -193,15 +314,17 @@ __global__ void __launch_bounds__(LANES) sweep_kernel(
     const float* __restrict__ tmax, int n, const int* __restrict__ ord,
     const float* __restrict__ entry, const int* __restrict__ ranges,
     const float* __restrict__ tri, int rows_per_chunk, int any_hit,
-    const float* __restrict__ gbox, int chunk_align,
+    const float4* __restrict__ gbox, int group_rows,
     float* __restrict__ t_out, int* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     unsigned long long* __restrict__ stats) {
-  __shared__ float srow[SWEEP_TILE_ROWS * 9];
+  // a row: (v0x v0y v0z e1x) (e1y e1z e2x e2y) (e2z id - -)
+  __shared__ float4 srow[2][SWEEP_TILE_ROWS * 3];
   __shared__ int swarp[LANES / 32];
+  __shared__ unsigned smask[LANES / 32];
   const int i = blockIdx.x * LANES + threadIdx.x;
   const bool in = i < n;
-  Ray r = in ? load_ray(ox, oy, oz, dx, dy, dz, i) : pad_ray();
+  const Ray r = in ? load_ray(ox, oy, oz, dx, dy, dz, i) : pad_ray();
   float tm = 0.0f;
   int o[S];
   float e[S];
@@ -223,7 +346,7 @@ __global__ void __launch_bounds__(LANES) sweep_kernel(
   float budget = bt;             // what the demand test holds entries to
   int brow = -1;
   float bu = 0.0f, bv = 0.0f;
-  unsigned long long sweeps = 0, rows_swept = 0;
+  unsigned long long sweeps = 0, tested = 0;
   int cur = -1;
   while (true) {
     int mine = NONE_ORD;
@@ -232,72 +355,91 @@ __global__ void __launch_bounds__(LANES) sweep_kernel(
       if (o[k] > cur && (!entry || e[k] < budget)) mine = min(mine, o[k]);
     cur = block_min<LANES>(mine, swarp);
     if (cur >= NONE_ORD) break;
-    const int start = ranges[2 * cur];
-    const int nchunks = ranges[2 * cur + 1];
-    int r0 = 0, r1 = nchunks * rows_per_chunk;
-    if (gbox) {
-      // slab-test the treelet's 8 group boxes against this lane at its
-      // best t (pallas_sweep.py:550-581); every lane takes part
-      int first = 8, last = -1;
-      const float* gb = gbox + (size_t)cur * 64;
-      for (int g = 0; g < 8; ++g) {
-        const float* b = gb + 8 * g;
-        float t0x = (__ldg(b + 0) - r.ox) * r.ix;
-        float t0y = (__ldg(b + 1) - r.oy) * r.iy;
-        float t0z = (__ldg(b + 2) - r.oz) * r.iz;
-        float t1x = (__ldg(b + 3) - r.ox) * r.ix;
-        float t1y = (__ldg(b + 4) - r.oy) * r.iy;
-        float t1z = (__ldg(b + 5) - r.oz) * r.iz;
-        float tn = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)),
-                        nmax(nmin(t0z, t1z), 0.0f));
-        float tf = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)),
-                        nmin(nmax(t0z, t1z), bt));
-        if (tn <= tf) {
-          first = min(first, g);
-          last = g;
-        }
-      }
-      first = block_min<LANES>(first, swarp);
-      last = -block_min<LANES>(-last, swarp);
-      // rows of groups first..last, clamped to the treelet's own; none
-      // entered (first 8, last -1) leaves r0 > r1: nothing to sweep
-      r0 = first * chunk_align * rows_per_chunk;
-      r1 = min((last + 1) * chunk_align, nchunks) * rows_per_chunk;
-    }
     ++sweeps;
-    if (r1 > r0) rows_swept += r1 - r0;
-    for (int base = r0; base < r1; base += SWEEP_TILE_ROWS) {
-      const int cnt = min(SWEEP_TILE_ROWS, r1 - base);
-      __syncthreads();  // the previous tile's readers are done
-      for (int k = threadIdx.x; k < cnt * 9; k += LANES)
-        srow[k] = tri[(size_t)(start + base + k / 9) * 16 + k % 9];
-      __syncthreads();
-      if (!live) continue;
-      for (int q = 0; q < cnt; ++q) {
-        const float* w = srow + 9 * q;
-        float t, u, v;
-        if (mt_tri(w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], r,
-                   &t, &u, &v) &&
-            t < bt) {
-          bt = t;
-          brow = start + base + q;
-          bu = u;
-          bv = v;
+    const int start = ranges[2 * cur];
+    Segments sg;
+    sg.nrows = ranges[2 * cur + 1] * rows_per_chunk;
+    sg.group_rows = group_rows;
+    sg.rest0 = gbox ? min(GROUPS * group_rows, sg.nrows) : 0;
+    // this lane's groups: those whose box it enters at its best t
+    unsigned m = 0;
+    if (live) {
+      if (gbox) {
+        const float4* gb = gbox + (size_t)cur * 2 * GROUPS;
+        for (int g = 0; g < GROUPS && g * group_rows < sg.nrows; ++g) {
+          float tn, tf;
+          slab(__ldg(gb + 2 * g), __ldg(gb + 2 * g + 1), r.ox, r.oy, r.oz,
+               r.ix, r.iy, r.iz, bt, &tn, &tf);
+          if (tn <= tf) m |= 1u << g;
         }
       }
+      if (sg.rest0 < sg.nrows) m |= 1u << REST;
+    }
+    const unsigned wm = __reduce_or_sync(FULL_MASK, m);  // this warp's
+    if ((threadIdx.x & 31) == 0) smask[threadIdx.x >> 5] = wm;
+    __syncthreads();
+    unsigned bm = 0;                                     // the block's
+#pragma unroll
+    for (int w = 0; w < LANES / 32; ++w) bm |= smask[w];
+    int total = 0;
+    for (int g = 0; g <= REST; ++g)
+      if (bm >> g & 1u) total += sg.hi(g) - sg.lo(g);
+    const int ntiles = (total + SWEEP_TILE_ROWS - 1) / SWEEP_TILE_ROWS;
+    const float* rows = tri + (size_t)start * 16;
+    if (ntiles > 0) stage_rows(srow[0], rows, sg, bm, 0, total);
+    for (int k = 0; k < ntiles; ++k) {
+      if (k + 1 < ntiles) {
+        stage_rows(srow[(k + 1) & 1], rows, sg, bm, k + 1, total);
+        copy_wait<1>();
+      } else {
+        copy_wait<0>();
+      }
+      __syncthreads();  // tile k is in shared memory for every thread
+      const int tb = k * SWEEP_TILE_ROWS;
+      const int te = min(tb + SWEEP_TILE_ROWS, total);
+      const float4* buf = srow[k & 1];
+      int v0 = 0;  // this segment's first row in the block's order
+      for (int g = 0; g <= REST; ++g) {
+        if (!(bm >> g & 1u)) continue;
+        const int lo = sg.lo(g), size = sg.hi(g) - lo;
+        const int a = max(v0, tb), b = min(v0 + size, te);
+        if (a < b && (wm >> g & 1u) && live) {
+          tested += b - a;
+          for (int v = a; v < b; ++v) {
+            const float4* w = buf + 3 * (v - tb);
+            const float4 p = w[0], q = w[1], s = w[2];
+            float t, u, vv;
+            if (mt_tri(p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w, s.x, r, &t,
+                       &u, &vv) &&
+                t < bt) {
+              bt = t;
+              brow = start + lo + (v - v0);
+              bu = u;
+              bv = vv;
+            }
+          }
+        }
+        v0 += size;
+      }
+      // the buffer read here is refilled two tiles on
+      if (k + 2 < ntiles) __syncthreads();
     }
     // an occluded lane (a hit before t_max - 1e-3) demands nothing more
-    // but keeps testing the rows its block sweeps (pallas_sweep.py:136-141,
+    // but keeps testing the rows its warp sweeps (pallas_sweep.py:136-141,
     // :587-594)
     budget = (any_hit && bt < tm - 1e-3f) ? -MISS_T : bt;
   }
   if (stats) {
-    int nlive = __syncthreads_count(live);
-    if (threadIdx.x == 0) {
-      atomicAdd(stats + 0, sweeps);
-      atomicAdd(stats + 1, rows_swept * (unsigned long long)nlive);
-      atomicAdd(stats + 2, (unsigned long long)nlive);
+    unsigned long long w = tested;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      w += __shfl_xor_sync(FULL_MASK, w, off);
+    const int nl = __popc(__ballot_sync(FULL_MASK, live));
+    if ((threadIdx.x & 31) == 0) {
+      if (w) atomicAdd(stats + 1, w);
+      if (nl) atomicAdd(stats + 2, (unsigned long long)nl);
     }
+    if (threadIdx.x == 0) atomicAdd(stats + 0, sweeps);
   }
   if (!in) return;
   const bool found = brow >= 0;
@@ -313,9 +455,11 @@ int launch_scan(const float* ox, const float* oy, const float* oz,
                 const float* tmax, int n, const float* boxes, int T,
                 float* st, int* so, float* thr, unsigned long long* stats,
                 cudaStream_t stream) {
-  dense_scan_kernel<S><<<(n + SCAN_BLOCK - 1) / SCAN_BLOCK, SCAN_BLOCK, 0,
-                         stream>>>(ox, oy, oz, dx, dy, dz, tmax, n, boxes, T,
-                                   st, so, thr, stats);
+  const int per_block = SCAN_BLOCK * SCAN_RAYS;
+  dense_scan_kernel<S, SCAN_RAYS><<<(n + per_block - 1) / per_block,
+                                    SCAN_BLOCK, 0, stream>>>(
+      ox, oy, oz, dx, dy, dz, tmax, n, (const float4*)boxes, T, st, so, thr,
+      stats);
   return (int)cudaGetLastError();
 }
 
@@ -339,13 +483,14 @@ template <int S, int LANES>
 int launch_sweep(const SweepArgs& a, cudaStream_t stream) {
   sweep_kernel<S, LANES><<<(a.n + LANES - 1) / LANES, LANES, 0, stream>>>(
       a.ox, a.oy, a.oz, a.dx, a.dy, a.dz, a.tmax, a.n, a.ord, a.entry,
-      a.ranges, a.tri, a.rows_per_chunk, a.any_hit, a.gbox, a.chunk_align,
-      a.t, a.tri_id, a.u, a.v, a.stats);
+      a.ranges, a.tri, a.rows_per_chunk, a.any_hit, (const float4*)a.gbox,
+      a.chunk_align * a.rows_per_chunk, a.t, a.tri_id, a.u, a.v, a.stats);
   return (int)cudaGetLastError();
 }
 
 template <int LANES>
 int sweep_slots(int S, const SweepArgs& a, cudaStream_t s) {
+  if (a.gbox && a.chunk_align <= 0) return (int)cudaErrorInvalidValue;
 #define SWEEP_CASE(K) \
   case K:             \
     return launch_sweep<K, LANES>(a, s);
@@ -363,10 +508,11 @@ extern "C" {
 
 int tpt_sweep_max_slots() { return MAX_SLOTS; }
 
-// All pointers are device pointers; `stream` is a cudaStream_t. Slot
-// planes are [S, n] row-major. `stats`, if not null, accumulates the slab
-// tests of live rays. Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue for S outside 1..MAX_SLOTS.
+// All pointers are device pointers, the tables' 16-byte aligned;
+// `stream` is a cudaStream_t. Slot planes are [S, n] row-major. `stats`,
+// if not null, accumulates the slab tests of live rays. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for S outside 1..MAX_SLOTS.
 int tpt_dense_scan(const float* ox, const float* oy, const float* oz,
                    const float* dx, const float* dy, const float* dz,
                    const float* tmax, int n, const float* boxes, int T, int S,
@@ -387,11 +533,11 @@ int tpt_dense_scan(const float* ox, const float* oy, const float* oz,
 }
 
 // K4 (128-lane blocks) and K7 (1024-lane blocks). `entry` null: every
-// requested ordinal is swept; `any_hit` nonzero: the any-hit
-// demand drop; `gbox` non-null (K4 only): group-window culling with
-// `chunk_align` chunks a group. `stats`, if not null, accumulates
-// (treelet sweeps summed over blocks, triangle tests of live lanes, live
-// lanes).
+// requested ordinal is swept; `any_hit` nonzero: the any-hit demand
+// drop; `gbox` non-null: per-warp group culling with `chunk_align`
+// chunks a group (null: every warp with a live lane sweeps every row of
+// the union). `stats`, if not null, accumulates (treelet sweeps summed
+// over blocks, triangle tests made by live lanes, live lanes).
 int tpt_sweep8_closest_hit(const float* ox, const float* oy, const float* oz,
                            const float* dx, const float* dy, const float* dz,
                            const float* tmax, int n, int S, const int* ord,
@@ -412,11 +558,13 @@ int tpt_sweep_closest_hit(const float* ox, const float* oy, const float* oz,
                           const float* tmax, int n, int S, const int* ord,
                           const float* entry, const int* ranges,
                           const float* tri, int rows_per_chunk, int any_hit,
-                          float* t, int* tri_id, float* u, float* v,
+                          const float* gbox, int chunk_align, float* t,
+                          int* tri_id, float* u, float* v,
                           unsigned long long* stats, void* stream) {
   if (n <= 0) return 0;
   SweepArgs a{ox, oy, oz, dx, dy, dz, tmax, n, ord, entry, ranges, tri,
-              rows_per_chunk, any_hit, nullptr, 0, t, tri_id, u, v, stats};
+              rows_per_chunk, any_hit, gbox, chunk_align, t, tri_id, u, v,
+              stats};
   return sweep_slots<SWEEP_LANES>(S, a, (cudaStream_t)stream);
 }
 
