@@ -32,11 +32,22 @@ phase (name, seconds, key numbers):
   scene      host scene, SAH BVH, wide pack, treelet cut and sweep tables
              (chunk_align 8, as bench.py builds them), and the binary pack
              (HostScene.build with packet_arity=2), uploaded to the card
-  kernels    K2/K1 against their plain PyTorch versions on 262,144 live
-             rays (camera primaries and one real diffuse bounce of the
-             render, and the NEE shadow rays of both bounces), then on all
-             2,073,600 lanes of each of those casts as the render launches
-             them, dead lanes included; then CUDA-event timings
+  kernels    K2/K1 against their plain PyTorch versions, bit for bit,
+             on 262,144 live rays (camera primaries and one real diffuse
+             bounce of the render, and the NEE shadow rays of both
+             bounces), then on all 2,073,600 lanes of each of those casts
+             as the render launches them, dead lanes included, as the
+             wrappers pick their walk and with the per-thread and the
+             cooperative walk forced; then CUDA-event timings, and each
+             walk of packet_traverse.WALKS timed with its registers a
+             thread
+  flatgroup_check
+             K4 (default, groups, any-hit) and K7 (demand, any-hit)
+             against their plain versions, bit for bit, on flat groups at
+             coordinate 0 (tests/torch_flatgroup.py): the two-triangle
+             warp (K4 must take the nearer triangle B), 4096 rays at the
+             shared edge, and a flat grid on each axis with its rays in
+             mixed warps and alone in their warps
   render     wavefront.render, BVH_PALLAS, depth 8, 4 iterations at 1080p,
              with all launch counters zeroed just before and read just
              after (K2 and K1 8 a frame, no other kernel); the device busy
@@ -54,13 +65,17 @@ phase (name, seconds, key numbers):
              sweep_cast_sorted hits against K2 on every lane of bounce 1 (t
              bit-equal, triangles up to equal-t ties); CUDA-event timings,
              bounds (K4's by the tests its result needs,
-             sweep.sweep_need), union sizes, tail share
+             sweep.sweep_need), union sizes, tail share; K2 on the frame's
+             compacted bounce-1 tail and K1 on its bounce-1 shadow rays,
+             each walk against plain bit for bit, timed alone in each walk
+             with bounds from their stats
   sweep_render
              wavefront.render in the bench configuration (BVH_SWEEP, depth
              8, spp_batch 4, sweep_unroll 8) at 1080p, with all launch
              counters zeroed just before and read just after; frame ms,
              Mpaths/s, and one frame split by stage with CUDA events, with
-             K3's and K4's time a bounce
+             K3's and K4's time a bounce and the tail stage split into K2's
+             launches and the compaction around them
   sweep_agreement
              BVH_SWEEP at 240x135 through the kernels, through the plain
              versions and against the BVH_PALLAS render
@@ -135,7 +150,8 @@ phase (name, seconds, key numbers):
              bounce-1 pools: K7 (demand, and every requested slot) and K4's
              group mode against their plain versions on whole 1024-lane
              blocks (262,144 lanes) of the bin-sorted pool, bit for bit,
-             K4's group mode equal to K4 without groups on every lane; K7's
+             and on every lane how often K4's group mode (tpt's window)
+             differs from K4 without groups; K7's
              and K4's any-hit modes on whole blocks of the shadow rays; K11
              against its plain version on the first 2,073,600 lanes of the
              unsorted pool, its slots equal to K3's, then through the bin
@@ -686,8 +702,31 @@ def check_image(label: str, img) -> None:
                            f"mean {float(np.nanmean(img))}")
 
 
+def wide_walk_times(label: str, pack, closest_sets, any_sets) -> dict:
+    """K2 on each of `closest_sets` and K1 on each of `any_sets` ((o, d,
+    t_max) casts) with each (walk, block) of packet_traverse.WALKS forced,
+    CUDA-event medians, printed with each kernel's registers a thread and
+    local bytes (cudaFuncGetAttributes). Returns {walk: [ms, ...]}, the
+    closest sets first."""
+    from tpt_torch.bvh import packet_traverse as pt
+
+    out = {}
+    for walk in pt.WALKS:
+        ms = [cuda_time_ms(lambda: pt._closest_wide(pack, *r, walk=walk),
+                           TIMING_REPS) for r in closest_sets]
+        ms += [cuda_time_ms(lambda: pt._any_wide(pack, *r, walk=walk),
+                            TIMING_REPS) for r in any_sets]
+        out[walk] = ms
+        regs = [pt.kernel_attributes(a, pack.arity, *walk) for a in (0, 1)]
+        print(f"  walk {walk} ({label}): " + ", ".join(
+            f"{m:.3f}" for m in ms) + " ms; K2 " + "{regs} regs, "
+            "{local_bytes} B local".format(**regs[0]) + "; K1 " +
+            "{regs} regs, {local_bytes} B local".format(**regs[1]))
+    return out
+
+
 def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
-               closest_plain, any_plain, exact: bool) -> dict:
+               closest_plain, any_plain, exact: bool, walks=()) -> dict:
     """The cast kernels of `scene`'s pack, closest(pack, o, d, t_max) and
     any_hit(...), against their plain versions on the casts of bounces 0
     and 1 of a BVH_PALLAS frame: first on N_COMPARE live rays (camera
@@ -697,9 +736,14 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
     check_any_hit). Then CUDA-event timings on all lanes (the closest hit
     on the primaries and the bounce-1 pool, the any hit on the bounce-0
     shadow rays) and bounds from the tests the kernels count. `names` are
-    the two kernels' labels. Returns the lane count, the primaries, and
-    each kernel's numbers for the kernels line."""
+    the two kernels' labels. `walks` (K1/K2): each (walk, block) is also
+    forced on every set and held against the plain version the same way,
+    and every walk of packet_traverse.WALKS is timed (wide_walk_times).
+    Returns the lane count, the primaries, and each kernel's numbers for
+    the kernels line."""
     import torch
+
+    from tpt_torch.bvh import packet_traverse as pt
 
     from tpt_torch.config import RayCastBackend, RenderConfig
     from tpt_torch.integrators import common, wavefront
@@ -720,13 +764,21 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
 
     def check_c(label, rays):
         res_p, plain_ms = timed_once(lambda: closest_plain(pack, *rays))
-        return check_closest_hit(label, closest(pack, *rays), res_p, kc,
-                                 exact), plain_ms
+        err = check_closest_hit(label, closest(pack, *rays), res_p, kc, exact)
+        for w in walks:
+            err = max(err, check_closest_hit(
+                f"{label}, walk {w}", pt._closest_wide(pack, *rays, walk=w),
+                res_p, kc, exact))
+        return err, plain_ms
 
     def check_a(label, rays):
         res_p, plain_ms = timed_once(lambda: any_plain(pack, *rays))
-        return check_any_hit(label, any_hit(pack, *rays), res_p, rays[2],
-                             ka), plain_ms
+        err = check_any_hit(label, any_hit(pack, *rays), res_p, rays[2], ka)
+        for w in walks:
+            err = max(err, check_any_hit(
+                f"{label}, walk {w}", pt._any_wide(pack, *rays, walk=w),
+                res_p, rays[2], ka))
+        return err, plain_ms
 
     c_err = check_c("picked live rays", cat_rays(live(prim), live(pool)))[0]
     a_err = check_a("picked live rays", cat_rays(live(shd0), live(shd1)))[0]
@@ -753,6 +805,9 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
     print(f"  {ka} bounce-0 shadow: {a_ms:.3f} ms ({mr(a_ms):.1f} Mrays/s), "
           f"plain {a_plain_ms:.1f} ms, bound {a_bound:.3f} ms ({a_by}); "
           f"{tests_done(stats_a.cpu())}")
+    if walks:
+        wide_walk_times("BVH_PALLAS primaries, bounce-1 pool, bounce-0 "
+                        "shadow", pack, [prim, pool], [shd0])
     return dict(
         lanes=n, primaries=prim,
         closest=dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
@@ -993,6 +1048,116 @@ def need_bound(n: int, S: int, tables, need) -> tuple:
                        OPS_PER_TRI * need[0] + OPS_PER_SLAB * need[1])
 
 
+def flatgroup_phase(dev) -> None:
+    """The flatgroup_check phase: K4 (default, groups, any-hit) and K7
+    (demand, any-hit) on flat groups at coordinate 0 (tests/
+    torch_flatgroup.py), bit for bit against their plain versions: the
+    two-triangle warp (one live lane; the plain sweeps take the nearer
+    triangle B, which a sweep that culled by group boxes dropped), 4096
+    rays at the triangles' shared edge, and a flat grid on each axis with
+    its rays in mixed warps and alone in their warps (K4's group mode
+    active)."""
+    import torch
+
+    from tpt_torch.bvh import sweep as sw
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_flatgroup as fg
+
+    t0 = time.perf_counter()
+
+    def modes(label, tables, pool):
+        o, d, t_max, s_o, s_t = pool
+        out = {}
+        for mode in ("K4", "K4 groups", "K4 any-hit", "K7", "K7 any-hit"):
+            any_hit = "any-hit" in mode
+            if mode.startswith("K4"):
+                kw = dict(unroll=1, any_hit=any_hit,
+                          use_groups=mode == "K4 groups")
+                k = sw.sweep8_closest_hit(tables, o, d, t_max, s_o, s_t, **kw)
+                p = sw.sweep8_closest_hit_plain(tables, o, d, t_max, s_o, s_t,
+                                                **kw)
+            else:
+                k = sw.sweep_closest_hit(tables, o, d, t_max, s_o, s_t,
+                                         any_hit=any_hit)
+                p = sw.sweep_closest_hit_plain(tables, o, d, t_max, s_o, s_t,
+                                               any_hit=any_hit)
+            equal_hits(f"{mode}, {label}", k, p)
+            out[mode] = k
+        live = t_max > 0
+        print(f"  K4 (default, groups, any-hit) and K7 (demand, any-hit) vs "
+              f"plain, {label}: {t_max.numel()} lanes ({int(live.sum())} "
+              f"live, {int((out['K4'].tri[live] >= 0).sum())} hits), "
+              "bit-equal")
+        return out
+
+    tables = fg.flat_tables(dev)
+    warp = modes("flat-group warp", tables, fg.flat_warp(dev))["K4"]
+    if int(warp.tri[0]) != fg.PLAIN_TRI:
+        raise RuntimeError(f"flat-group warp: K4 took triangle "
+                           f"{int(warp.tri[0])}, not {fg.PLAIN_TRI}")
+    modes("4096-ray edge pool", tables, fg.edge_pool(4096, 3, dev))
+    for axis in range(3):
+        grid, p, q = fg.stress_tables(axis, 60 + axis, dev)
+        modes(f"flat grid, axis {axis}", grid,
+              fg.stress_pool(axis, (p, q), 4096, 70 + axis, dev))
+        modes(f"flat grid, axis {axis}, lone lanes", grid,
+              fg.stress_pool(axis, (p, q), 1024, 80 + axis, dev, lone=True))
+    torch.cuda.synchronize()
+    phase("flatgroup_check", t0, warp_t=f"{float(warp.t[0]):.6f}",
+          warp_tri=int(warp.tri[0]))
+
+
+def bench_wide_casts(pack, tail, shadow) -> dict:
+    """K2 on the bench frame's compacted bounce-1 tail and K1 on its
+    bounce-1 shadow rays, as the frame launched them: both walks forced
+    and the wrappers' own pick held against the plain versions bit for
+    bit with 0 capped; then each kernel alone by CUDA events, in each walk
+    of packet_traverse.WALKS, with bounds from the tests the kernels
+    count (stats). Returns the wrappers' times."""
+    import torch
+
+    from tpt_torch.bvh import packet_traverse as pt
+
+    n_t, n_s = tail[2].numel(), shadow[2].numel()
+    dev = tail[2].device
+    for walk in (None, pt.THREAD_WALK, (pt.WALK_COOP, 128)):
+        label = f"walk {walk if walk else pt._walk_for(n_t, pack.arity, dev)}"
+        check_closest_hit(f"bench bounce-1 tail, {label}",
+                          pt._closest_wide(pack, *tail, walk=walk),
+                          pt.closest_hit_wide_plain(pack, *tail), "K2", True)
+    p_ms = timed_once(lambda: pt.closest_hit_wide_plain(pack, *tail))[1]
+    occ_p, a_plain_ms = timed_once(lambda: pt.any_hit_wide_plain(pack, *shadow))
+    for walk in (None, pt.THREAD_WALK, (pt.WALK_COOP, 128)):
+        label = f"walk {walk if walk else pt._walk_for(n_s, pack.arity, dev)}"
+        check_any_hit(f"bench bounce-1 shadow, {label}",
+                      pt._any_wide(pack, *shadow, walk=walk), occ_p,
+                      shadow[2], "K1")
+    st_t = torch.zeros(3, dtype=torch.int64, device=dev)
+    st_s = torch.zeros(3, dtype=torch.int64, device=dev)
+    pt.packet_closest_hit_wide(pack, *tail, stats=st_t)
+    pt.packet_any_hit_wide(pack, *shadow, stats=st_s)
+    t_ms = cuda_time_ms(lambda: pt.packet_closest_hit_wide(pack, *tail),
+                        TIMING_REPS)
+    s_ms = cuda_time_ms(lambda: pt.packet_any_hit_wide(pack, *shadow),
+                        TIMING_REPS)
+    t_bound, t_by = bound(pack, n_t, 16, st_t.cpu())
+    s_bound, s_by = bound(pack, n_s, 1, st_s.cpu())
+    print(f"  K2 on the bench bounce-1 tail: {n_t} lanes, "
+          f"{t_ms:.3f} ms (walk {pt._walk_for(n_t, pack.arity, dev)}), plain "
+          f"{p_ms:.1f} ms, bound {t_bound:.4f} ms ({t_by}); "
+          f"{tests_done(st_t.cpu())}")
+    print(f"  K1 on the bench bounce-1 shadow rays: {n_s} lanes "
+          f"({int((shadow[2] - 1e-3 <= 0).sum())} dead), {s_ms:.3f} ms (walk "
+          f"{pt._walk_for(n_s, pack.arity, dev)}), plain {a_plain_ms:.1f} ms, "
+          f"bound {s_bound:.4f} ms ({s_by}); {tests_done(st_s.cpu())}")
+    walks = wide_walk_times("bench tail (K2), bench shadow (K1)", pack,
+                            [tail], [shadow])
+    return dict(tail_ms=t_ms, shadow_ms=s_ms, tail_bound=t_bound,
+                shadow_bound=s_bound, tail_plain_ms=p_ms,
+                shadow_plain_ms=a_plain_ms, walks=walks)
+
+
 def sweep_phases(scene, cam, dev) -> tuple:
     """The sweep_kernels, sweep_render and sweep_agreement phases; returns
     the K3 and K4 entries of the kernels line and the bench frame's ms."""
@@ -1029,9 +1194,22 @@ def sweep_phases(scene, cam, dev) -> tuple:
             grabbed[depth_now[0]] = out
         return out
 
+    # bounce 1's K2 launch (the sweep's unresolved tail, compacted) and
+    # K1 launch (the shadow rays), as the frame makes them
+    k2, k1 = pt.packet_closest_hit_wide, pt.packet_any_hit_wide
+
+    def grab_cast(key, fn):
+        def cast(pack_, o, dd, t_max, **kw):
+            if depth_now[0] == 1:
+                grabbed[key] = (o, dd, t_max)
+            return fn(pack_, o, dd, t_max, **kw)
+        return cast
+
     patch = Patch()
     patch.set(wavefront, "_sweep_scan_keys", grab_scan)
     patch.set(wavefront, "_sweep_bin_sort", grab_sort)
+    patch.set(pt, "packet_closest_hit_wide", grab_cast("tail", k2))
+    patch.set(pt, "packet_any_hit_wide", grab_cast("shadow", k1))
     try:
         rc = common.make_raycaster(scene, cfg)
         vp = wavefront.camera_view_proj(cam)
@@ -1137,9 +1315,12 @@ def sweep_phases(scene, cam, dev) -> tuple:
           f"({int(st4[1]) / max(1, need4[0]):.2f}x the need), live lanes "
           f"{int(st4[2])}, unresolved (tail) {100 * tail_frac:.3f}% of "
           f"live lanes")
+    bench = bench_wide_casts(scene.pack, grabbed["tail"], grabbed["shadow"])
     phase("sweep_kernels", t0, lanes=n, k3_ms=f"{k3_ms:.3f}",
           k4_ms=f"{k4_ms:.3f}", mean_union=f"{union:.2f}",
-          tail_pct=f"{100 * tail_frac:.3f}")
+          tail_pct=f"{100 * tail_frac:.3f}",
+          k2_tail_ms=f"{bench['tail_ms']:.3f}",
+          k1_shadow_ms=f"{bench['shadow_ms']:.3f}")
     del grabbed, spool, ori, d, tmax, s_o, s_t, thr, raw, fin, ref
 
     # ---- sweep_render: the bench configuration, the second main path -----
@@ -1173,7 +1354,24 @@ def sweep_phases(scene, cam, dev) -> tuple:
     timer.wrap(sw, "dense_scan", "K3")
     timer.wrap(wavefront, "_sweep_bin_sort", "bin sort")
     timer.wrap(sw, "sweep8_closest_hit", "sweep (K4)")
-    timer.wrap(tsc, "_tail_compact_cast", "tail (K2)")
+    # the tail stage, and inside it K2's launch alone: the rest of the
+    # stage is the compaction (nonzero, gathers, merges)
+    in_tail = [False]
+    tail_stage = timer.timed("tail (K2)", tsc._tail_compact_cast)
+    tail_k2 = timer.timed("tail K2 kernel", pt.packet_closest_hit_wide)
+
+    def tail_cast(*a, **kw):
+        in_tail[0] = True
+        try:
+            return tail_stage(*a, **kw)
+        finally:
+            in_tail[0] = False
+
+    k2_now = pt.packet_closest_hit_wide
+    timer.patch.set(tsc, "_tail_compact_cast", tail_cast)
+    timer.patch.set(pt, "packet_closest_hit_wide",
+                    lambda *a, **kw: (tail_k2 if in_tail[0] else k2_now)(
+                        *a, **kw))
     inner = common.make_raycaster(scene, cfg)
     primaries = timer.timed("primaries (K2)", inner.closest_hit)
 
@@ -1199,7 +1397,15 @@ def sweep_phases(scene, cam, dev) -> tuple:
     f_ms = s_ev.elapsed_time(e_ev)
     split = {k: timer.ms(k) for k in timer.events}
     split["bin keys"] = split.pop("scan (K3 + keys)") - split["K3"]
+    tail_kernel = split.pop("tail K2 kernel")
     split["shading and the rest"] = f_ms - sum(split.values())
+    tail_n = len(timer.events.get("tail K2 kernel", []))
+    print(f"  tail stage {split['tail (K2)']:.2f} ms a frame: K2 kernel "
+          f"{tail_kernel:.2f} ms ({tail_n} launches: " + ", ".join(
+              f"{s.elapsed_time(e):.3f}"
+              for s, e in timer.events.get("tail K2 kernel", [])) +
+          f" ms), compaction (nonzero, gathers, merges) "
+          f"{split['tail (K2)'] - tail_kernel:.2f} ms")
     print(f"  one frame: {f_ms:.1f} ms by CUDA events (host enqueue "
           f"{host_ms:.1f} ms); " + "; ".join(
               f"{k} {v:.1f} ms ({100 * v / f_ms:.1f}%)" for k, v in split.items()))
@@ -2069,22 +2275,27 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     need7 = sw.sweep_need(tables, ori, d, tmax, s_o, s_t,
                           k7(ori, d, tmax, s_o, s_t), lanes=sw.LANES_K7)
     k7_b = need_bound(n, S, tables, need7)
-    # K4's group mode: against plain on the same blocks, and its raw hits
-    # on every lane equal to K4's without groups
+    # K4's group mode: against plain on the same blocks; on every lane,
+    # how often tpt's window (which can drop a hit whose t Moller-Trumbore
+    # puts before the lane's entry into a group box) differs from K4
+    # without groups
     k4g = lambda *a, **kw: sw.sweep8_closest_hit(tables, *a, unroll=unroll,
                                                  use_groups=True, **kw)
     k4g_plain_ms = held(
         "K4 groups, bin-sorted bounce-1 pool", k4g,
         lambda *a: sw.sweep8_closest_hit_plain(tables, *a, unroll=unroll,
                                                use_groups=True), c)
-    equal_hits("K4 groups vs K4 without, every lane",
-               k4g(ori, d, tmax, s_o, s_t),
-               sw.sweep8_closest_hit(tables, ori, d, tmax, s_o, s_t,
-                                     unroll=unroll))
+    hg = k4g(ori, d, tmax, s_o, s_t)
+    hf = sw.sweep8_closest_hit(tables, ori, d, tmax, s_o, s_t, unroll=unroll)
+    print(f"  K4 groups vs K4 without, every lane: t differs on "
+          f"{int((hg.t != hf.t).sum())}, tri on "
+          f"{int((hg.tri != hf.tri).sum())} of {n} lanes")
+    del hg, hf
     k4g_ms, st4g = timed_stats(lambda **kw: k4g(ori, d, tmax, s_o, s_t, **kw),
                                3)
+    galign = tables.chunk_align
     need4 = sw.sweep_need(tables, ori, d, tmax, s_o, s_t,
-                          k4g(ori, d, tmax, s_o, s_t))
+                          k4g(ori, d, tmax, s_o, s_t), galign=galign)
     k4g_b = need_bound(n, S, tables, need4)
     del c
 
@@ -2112,7 +2323,8 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
                            k7(o_sh, d_sh, t_sh, so_sh, st_sh, any_hit=True),
                            lanes=sw.LANES_K7, any_hit=True)
     need4a = sw.sweep_need(tables, o_sh, d_sh, t_sh, so_sh, st_sh,
-                           k4a(o_sh, d_sh, t_sh, so_sh, st_sh), any_hit=True)
+                           k4a(o_sh, d_sh, t_sh, so_sh, st_sh), any_hit=True,
+                           galign=galign)
     k7a_b = need_bound(n_sh, S, tables, need7a)
     k4a_b = need_bound(n_sh, S, tables, need4a)
     del c, o_sh, d_sh, t_sh, st_sh, so_sh, spool, ori, d, tmax, s_o, s_t, thr
@@ -2396,7 +2608,8 @@ def main() -> int:
     t0 = time.perf_counter()
     res = cast_phase(scene, cam, dev, ("K2", "K1"), pt.packet_closest_hit_wide,
                      pt.packet_any_hit_wide, pt.closest_hit_wide_plain,
-                     pt.any_hit_wide_plain, exact=False)
+                     pt.any_hit_wide_plain, exact=True,
+                     walks=(pt.THREAD_WALK, (pt.WALK_COOP, 128)))
     del res["primaries"]
     print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
           "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject, "
@@ -2406,6 +2619,7 @@ def main() -> int:
     phase("kernels", t0, n_compare=N_COMPARE, lanes=res["lanes"],
           k2_ms=f"{res['closest']['ms']:.3f}",
           k1_ms=f"{res['any_hit']['ms']:.3f}")
+    flatgroup_phase(dev)
 
     # ---- render: the main path ------------------------------------------------
     t0 = time.perf_counter()

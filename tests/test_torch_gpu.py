@@ -1,6 +1,6 @@
-"""tpt_torch's CUDA kernels (K2 closest hit, K1 any hit, K3 dense scan,
-K4 demand sweep with its any-hit and group modes and per-warp group
-culling, K7 lane sweep, K5
+"""tpt_torch's CUDA kernels (K2 closest hit and K1 any hit in each walk,
+K3 dense scan, K4 demand sweep with its any-hit and group modes, K7 lane
+sweep, both on flat groups at coordinate 0, K5
 a-trous stencil, K6 temporal reprojection, K9 treelet scan, K10 treelet
 closest hit, K11 multi-slot scan, K8a/K8b binary closest and any hit) on
 the card, each against its plain PyTorch version, and the megakernel and
@@ -148,6 +148,127 @@ def test_render_on_card_matches_cpu(cornell, cuda):
     assert int(rc.capped) == 0
     assert np.isclose(gpu, cpu, atol=5e-3, rtol=1e-3).mean() > 0.97
     np.testing.assert_allclose(gpu.mean(), cpu.mean(), rtol=0.02)
+
+
+# ---------------------------------------------------------------------------
+# K2/K1's walks, each forced: one thread a ray (stack below the top in
+# local or shared memory, 128 or 256 threads a block) and the cooperative
+# walk (a group of `arity` lanes a ray)
+# ---------------------------------------------------------------------------
+
+WALKS = [pt.THREAD_WALK, (pt.WALK_THREAD, 128), (pt.WALK_THREAD, 256),
+         (pt.WALK_THREAD_SHARED, 128), (pt.WALK_COOP, 128)]
+
+
+def _walk_cases(data, cuda):
+    """(label, o, d, t_max) sets on Cornell: random rays with dead lanes
+    (n not a multiple of a block or of a group of 8), short segments, NaN
+    and infinite rays and t_max."""
+    o, d = _rays(8191, [0, 0, 0], [556, 548, 560], 51, cuda)
+    t_max = torch.full((8191,), intersect.FLT_MAX, device=cuda)
+    t_max[::9] = -1.0
+    t_max[100:400] = torch.linspace(1.0, 300.0, 300, device=cuda)
+    o.x[3], d.y[4], o.z[5], d.x[6] = (float("nan"), float("nan"),
+                                      float("inf"), float("inf"))
+    t_max[7], t_max[8] = float("nan"), float("inf")
+    o2, d2 = _rays(4097, [200, 200, 200], [300, 300, 300], 52, cuda)
+    t2 = torch.rand(4097, generator=torch.Generator().manual_seed(53)).to(
+        cuda) * 600
+    return [("random", o, d, t_max), ("short", o2, d2, t2)]
+
+
+def _wide_walks_equal_plain(pack, cases):
+    for label, o, d, t_max in cases:
+        want, cap_p = pt.closest_hit_wide_plain(pack, o, d, t_max)
+        occ_p, cap_pa = pt.any_hit_wide_plain(pack, o, d, t_max)
+        assert int(cap_p) == 0 and int(cap_pa) == 0
+        counts = []
+        for walk in WALKS:
+            sc = torch.zeros(3, dtype=torch.int64, device=o.x.device)
+            sa = torch.zeros(3, dtype=torch.int64, device=o.x.device)
+            got, cap = pt._closest_wide(pack, o, d, t_max, sc, walk=walk)
+            _bits_equal_hits(got, want)
+            occ, cap_a = pt._any_wide(pack, o, d, t_max, sa, walk=walk)
+            assert torch.equal(occ, occ_p), (label, walk)
+            assert int(cap) == 0 and int(cap_a) == 0, (label, walk)
+            counts.append((sc.tolist(), sa.tolist()))
+        # the same pops in the same order: the same counts in every walk
+        assert all(c == counts[0] for c in counts), (label, counts)
+        assert bool((want.tri >= 0).any()) and bool(occ_p.any())
+
+
+@pytest.mark.parametrize("arity", [4, 8])
+def test_wide_walks_equal_plain(cuda, arity):
+    """Every walk of K2 and K1, bit for bit, on Cornell's wide pack of
+    arity 4 and 8, whose clusters (up to 16 triangles) are longer than a
+    group."""
+    host = procedural.cornell_box(resolution=(32, 32))
+    data = host.build(with_bvh=True, packet_arity=arity, device=cuda)
+    v = -(data.pack.node_child[:, :arity].long() + 1)
+    assert int((v & 255)[data.pack.node_child[:, :arity] < -1].max()) > arity
+    _wide_walks_equal_plain(data.pack, _walk_cases(data, cuda))
+
+
+def test_wide_walks_on_equal_t_ties(cuda):
+    """The two flat triangles of torch_flatgroup as one cluster of a wide
+    pack, with rays at their shared edge: many hit both at the same t, and
+    every walk names the first, as the serial strict-< scan."""
+    import torch_flatgroup as fg
+
+    for arity in (4, 8):
+        pack = fg.flat_pack(cuda, arity)
+        o, d, t_max, _, _ = fg.edge_pool(4096, 3, cuda)
+        want, _ = pt.closest_hit_wide_plain(pack, o, d, t_max)
+        for walk in WALKS:
+            got, cap = pt._closest_wide(pack, o, d, t_max, walk=walk)
+            _bits_equal_hits(got, want)
+            assert int(cap) == 0
+        assert bool((want.tri == 0).any()) and bool((want.tri == 1).any())
+
+
+def test_wide_walk_picked_by_launch_size(cornell, cuda):
+    """The wrappers take the cooperative walk while n * arity lanes fit in
+    what the card keeps resident, the per-thread walk above; both give
+    the plain version's hits."""
+    _, data = cornell
+    props = torch.cuda.get_device_properties(cuda)
+    resident = props.multi_processor_count * props.max_threads_per_multi_processor
+    assert pt._walk_for(resident // 4, 4, cuda) == (pt.WALK_COOP, 128)
+    assert pt._walk_for(resident // 4 + 1, 4, cuda) == pt.THREAD_WALK
+    for n in (resident // 4, resident // 4 + 1):
+        o, d = _rays(n, [0, 0, 0], [556, 548, 560], 54, cuda)
+        t_max = torch.full((n,), intersect.FLT_MAX, device=cuda)
+        got, cap = pt.packet_closest_hit_wide(data.pack, o, d, t_max)
+        want, _ = pt.closest_hit_wide_plain(data.pack, o, d, t_max)
+        _bits_equal_hits(got, want)
+        assert int(cap) == 0
+
+
+@pytest.mark.parametrize("walk", WALKS)
+def test_wide_walks_cap_a_cyclic_table(cornell, cuda, walk):
+    """A root that lists itself as its children caps every ray in every
+    walk (stack overflow and step cap), as the plain walk does."""
+    _, data = cornell
+    child = data.pack.node_child.clone()
+    child[0, :4] = 0
+    bad = replace(data.pack, node_child=child)
+    o, d = _rays(61, [270, 270, 270], [280, 280, 280], 55, cuda)
+    t_max = torch.full((61,), 1e4, device=cuda)
+    _, cap = pt._closest_wide(bad, o, d, t_max, walk=walk)
+    _, cap_a = pt._any_wide(bad, o, d, t_max, walk=walk)
+    assert int(cap) == int(cap_a) == 61
+
+
+def test_wide_walk_registers(cuda):
+    """Every walk is built; none spills its registers to local memory
+    beyond the per-thread stack."""
+    for any_hit in (False, True):
+        for walk, block in WALKS:
+            a = pt.kernel_attributes(any_hit, 4, walk, block)
+            assert 0 < a["regs"] <= 255 and a["max_threads"] >= block
+            stack = 4 * (pt.STACK_DEPTH - 1)
+            assert a["local_bytes"] <= (stack if walk != pt.WALK_THREAD_SHARED
+                                        else 0) + 16, (walk, block, a)
 
 
 # ---------------------------------------------------------------------------
@@ -393,8 +514,8 @@ def test_sweep_variant_render_on_card_matches_cpu(cornell, cuda):
 
 
 # ---------------------------------------------------------------------------
-# K3 and K4/K7 as redesigned for the card: floats held as bit patterns,
-# per-warp group culling
+# K3 and K4/K7 as redesigned for the card: floats held as bit patterns;
+# K4/K7 test every row of the union (tpt's window in K4's group mode)
 # ---------------------------------------------------------------------------
 
 def _bits(a):
@@ -479,10 +600,10 @@ def _shuffled(pool, seed):
                                        ("tail", "closest"), ("tail", "any")])
 def test_sweep8_culled_bits_equal_plain(culled_tables, cuda, kind, mode,
                                         order):
-    """K4 with per-warp group culling, closest hit, any-hit and group
+    """K4 on tables with group boxes, closest hit, any-hit and group
     modes, on the bin-sorted pool and on the same pool shuffled (warps of
-    unrelated lanes), bit for bit; group mode's raw hits equal the plain
-    mode's."""
+    unrelated lanes), bit for bit; here group mode's raw hits also equal
+    the plain mode's."""
     tables = culled_tables[kind]
     pool = _sorted_pool(tables, 4000, 34, 4, cuda)
     if order == "shuffled":
@@ -505,8 +626,8 @@ def test_sweep8_culled_bits_equal_plain(culled_tables, cuda, kind, mode,
 
 
 def test_sweep8_culled_tests_at_most_the_union(culled_tables, cuda):
-    """The triangle tests K4 makes (stats[1]) are at most those of a sweep
-    of each block's whole walked union, and above the need."""
+    """The triangle tests K4 makes (stats[1]) are those of a sweep of
+    each block's whole walked union, at least the need."""
     from torch_sweep_walk import union_tests
 
     tables = culled_tables["grouped"]
@@ -517,15 +638,14 @@ def test_sweep8_culled_tests_at_most_the_union(culled_tables, cuda):
     union = union_tests(tables, o, d, t_max, s_o, s_t, sw.LANES,
                         tables.unroll)
     need = sw.sweep_need(tables, o, d, t_max, s_o, s_t, hits)
-    assert need[0] <= int(stats[1]) <= union
-    assert int(stats[1]) < union
+    assert need[0] <= int(stats[1]) == union
 
 
 def test_sweep8_warps_on_disjoint_treelets(culled_tables, cuda):
     """One 128-lane block whose four warps each demand their own 8
-    treelets from origins inside them: the block walks all 32, each warp
-    tests only the groups its lanes enter, and the hits are the plain
-    sweep's, bit for bit."""
+    treelets from origins inside them: the block walks all 32, every lane
+    tests every row of the 32, and the hits are the plain sweep's, bit for
+    bit."""
     tables = culled_tables["grouped"]
     boxes = tables.boxes.cpu()
     rs = np.random.default_rng(37)
@@ -553,14 +673,14 @@ def test_sweep8_warps_on_disjoint_treelets(culled_tables, cuda):
     assert int(stats[0]) == 32
     rows = int(tables.ranges[torch.from_numpy(ords.reshape(-1)).long().to(
         cuda), 1].sum()) * tables.unroll
-    assert int(stats[1]) < rows * 128
+    assert int(stats[1]) == rows * 128
     assert bool((got.tri >= 0).any())
 
 
 @pytest.mark.parametrize("kind", ["grouped", "tail"])
 @pytest.mark.parametrize("mode", ["demand", "all", "any"])
 def test_sweep_lane_culled_bits_equal_plain(culled_tables, cuda, kind, mode):
-    """K7 on the culled template (1024-lane blocks), with and without
+    """K7 (1024-lane blocks) on tables with group boxes, with and without
     entry planes and in any-hit mode, bit for bit."""
     tables = culled_tables[kind]
     o, d, t_max, s_o, s_t = _sorted_pool(tables, 5000, 38, 4, cuda)
@@ -572,6 +692,68 @@ def test_sweep_lane_culled_bits_equal_plain(culled_tables, cuda, kind, mode):
     _bits_equal_hits(got, sw.sweep_closest_hit_plain(
         tables, o, d, t_max, s_o, entry, any_hit=mode == "any"))
     assert bool((got.tri >= 0).any())
+
+
+# ---------------------------------------------------------------------------
+# Flat groups at coordinate 0 (torch_flatgroup): a slab test of a group
+# box at a lane's best t is no bound on Moller-Trumbore's t there, and K4
+# and K7 must still return the plain sweep's hits
+# ---------------------------------------------------------------------------
+
+def _sweep_modes(tables, pool, unroll):
+    """Each mode of K4 and K7 on `pool`, kernel against plain, bit for
+    bit; returns K4's default hits."""
+    o, d, t_max, s_o, s_t = pool
+    out = None
+    for mode in ("K4", "K4 groups", "K4 any-hit", "K7", "K7 any-hit"):
+        any_hit = "any-hit" in mode
+        if mode.startswith("K4"):
+            kw = dict(unroll=unroll, any_hit=any_hit,
+                      use_groups=mode == "K4 groups")
+            got = sw.sweep8_closest_hit(tables, o, d, t_max, s_o, s_t, **kw)
+            want = sw.sweep8_closest_hit_plain(tables, o, d, t_max, s_o, s_t,
+                                               **kw)
+        else:
+            got = sw.sweep_closest_hit(tables, o, d, t_max, s_o, s_t,
+                                       any_hit=any_hit)
+            want = sw.sweep_closest_hit_plain(tables, o, d, t_max, s_o, s_t,
+                                              any_hit=any_hit)
+        _bits_equal_hits(got, want)
+        if mode == "K4":
+            out = got
+    return out
+
+
+def test_sweeps_on_the_flat_group_warp(cuda):
+    """The two-triangle warp: every mode equals plain, and the closest
+    hit is B's (a sweep that culled B's group at A's t kept A's)."""
+    import torch_flatgroup as fg
+
+    tables = fg.flat_tables(cuda)
+    hits = _sweep_modes(tables, fg.flat_warp(cuda), 1)
+    assert int(hits.tri[0]) == fg.PLAIN_TRI
+    assert float(hits.t[0]) == float(torch.tensor(fg.PLAIN_T))
+    pool = fg.edge_pool(4096, 3, cuda)
+    hits = _sweep_modes(tables, pool, 1)
+    assert float((hits.tri >= 0).float().mean()) > 0.6
+
+
+@pytest.mark.parametrize("lone", [False, True])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_sweeps_on_flat_grids(cuda, axis, lone):
+    """A seeded grid of triangles in the plane `axis` = 0 (group mode
+    active: 5 chunks a treelet), rays at its shared edges, each ray in a
+    mixed warp or alone in its warp: every mode of K4 and K7 equals
+    plain, bit for bit."""
+    import torch_flatgroup as fg
+
+    tables, p, q = fg.stress_tables(axis, 60 + axis, cuda)
+    assert 1 < tables.max_chunks <= 8 * tables.chunk_align
+    pool = fg.stress_pool(axis, (p, q), 1024 if lone else 4096, 70 + axis,
+                          cuda, lone=lone)
+    hits = _sweep_modes(tables, pool, 1)
+    live = pool[2] > 0
+    assert float((hits.tri[live] >= 0).float().mean()) > 0.8
 
 
 # ---------------------------------------------------------------------------

@@ -20,14 +20,16 @@ which lanes share a block. K7 is the same sweep over 1024-lane blocks,
 with or without entry planes (without them every requested slot is
 swept). In any-hit mode a lane that holds a hit before t_max - 1e-3
 demands nothing more (it still tests what its block sweeps); K4's group
-mode sweeps only the rows of a treelet's group boxes that some lane of
-the block enters, which leaves the raw result unchanged. The kernels
-cull so in every mode, each warp to the groups its own lanes enter, for
-the same reason (csrc/sweep.cu); `sweep_need` counts the triangle and
-group tests a sweep's result needs, whatever implements it. The plain
-versions compute the same functions by other means (K3: the S+1 smallest
-of every ray's candidates; K4/K7: all blocks' union walks at once) with
-the kernels' float32 arithmetic, so kernel and plain agree bit for bit.
+mode sweeps, of each treelet, only tpt's window of group boxes: the rows
+from the first group some lane of the block enters at its best t to the
+last. Outside the group mode every live lane tests every row of its
+block's union, as tpt's kernels do: no box bounds the t that
+Möller–Trumbore computes (csrc/sweep.cu), so no row can be skipped without
+changing some result. `sweep_need` counts the triangle and group tests a
+sweep's result needs, whatever implements it. The plain versions compute
+the same functions by other means (K3: the S+1 smallest of every ray's
+candidates; K4/K7: all blocks' union walks at once) with the kernels'
+float32 arithmetic, so kernel and plain agree bit for bit.
 """
 
 from __future__ import annotations
@@ -124,19 +126,6 @@ def _check_tables(sweep: SweepTables, dev: torch.device) -> None:
     # the kernels read boxes and rows as float4 (rows with 16-byte cp.async)
     if any(a.data_ptr() % 16 for a in (sweep.tri_f32, sweep.boxes)):
         raise ValueError("sweep tables must be 16-byte aligned")
-
-
-def _culling(sweep: SweepTables) -> Tuple[Optional[torch.Tensor], int]:
-    """(group boxes, chunk_align) for the sweeps' per-warp group culling,
-    or (None, 0) for tables without usable group boxes, where the kernels
-    sweep every row of the union. Culling leaves the raw result as it is,
-    so it is on wherever the tables allow it."""
-    g = sweep.group_boxes
-    if (g is None or g.device != sweep.device or g.dtype != torch.float32
-            or tuple(g.shape) != (8 * sweep.num_treelets, 8)
-            or not g.is_contiguous() or g.data_ptr() % 16):
-        return None, 0
-    return g, sweep.chunk_align
 
 
 def _check_stats(stats: Optional[torch.Tensor], dev, size: int) -> None:
@@ -263,10 +252,12 @@ def sweep8_closest_hit(sweep: SweepTables, ori: Vec3, d: Vec3,
         return HitRecord(t=t, tri=tri, u=u, v=v)
     rays = [_ptr(a) for a in (ori.x, ori.y, ori.z, d.x, d.y, d.z, t_max)]
     mode = ("/any_hit" if any_hit else "/groups" if galign else "")
-    gbox, align = _culling(sweep)
+    gbox = sweep.group_boxes if galign else None
+    if gbox is not None and gbox.data_ptr() % 16:
+        raise ValueError("group boxes must be 16-byte aligned")
     _run("sweep8_closest_hit", dev, *rays, n, o.shape[0], _ptr(o), _ptr(e),
          _ptr(sweep.ranges), _ptr(sweep.tri_f32), sweep.unroll, int(any_hit),
-         _ptr(gbox), align, _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _ptr(stats),
+         _ptr(gbox), galign, _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _ptr(stats),
          count_as="sweep8_closest_hit" + mode)
     return HitRecord(t=t, tri=tri, u=u, v=v)
 
@@ -302,39 +293,41 @@ def sweep_closest_hit(sweep: SweepTables, ori: Vec3, d: Vec3,
     if n == 0:
         return HitRecord(t=t, tri=tri, u=u, v=v)
     rays = [_ptr(a) for a in (ori.x, ori.y, ori.z, d.x, d.y, d.z, t_max)]
-    gbox, align = _culling(sweep)
     _run("sweep_closest_hit", dev, *rays, n, o.shape[0], _ptr(o), _ptr(e),
          _ptr(sweep.ranges), _ptr(sweep.tri_f32), K7_ROWS, int(any_hit),
-         _ptr(gbox), align, _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _ptr(stats),
+         _ptr(None), 0, _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _ptr(stats),
          count_as="sweep_closest_hit" + ("/any_hit" if any_hit else ""))
     return HitRecord(t=t, tri=tri, u=u, v=v)
 
 
 def sweep_need(sweep: SweepTables, ori: Vec3, d: Vec3, t_max: torch.Tensor,
                ordinal: Planes, entry_t: Optional[Planes], hits: HitRecord,
-               lanes: int = LANES, any_hit: bool = False
+               lanes: int = LANES, any_hit: bool = False, galign: int = 0
                ) -> Tuple[int, int, int]:
     """The least work the raw result `hits` of a demand sweep (K4 with
-    `lanes` 128, K7 with 1024) needs, whatever implements it, read from
-    the inputs and `hits` only (any device): (triangle tests, group slab
-    tests, treelets summed over blocks).
+    `lanes` 128, K7 with 1024; K4's group mode with `galign`, the table's
+    chunk_align) needs, whatever implements it, read from the inputs and
+    `hits` only (any device): (triangle tests, group slab tests, treelets
+    summed over blocks).
 
     Per block, U is the set of ordinals some live lane holds in a slot it
     still demands at its final budget (its final t; -inf once occluded in
     any-hit mode; every requested slot without `entry_t`). Every sweep of
-    the contract visits these. Each live lane then needs the triangle
-    rows (padding excluded) of each U group whose box
-    (SweepTables.group_boxes, inflated) it enters at its final t, the
-    rows past the 8th group where it enters the treelet's box, and one
-    slab test per U group that holds a triangle."""
+    the contract visits these. Each live lane then needs every triangle
+    row (padding excluded) of each U treelet: no box bounds the t that
+    Möller–Trumbore computes, so none can stand in for a row's test
+    (csrc/sweep.cu). In the group mode it needs the rows of tpt's window
+    instead, the groups from the first to the last that some lane of the
+    block (dead and padded lanes too) enters at its final t; a lane's t
+    only falls during the walk, so no walk can have a narrower window.
+    Each lane of the block then makes 8 group slab tests per U treelet."""
     gb = sweep.group_boxes
     T = sweep.num_treelets
-    if gb is None or tuple(gb.shape) != (8 * T, 8):
-        raise ValueError("sweep_need needs SweepTables.group_boxes")
+    if galign and (gb is None or tuple(gb.shape) != (8 * T, 8)):
+        raise ValueError("sweep_need's group mode needs SweepTables.group_boxes")
     n = _check_rays(ori, d, t_max)
     dev = ori.x.device
     o, e = _slot_planes(ordinal, entry_t, n, dev)
-    S = o.shape[0]
     nb = max(1, -(-n // lanes))
     pad = nb * lanes - n
 
@@ -355,42 +348,43 @@ def sweep_need(sweep: SweepTables, ori: Vec3, d: Vec3, t_max: torch.Tensor,
     U = torch.zeros(nb * T, dtype=torch.bool, device=dev)
     U[(blk[None] * T + o.long())[demand]] = True
     pairs = torch.nonzero(U.reshape(nb, T))                  # [P, 2]
+    nlive = blocks(alive, False).sum(1)
+    b, t = pairs[:, 0], pairs[:, 1]
 
-    # triangle rows of each treelet's 8 groups and of the rest
+    # real (non-padding) triangle rows of each treelet and of its 8 groups
     rpc = sweep.unroll
-    G = sweep.chunk_align * rpc
     real = (sweep.tri_f32[:, :9] != 0).any(1).long()
     csum = torch.cat([real.new_zeros(1), torch.cumsum(real, 0)])
     start = sweep.ranges[:, 0].long()
     nrows = sweep.ranges[:, 1].long() * rpc
+    if not galign:
+        rows = csum[start + nrows] - csum[start]              # [T]
+        return int((nlive[b] * rows[t]).sum()), 0, int(pairs.shape[0])
+
+    G = galign * rpc
     edge = lambda r: start + torch.minimum(r, nrows)
     cuts = [edge(torch.full_like(nrows, g * G)) for g in range(9)]
     grows = torch.stack([csum[cuts[g + 1]] - csum[cuts[g]]
                          for g in range(8)], 1)              # [T, 8]
-    rest = csum[start + nrows] - csum[cuts[8]]               # [T]
-    ngroups = (grows > 0).sum(1)
-
+    # padded lanes are tpt's zero rays (t_max 0), as in the plain sweep
     rays = [blocks(c, 0.0) for c in (ori.x, ori.y, ori.z)]
-    inv = [blocks(safe_inv(c), 0.0) for c in (d.x, d.y, d.z)]
+    inv = [safe_inv(blocks(c, 0.0)) for c in (d.x, d.y, d.z)]
     btb = blocks(bt, 0.0)
-    aliveb = blocks(alive, False)
-    nlive = aliveb.sum(1)
     gbox = gb.reshape(T, 8, 8)[:, :, :6]
-    tri_tests = slab_tests = 0
+    groups = torch.arange(8, device=dev)
+    tri_tests = 0
     step = max(1, (1 << 20) // lanes)
     for a in range(0, pairs.shape[0], step):
-        b, t = pairs[a:a + step, 0], pairs[a:a + step, 1]
-        ob = [c[b][:, None, :] for c in rays]                 # [p, 1, lanes]
-        ib = [c[b][:, None, :] for c in inv]
-        enter = _slab(gbox[t][:, :, None, :], ob, ib, btb[b][:, None, :])
-        enter &= aliveb[b][:, None, :]                        # [p, 8, lanes]
-        tri_tests += int((enter.sum(2) * grows[t]).sum())
-        if bool((rest[t] > 0).any()):
-            tb = _slab(sweep.boxes[t][:, None, :6], [c[:, 0] for c in ob],
-                       [c[:, 0] for c in ib], btb[b]) & aliveb[b]
-            tri_tests += int((tb.sum(1) * rest[t]).sum())
-        slab_tests += int((ngroups[t] * nlive[b]).sum())
-    return tri_tests, slab_tests, int(pairs.shape[0])
+        bb, tt = b[a:a + step], t[a:a + step]
+        ob = [c[bb][:, None, :] for c in rays]                # [p, 1, lanes]
+        ib = [c[bb][:, None, :] for c in inv]
+        enter = _slab(gbox[tt][:, :, None, :], ob, ib,
+                      btb[bb][:, None, :]).any(2)             # [p, 8]
+        first = torch.where(enter, groups, 8).amin(1)
+        last = torch.where(enter, groups, -1).amax(1)
+        win = (groups >= first[:, None]) & (groups <= last[:, None])
+        tri_tests += int(((grows[tt] * win).sum(1) * nlive[bb]).sum())
+    return tri_tests, 8 * lanes * int(pairs.shape[0]), int(pairs.shape[0])
 
 
 # ---------------------------------------------------------------------------

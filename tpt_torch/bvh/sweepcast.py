@@ -11,13 +11,13 @@ pipeline. Counterpart of `tpt/bvh/sweepcast.py`.
    `sweep_cast` does it itself.
 3. SWEEP, demand mode: K4 `sweep.sweep8_closest_hit` over 128-lane
    blocks (kernel "sublane"; with `groups`, tpt's group-window mode), or
-   K7 `sweep.sweep_closest_hit` over 1024-lane blocks (kernel "lane");
-   the kernels cull each warp's rows by group boxes in every mode.
+   K7 `sweep.sweep_closest_hit` over 1024-lane blocks (kernel "lane").
 4. RESOLUTION: a lane is exact iff its best t <= thr (no uncaptured
    candidate can beat it) or thr is 3e38 (the slots held every
    candidate).
 5. TAIL: the unresolved lanes, exactly those, go through the wide-BVH K2
-   with t_max = min(best, t_max) and the winners are scattered back.
+   with t_max = min(best, t_max) and the winners are scattered back; a
+   tail is small, so K2 takes its cooperative walk there.
 
 The cascade (`cascade_phase1`, `cascade_sort`, `cascade_phase2`) sweeps
 only slots 0-1 first, the slots the bin key makes a block agree on; the

@@ -181,8 +181,8 @@ class RenderConfig:
     # treelet's 8 group sub-AABBs (SweepTables.group_boxes) per 128-ray
     # block and trim the dense MT range to the [first, last] hit groups.
     # Results identical (tests); default off until the TPU A/B lands.
-    # The port's kernels cull by group boxes per warp whatever this says
-    # (the same raw hits); it selects tpt's path and its launch count
+    # The port's K4 runs tpt's window where tpt does; without it K4 and
+    # K7 test every row of the union, as tpt's kernels do
     sweep_groups: bool = False
     # split-mode seed-sort shape (the TPU backend compiler has an operand
     # cliff: 20-operand pool sorts compile in ~6 min, 31-operand never

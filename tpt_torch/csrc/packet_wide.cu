@@ -7,20 +7,21 @@
 //   K8a tpt_packet_closest_hit      <- packet_closest_hit      (:350, :368)
 //   K8b tpt_packet_any_hit          <- packet_any_hit          (:394, :405)
 //
-// Design. The TPU kernels walk one shared stack per 1024-ray packet,
-// because Mosaic has no per-lane gather. A GPU thread can gather, so here
-// each thread walks its own ray with its own stack in local memory (one
-// thread per ray, 128 threads per block). One walk template serves both
-// node layouts that tpt/bvh/pack.py builds; a layout gives the walk its
-// child order, its cluster decode and its step cap.
+// The TPU kernels walk one shared stack per 1024-ray packet, because
+// Mosaic has no per-lane gather. A GPU thread can gather, so here every
+// ray walks with its own stack: it pops a code, and a node slab-tests its
+// children and pushes the hit ones far to near, so the nearest is popped
+// next; a cluster runs Moller-Trumbore over its triangles and takes a
+// triangle only on a strict t < best (K1: stops at the first hit before
+// t_max - 1e-3).
 //
 // Wide layout (K1/K2; build_packet_bvh_wide):
-//   node_f32   [Nt, W]  child s box at cols [6s, 6s+6)
+//   node_f32   [Nt, W]  child s box at cols [6s, 6s+6), W a multiple of 4
 //   node_child [Nt, 16] cols [0, A) child codes (>= 0 node, < -1 cluster
 //                       -(start*256+count)-1, -1 empty), cols [8, 16) one
 //                       packed near-to-far slot order per octant
-// A popped node slab-tests its children in the ray's octant order and
-// pushes the hit ones far to near, so the nearest is popped next.
+// A popped node slab-tests its non-empty slots and pushes the hit ones in
+// the order word of the ray's octant, far first.
 //
 // Binary layout (K8a/K8b; build_packet_bvh):
 //   node_f32   [Nt, 16] left child box at cols [0, 6), right at [6, 12)
@@ -38,15 +39,14 @@
 //
 //   tri_f32    [Tp, 16] v0, e1, e2, triangle id (col 9), both layouts
 //
-// A popped cluster runs Moller-Trumbore over its triangles with a strict
-// t < best. The arithmetic is the TPU kernels', operation for operation,
-// and the library is compiled with -fmad=false so no multiply-add is
-// contracted: the plain PyTorch version (packet_traverse.py) gives the
-// same bits. The ray set-up and the triangle test live in ray_common.cuh,
-// shared with the sweep and treelet kernels. A ray's slab arithmetic
-// cannot make a NaN (its origin and direction are finite, the reciprocal
-// is bounded, the boxes are finite), so fminf/fmaxf here give what
-// NaN-propagating min/max give.
+// The arithmetic is the TPU kernels', operation for operation, and the
+// library is compiled with -fmad=false so no multiply-add is contracted:
+// the plain PyTorch version (packet_traverse.py) gives the same bits. The
+// ray set-up and the triangle test live in ray_common.cuh, shared with the
+// sweep and treelet kernels. A ray's slab arithmetic cannot make a NaN
+// (its origin and direction are finite, the reciprocal is bounded, the
+// boxes are finite), so fminf/fmaxf here give what NaN-propagating
+// min/max give.
 //
 // Bounds. Per ray: a stack of STACK_DEPTH entries and at most
 // 8 * num_nodes + pad pops, the TPU kernels' own caps (pad 8192 for the
@@ -57,22 +57,54 @@
 // none can go wrong unseen. Rays with a NaN or infinite origin or
 // direction, or a NaN t_max, miss without traversal.
 //
-// What bounds it on this card: operations, not bytes. A ray reads 28 bytes
-// and writes 16; the tables (9 MB wide, about twice the nodes binary, for
-// the 139k-triangle bench interior) sit in the 50 MB L2, and the work is
-// slab tests and triangle tests per ray, with divergence between the
-// threads of a warp. Making it fast (shared-memory stack, warp-wide node
-// fetch) is later work.
-
+// What bounds K1/K2 on this card: operations, not bytes, and latency. A
+// ray reads 28 bytes and writes 16 (K1: 1); the tables (9 MB for the
+// 139k-triangle bench interior) sit in the 50 MB L2, and the work is slab
+// tests and triangle tests per ray, each step waiting on the load of the
+// node or the rows the step before chose. Two walks, the same pops in the
+// same order for every ray, so the same bits:
+//
+// Per-thread walk (wide_thread_kernel), for pools that fill the card.
+// One thread a ray. A node's row is read as 6A/4 float4 and its child
+// codes as A/4 int4 (one 16-byte load each), its slots are slab-tested
+// unrolled with static indices (no register array is indexed by data, so
+// nothing spills to local memory), and the hit ones are pushed in the
+// order word's order by selects over the static slots. A triangle row is
+// three float4 (cols 0-11; the id is col 9). The loop is while-while
+// (Aila & Laine 2009): the lanes of a warp pop and visit nodes until
+// every lane holds a cluster or is done (a warp vote), then test their
+// clusters, so lanes on nodes and lanes on clusters do not take turns on
+// every step. The stack keeps its top entry in a register (the nearest
+// child, pushed last, is popped next without a memory round trip) and the
+// rest in local memory, or in shared memory (entry k of thread x at
+// k * block + x); the counters of `stats` are compiled in only for
+// launches that ask for them.
+//
+// Cooperative walk (wide_coop_kernel), for launches too small to fill the
+// card (the sweep's unresolved tail: a few ten thousand rays, a few warps
+// an SM, where a per-thread launch lasts as long as its longest ray's
+// chain of dependent loads). A ray is carried by a group of A lanes, one
+// slot each: the lanes slab-test the node's slots at once and ballot the
+// hit mask, and every lane pushes the same codes onto its own copy of the
+// stack (the child codes come by shuffle), so the group's state stays
+// identical without a barrier. A cluster's triangles are spread over the
+// group's lanes in rounds of A; each lane tests its row against the best
+// t at the round's start, and the group reduces (t, row) to the smallest
+// t, then the smallest row, which is the serial strict-< scan's first
+// minimum, so t, tri, u and v stay bit-equal on equal-t ties. K1 ORs the
+// group's hits and stops. The loop is while-while over the warp as above.
+// The wrapper takes this walk when the launch's lanes fit in what the card
+// keeps resident (SMs x resident threads an SM).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "ray_common.cuh"
 
 #define STACK_DEPTH 64
-#define BLOCK 128
+#define BLOCK 128        // threads a block: binary walk, cooperative walk
 #define BIG 3.0e38f
 #define MISS_T 3.4e38f
+#define FULL_MASK 0xffffffffu
 
 namespace {
 
@@ -81,21 +113,28 @@ __device__ __forceinline__ bool ray_finite(const Ray& r, float tm) {
          isfinite(r.dx) && isfinite(r.dy) && isfinite(r.dz) && !isnan(tm);
 }
 
-// child AABB slab test against [0, limit] (pallas_traverse.py:_slab);
-// *tn gets the entry t
-__device__ __forceinline__ bool slab(const float* __restrict__ b,
-                                     const Ray& r, float limit, float* tn) {
-  float t0x = (__ldg(b + 0) - r.ox) * r.ix;
-  float t0y = (__ldg(b + 1) - r.oy) * r.iy;
-  float t0z = (__ldg(b + 2) - r.oz) * r.iz;
-  float t1x = (__ldg(b + 3) - r.ox) * r.ix;
-  float t1y = (__ldg(b + 4) - r.oy) * r.iy;
-  float t1z = (__ldg(b + 5) - r.oz) * r.iz;
+// box (b0, b1, b2) min, (b3, b4, b5) max slab test against [0, limit]
+// (pallas_traverse.py:_slab); *tn gets the entry t
+__device__ __forceinline__ bool slab6(float b0, float b1, float b2, float b3,
+                                      float b4, float b5, const Ray& r,
+                                      float limit, float* tn) {
+  const float t0x = (b0 - r.ox) * r.ix;
+  const float t0y = (b1 - r.oy) * r.iy;
+  const float t0z = (b2 - r.oz) * r.iz;
+  const float t1x = (b3 - r.ox) * r.ix;
+  const float t1y = (b4 - r.oy) * r.iy;
+  const float t1z = (b5 - r.oz) * r.iz;
   *tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
               fmaxf(fminf(t0z, t1z), 0.0f));
-  float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                   fminf(fmaxf(t0z, t1z), limit));
+  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fminf(fmaxf(t0z, t1z), limit));
   return *tn <= tf;
+}
+
+__device__ __forceinline__ bool slab(const float* __restrict__ b,
+                                     const Ray& r, float limit, float* tn) {
+  return slab6(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3),
+               __ldg(b + 4), __ldg(b + 5), r, limit, tn);
 }
 
 // Moller-Trumbore of one tri_f32 row (ray_common.cuh:mt_tri)
@@ -106,6 +145,16 @@ __device__ __forceinline__ bool mt(const float* __restrict__ row,
                 __ldg(row + 3), __ldg(row + 4), __ldg(row + 5),
                 __ldg(row + 6), __ldg(row + 7), __ldg(row + 8), r, t_out,
                 u_out, v_out);
+}
+
+// the row of packed triangle j as three float4 (cols 0-11; id at col 9)
+__device__ __forceinline__ bool mt_row4(const float4* __restrict__ tri4,
+                                        int j, const Ray& r, float* t,
+                                        float* u, float* v, int* id) {
+  const float4* w = tri4 + (size_t)j * 4;
+  const float4 p = __ldg(w), q = __ldg(w + 1), s = __ldg(w + 2);
+  *id = (int)s.y;
+  return mt_tri(p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w, s.x, r, t, u, v);
 }
 
 struct Tables {
@@ -123,42 +172,6 @@ __device__ __forceinline__ bool push(int* stack, int& sp, int c) {
   if (sp < STACK_DEPTH) { stack[sp++] = c; return true; }
   return false;
 }
-
-// K1/K2: octant order, empty slots skipped, the same rule for both
-struct Wide {
-  static constexpr int kStepPad = 8192;
-
-  // Pushes node `code`'s children that the ray hits within `limit`, far
-  // to near, counting the slab tests in `slabs`. Returns false if a push
-  // found the stack full.
-  template <bool kAnyHit>
-  static __device__ __forceinline__ bool push_children(
-      const Tables& tb, int code, const Ray& r, float limit, int* stack,
-      int& sp, unsigned long long& slabs) {
-    const float* row = tb.node_f32 + (size_t)code * tb.node_width;
-    const int* crow = tb.node_child + (size_t)code * 16;
-    unsigned ordw = (unsigned)__ldg(crow + 8 + r.oct);
-    bool ok = true;
-    for (int pos = tb.arity - 1; pos >= 0; --pos) {
-      int s = (ordw >> (4 * pos)) & 15;
-      int c = __ldg(crow + s);
-      if (c == -1) continue;
-      ++slabs;
-      float tn;
-      if (!slab(row + 6 * s, r, limit, &tn)) continue;
-      ok &= push(stack, sp, c);
-    }
-    return ok;
-  }
-
-  static __device__ __forceinline__ void cluster(const Tables& tb, int code,
-                                                 int& start, int& count) {
-    int v = -(code + 1);
-    start = v >> 8;
-    count = v & 255;
-    if (start + count > tb.tri_rows) count = max(tb.tri_rows - start, 0);
-  }
-};
 
 // K8a/K8b: both children slab-tested; K8a orders them by entry t, K8b
 // keeps slot order (pallas_traverse.py:152-183, :205-224)
@@ -201,6 +214,7 @@ struct Binary {
   }
 };
 
+// K8a over the binary layout: one thread a ray, the stack in local memory
 template <class L>
 __global__ void __launch_bounds__(BLOCK) closest_hit_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
@@ -260,6 +274,7 @@ __global__ void __launch_bounds__(BLOCK) closest_hit_kernel(
   }
 }
 
+// K8b over the binary layout
 template <class L>
 __global__ void __launch_bounds__(BLOCK) any_hit_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
@@ -311,6 +326,322 @@ __global__ void __launch_bounds__(BLOCK) any_hit_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1/K2 over the wide layout
+// ---------------------------------------------------------------------------
+
+struct Rays {
+  const float *ox, *oy, *oz, *dx, *dy, *dz, *tmax;
+  int n;
+};
+
+struct Outs {
+  float* t;            // K2: t, tri, u, v
+  int* tri;
+  float *u, *v;
+  unsigned char* occ;  // K1
+  int* capped;
+  unsigned long long* stats;
+};
+
+constexpr int kWideStepPad = 8192;
+
+// a ray's stack: the top entry in a register, the entries below it at
+// mem[k * kStride] (k = 0 the bottom): a per-thread array (local memory,
+// kStride 1) or a block's shared array (kStride = threads a block)
+template <int kStride>
+struct RayStack {
+  int* mem;
+  int top;
+  int sp;  // entries held, the top one included
+
+  __device__ __forceinline__ bool push(int c) {
+    if (sp >= STACK_DEPTH) return false;
+    if (sp > 0) mem[(sp - 1) * kStride] = top;
+    top = c;
+    ++sp;
+    return true;
+  }
+  __device__ __forceinline__ int pop() {
+    const int c = top;
+    --sp;
+    if (sp > 0) top = mem[(sp - 1) * kStride];
+    return c;
+  }
+};
+
+// The state of one ray's wide walk, shared by both walks: the pop with
+// its step cap, the cluster decode, the result.
+template <bool kAny, int kStride>
+struct WideRay {
+  Ray r;
+  float tm;
+  float bt;      // K2: best t so far, the slab limit
+  float limit;   // K1: t_max - 1e-3, the slab and hit limit
+  int btri;
+  float bu, bv;
+  bool occ, exact, done;
+  int held;      // the code popped last (node >= 0, cluster < -1)
+  int steps, max_steps;
+  RayStack<kStride> st;
+  unsigned long long nodes, slabs, tris;
+
+  __device__ __forceinline__ void start(const Rays& ra, int i, bool in,
+                                        const Tables& tb, int* mem) {
+    r = in ? load_ray(ra.ox, ra.oy, ra.oz, ra.dx, ra.dy, ra.dz, i) : Ray{};
+    tm = in ? ra.tmax[i] : 0.0f;
+    bt = fminf(tm, BIG);
+    limit = tm - 1e-3f;
+    btri = -1;
+    bu = bv = 0.0f;
+    // K1: dead lanes (limit <= 0) report occluded, as the TPU kernels do
+    occ = kAny && limit <= 0.0f;
+    exact = true;
+    steps = 0;
+    max_steps = 8 * tb.num_nodes + kWideStepPad;
+    st = RayStack<kStride>{mem, 0, 0};
+    nodes = slabs = tris = 0;
+    held = 0;
+    done = !(in && ray_finite(r, tm) && (kAny ? !occ : bt > 0.0f));
+    if (!done) { st.push(0); fetch(); }
+  }
+  __device__ __forceinline__ float slab_limit() const {
+    return kAny ? limit : bt;
+  }
+  // the next code, or done once the stack is empty or the cap is reached
+  __device__ __forceinline__ void fetch() {
+    if (st.sp == 0) { done = true; return; }
+    if (steps >= max_steps) { exact = false; done = true; return; }
+    ++steps;
+    held = st.pop();
+  }
+  __device__ __forceinline__ bool on_node() const {
+    return !done && held >= 0;
+  }
+  __device__ __forceinline__ bool on_cluster() const {
+    return !done && held < 0;
+  }
+  __device__ __forceinline__ void cluster(const Tables& tb, int& start,
+                                          int& count) const {
+    const int v = -(held + 1);
+    start = v >> 8;
+    count = v & 255;
+    if (start + count > tb.tri_rows) count = max(tb.tri_rows - start, 0);
+  }
+  // push node `held`'s children in `mask` (bit s: slot s hit) far to
+  // near in the order word's order; child(s) gives slot s's code
+  template <int A, class Child>
+  __device__ __forceinline__ void push_hits(const Tables& tb, unsigned mask,
+                                            Child child) {
+    const unsigned ordw =
+        (unsigned)__ldg(tb.node_child + (size_t)held * 16 + 8 + r.oct);
+#pragma unroll
+    for (int pos = A - 1; pos >= 0; --pos) {
+      const int s = (ordw >> (4 * pos)) & 15;
+      if (mask >> s & 1u) exact &= st.push(child(s));
+    }
+  }
+  __device__ __forceinline__ void write(const Outs& o, int i) const {
+    if (kAny) {
+      o.occ[i] = occ ? 1 : 0;
+    } else {
+      o.t[i] = btri >= 0 ? bt : MISS_T;
+      o.tri[i] = btri;
+      o.u[i] = bu;
+      o.v[i] = bv;
+    }
+  }
+};
+
+// capped rays and the counters of `stats`, one atomic a warp; `lead`
+// marks the lanes whose numbers count (every lane of the per-thread walk,
+// one lane a group in the cooperative one)
+template <bool kStats, class W>
+__device__ __forceinline__ void report(const W& w, bool lead, const Outs& o) {
+  const int nc = __popc(__ballot_sync(FULL_MASK, lead && !w.exact));
+  if ((threadIdx.x & 31) == 0 && nc) atomicAdd(o.capped, nc);
+  if (kStats) {
+    unsigned long long c[3] = {lead ? w.nodes : 0ull, lead ? w.slabs : 0ull,
+                               lead ? w.tris : 0ull};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        c[k] += __shfl_xor_sync(FULL_MASK, c[k], off);
+      if ((threadIdx.x & 31) == 0 && c[k]) atomicAdd(o.stats + k, c[k]);
+    }
+  }
+}
+
+// The per-thread walk: one thread a ray, while-while over the warp.
+// kStride 1 keeps the stack below the top in local memory, kBlock in
+// shared memory.
+template <bool kAny, int A, int kBlock, bool kShared, bool kStats>
+__global__ void __launch_bounds__(kBlock) wide_thread_kernel(Rays ra,
+                                                             Tables tb,
+                                                             Outs o) {
+  constexpr int kStride = kShared ? kBlock : 1;
+  __shared__ int sstack[kShared ? (STACK_DEPTH - 1) * kBlock : 1];
+  int lstack[kShared ? 1 : STACK_DEPTH - 1];
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  const bool in = i < ra.n;
+  WideRay<kAny, kStride> w;
+  w.start(ra, i, in, tb, kShared ? sstack + threadIdx.x : lstack);
+  const float4* tri4 = reinterpret_cast<const float4*>(tb.tri_f32);
+  while (__any_sync(FULL_MASK, !w.done)) {
+    // nodes, until every lane of the warp holds a cluster or is done
+    while (__any_sync(FULL_MASK, w.on_node())) {
+      if (!w.on_node()) continue;
+      const float4* row = reinterpret_cast<const float4*>(
+          tb.node_f32 + (size_t)w.held * tb.node_width);
+      const int4* crow =
+          reinterpret_cast<const int4*>(tb.node_child + (size_t)w.held * 16);
+      float b[6 * A];
+      int c[A];
+#pragma unroll
+      for (int k = 0; k < 6 * A / 4; ++k) {
+        const float4 q = __ldg(row + k);
+        b[4 * k] = q.x; b[4 * k + 1] = q.y; b[4 * k + 2] = q.z;
+        b[4 * k + 3] = q.w;
+      }
+#pragma unroll
+      for (int k = 0; k < A / 4; ++k) {
+        const int4 q = __ldg(crow + k);
+        c[4 * k] = q.x; c[4 * k + 1] = q.y; c[4 * k + 2] = q.z;
+        c[4 * k + 3] = q.w;
+      }
+      const float lim = w.slab_limit();
+      unsigned mask = 0;
+#pragma unroll
+      for (int s = 0; s < A; ++s) {
+        if (c[s] == -1) continue;
+        if (kStats) ++w.slabs;
+        float tn;
+        if (slab6(b[6 * s], b[6 * s + 1], b[6 * s + 2], b[6 * s + 3],
+                  b[6 * s + 4], b[6 * s + 5], w.r, lim, &tn))
+          mask |= 1u << s;
+      }
+      if (kStats) ++w.nodes;
+      w.template push_hits<A>(tb, mask, [&](int s) {
+        int cs = c[0];
+#pragma unroll
+        for (int k = 1; k < A; ++k) cs = s == k ? c[k] : cs;
+        return cs;
+      });
+      w.fetch();
+    }
+    // clusters, until no lane of the warp holds one
+    while (__any_sync(FULL_MASK, w.on_cluster())) {
+      if (!w.on_cluster()) continue;
+      int start, count;
+      w.cluster(tb, start, count);
+      for (int j = 0; j < count; ++j) {
+        float t, u, v;
+        int id;
+        const bool hit = mt_row4(tri4, start + j, w.r, &t, &u, &v, &id);
+        if (kAny) {
+          if (kStats) ++w.tris;
+          if (hit && t < w.limit) { w.occ = true; break; }
+        } else if (hit && t < w.bt) {
+          w.bt = t;
+          w.btri = id;
+          w.bu = u;
+          w.bv = v;
+        }
+      }
+      if (kStats && !kAny) w.tris += count;
+      if (kAny && w.occ) w.done = true;
+      else w.fetch();
+    }
+  }
+  if (in) w.write(o, i);
+  report<kStats>(w, in, o);
+}
+
+// The cooperative walk: a group of A lanes a ray, one slot a lane.
+// Every lane of a group keeps the same state (its own copy of the
+// stack); the slab tests, child codes and triangle tests are shared by
+// ballot and shuffle within the group.
+template <bool kAny, int A, bool kStats>
+__global__ void __launch_bounds__(BLOCK) wide_coop_kernel(Rays ra, Tables tb,
+                                                          Outs o) {
+  static_assert(BLOCK % 32 == 0 && 32 % A == 0, "groups must tile a warp");
+  int lstack[STACK_DEPTH - 1];
+  const int g = threadIdx.x & (A - 1);           // this lane's slot
+  const int base = (threadIdx.x & 31) & ~(A - 1);  // the group's first lane
+  const unsigned all = (1u << A) - 1u;
+  const unsigned gmask = all << base;
+  const int i = (blockIdx.x * BLOCK + threadIdx.x) / A;
+  const bool in = i < ra.n;
+  WideRay<kAny, 1> w;
+  w.start(ra, i, in, tb, lstack);
+  const float4* tri4 = reinterpret_cast<const float4*>(tb.tri_f32);
+  while (__any_sync(FULL_MASK, !w.done)) {
+    while (__any_sync(FULL_MASK, w.on_node())) {
+      if (!w.on_node()) continue;
+      // slot g's box (cols [6g, 6g + 6), 8-byte aligned) and child code
+      const float2* box = reinterpret_cast<const float2*>(
+          tb.node_f32 + (size_t)w.held * tb.node_width + 6 * g);
+      const float2 b01 = __ldg(box), b23 = __ldg(box + 1),
+                   b45 = __ldg(box + 2);
+      const int cg = __ldg(tb.node_child + (size_t)w.held * 16 + g);
+      float tn;
+      const bool hit = cg != -1 && slab6(b01.x, b01.y, b23.x, b23.y, b45.x,
+                                         b45.y, w.r, w.slab_limit(), &tn);
+      const unsigned mask = (__ballot_sync(gmask, hit) >> base) & all;
+      if (kStats) {
+        w.slabs += __popc(__ballot_sync(gmask, cg != -1) & gmask);
+        ++w.nodes;
+      }
+      w.template push_hits<A>(tb, mask, [&](int s) {
+        return __shfl_sync(gmask, cg, s, A);
+      });
+      w.fetch();
+    }
+    while (__any_sync(FULL_MASK, w.on_cluster())) {
+      if (!w.on_cluster()) continue;
+      int start, count;
+      w.cluster(tb, start, count);
+      if (kStats && !kAny) w.tris += count;
+      for (int r0 = 0; r0 < count; r0 += A) {
+        const int j = r0 + g;
+        float t = 0.0f, u = 0.0f, v = 0.0f;
+        int id = 0;
+        bool hit = j < count && mt_row4(tri4, start + j, w.r, &t, &u, &v, &id);
+        if (kAny) {
+          const unsigned hits =
+              (__ballot_sync(gmask, hit && t < w.limit) >> base) & all;
+          if (kStats) w.tris += hits ? __ffs(hits) : min(A, count - r0);
+          if (hits) { w.occ = true; break; }
+          continue;
+        }
+        // the smallest (t, row) below the best t: the serial scan's first
+        // strict minimum
+        hit = hit && t < w.bt;
+        float mint = hit ? t : __int_as_float(0x7f800000);
+        int mj = hit ? j : 0x7fffffff;
+#pragma unroll
+        for (int off = A / 2; off > 0; off >>= 1) {
+          const float ot = __shfl_xor_sync(gmask, mint, off, A);
+          const int oj = __shfl_xor_sync(gmask, mj, off, A);
+          if (ot < mint || (ot == mint && oj < mj)) { mint = ot; mj = oj; }
+        }
+        if (mj != 0x7fffffff) {
+          const int src = mj - r0;
+          w.bt = mint;
+          w.bu = __shfl_sync(gmask, u, src, A);
+          w.bv = __shfl_sync(gmask, v, src, A);
+          w.btri = __shfl_sync(gmask, id, src, A);
+        }
+      }
+      if (kAny && w.occ) w.done = true;
+      else w.fetch();
+    }
+  }
+  if (in && g == 0) w.write(o, i);
+  report<kStats>(w, in && g == 0, o);
+}
+
 template <class L>
 int launch_closest(const float* ox, const float* oy, const float* oz,
                    const float* dx, const float* dy, const float* dz,
@@ -339,6 +670,70 @@ int launch_any(const float* ox, const float* oy, const float* oz,
   return (int)cudaGetLastError();
 }
 
+// the walks the wrapper can pick (packet_traverse.WALKS)
+enum Walk { kThreadLocal = 0, kThreadShared = 1, kCoop = 2 };
+
+template <bool kAny, int A, int kBlock, bool kShared>
+void launch_thread(const Rays& ra, const Tables& tb, const Outs& o,
+                   cudaStream_t s) {
+  const int grid = (ra.n + kBlock - 1) / kBlock;
+  if (o.stats)
+    wide_thread_kernel<kAny, A, kBlock, kShared, true><<<grid, kBlock, 0, s>>>(
+        ra, tb, o);
+  else
+    wide_thread_kernel<kAny, A, kBlock, kShared, false><<<grid, kBlock, 0, s>>>(
+        ra, tb, o);
+}
+
+template <bool kAny, int A>
+void launch_coop(const Rays& ra, const Tables& tb, const Outs& o,
+                 cudaStream_t s) {
+  const long long lanes = (long long)ra.n * A;
+  const int grid = (int)((lanes + BLOCK - 1) / BLOCK);
+  if (o.stats)
+    wide_coop_kernel<kAny, A, true><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+  else
+    wide_coop_kernel<kAny, A, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+}
+
+template <bool kAny, int A>
+int launch_wide_arity(const Rays& ra, const Tables& tb, const Outs& o,
+                      int walk, int block, cudaStream_t s) {
+  if (walk == kCoop) {
+    launch_coop<kAny, A>(ra, tb, o, s);
+  } else if (walk == kThreadShared && block == 128) {
+    launch_thread<kAny, A, 128, true>(ra, tb, o, s);
+  } else if (walk == kThreadLocal && block == 128) {
+    launch_thread<kAny, A, 128, false>(ra, tb, o, s);
+  } else if (walk == kThreadLocal && block == 256) {
+    launch_thread<kAny, A, 256, false>(ra, tb, o, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kAny>
+int launch_wide(const Rays& ra, const Tables& tb, const Outs& o, int walk,
+                int block, void* stream) {
+  if (ra.n <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tb.arity == 4) return launch_wide_arity<kAny, 4>(ra, tb, o, walk, block, s);
+  if (tb.arity == 8) return launch_wide_arity<kAny, 8>(ra, tb, o, walk, block, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class K>
+int attributes(K kernel, int* out) {
+  cudaFuncAttributes a;
+  const int rc = (int)cudaFuncGetAttributes(&a, kernel);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return rc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -358,17 +753,48 @@ int tpt_stack_depth() { return STACK_DEPTH; }
   Tables { node_f32, node_width, node_child, num_nodes, tri_f32, tri_rows, \
            arity, max_cluster }
 
-int tpt_packet_closest_hit_wide(TABLES_ARGS, float* t_out, int* tri_out,
-                                float* u_out, float* v_out, int* capped,
+// K2/K1: `walk` 0 per-thread with the stack in local memory, 1 per-thread
+// with the stack in shared memory, 2 cooperative; `block` the per-thread
+// walk's threads a block (128 or 256 with walk 0, 128 with walk 1). The
+// node table's rows and the triangle table must be 16-byte aligned and
+// node_width a multiple of 4. cudaErrorInvalidValue for another walk,
+// block or arity.
+int tpt_packet_closest_hit_wide(TABLES_ARGS, int walk, int block,
+                                float* t_out, int* tri_out, float* u_out,
+                                float* v_out, int* capped,
                                 unsigned long long* stats, void* stream) {
-  return launch_closest<Wide>(ox, oy, oz, dx, dy, dz, tmax, n, TABLES, t_out,
-                              tri_out, u_out, v_out, capped, stats, stream);
+  const Rays ra{ox, oy, oz, dx, dy, dz, tmax, n};
+  const Outs o{t_out, tri_out, u_out, v_out, nullptr, capped, stats};
+  return launch_wide<false>(ra, TABLES, o, walk, block, stream);
 }
 
-int tpt_packet_any_hit_wide(TABLES_ARGS, unsigned char* occ_out, int* capped,
+int tpt_packet_any_hit_wide(TABLES_ARGS, int walk, int block,
+                            unsigned char* occ_out, int* capped,
                             unsigned long long* stats, void* stream) {
-  return launch_any<Wide>(ox, oy, oz, dx, dy, dz, tmax, n, TABLES, occ_out,
-                          capped, stats, stream);
+  const Rays ra{ox, oy, oz, dx, dy, dz, tmax, n};
+  const Outs o{nullptr, nullptr, nullptr, nullptr, occ_out, capped, stats};
+  return launch_wide<true>(ra, TABLES, o, walk, block, stream);
+}
+
+// registers a thread, local bytes a thread, static shared bytes a block
+// and the most threads a block of the stats-free K2 (any_hit 0) or K1
+// (any_hit 1) kernel of `walk`, `block` and `arity`, into out[0..3]
+int tpt_packet_wide_attributes(int any_hit, int arity, int walk, int block,
+                               int* out) {
+#define ATTR(K, A)                                                         \
+  if (walk == kCoop) return attributes(wide_coop_kernel<K, A, false>, out); \
+  if (walk == kThreadShared && block == 128)                               \
+    return attributes(wide_thread_kernel<K, A, 128, true, false>, out);    \
+  if (walk == kThreadLocal && block == 128)                                \
+    return attributes(wide_thread_kernel<K, A, 128, false, false>, out);   \
+  if (walk == kThreadLocal && block == 256)                                \
+    return attributes(wide_thread_kernel<K, A, 256, false, false>, out);
+  if (arity == 4 && !any_hit) { ATTR(false, 4) }
+  if (arity == 4 && any_hit) { ATTR(true, 4) }
+  if (arity == 8 && !any_hit) { ATTR(false, 8) }
+  if (arity == 8 && any_hit) { ATTR(true, 8) }
+#undef ATTR
+  return (int)cudaErrorInvalidValue;
 }
 
 int tpt_packet_closest_hit(TABLES_ARGS, float* t_out, int* tri_out,

@@ -36,33 +36,42 @@
 // best t; without entry planes every requested slot is), found by a warp
 // shuffle reduction and a step over the warps in shared memory, so cur is
 // uniform and __syncthreads is safe.
-//   Bound: operations, the Moller-Trumbore tests a lane's result needs.
-// So inside the union each warp tests only the rows one of its own lanes
-// can hit. Before a treelet is swept, every live lane slab-tests its 8
-// group boxes (SweepTables.group_boxes: chunks [g*chunk_align,
-// (g+1)*chunk_align) of the treelet, inflated 1e-6 relative) at its best
-// t; a warp ORs its lanes' masks (__reduce_or_sync), and the block ORs the
-// warps'. The block stages only the rows of groups some warp enters, and
-// each warp runs Moller-Trumbore only over the groups one of its lanes
-// enters; the rows past the 8th group (a treelet of more than
-// 8*chunk_align chunks) and, without group boxes, all rows are swept by
-// every warp with a live lane. A group a lane does not enter at its best
-// t holds no triangle it could take (a hit needs t < best), so every
-// lane's best t and row after each treelet are those of a sweep of all
-// the treelet's rows, and so, by induction over the ordinals, is the
-// union walked: group culling leaves the raw result unchanged, and tpt's
-// group mode (a window of groups for the whole block) is the same code.
+//   Bound: operations, the Moller-Trumbore tests the contract prescribes:
+// every live lane tests every row of every treelet of its block's union,
+// as tpt's sweep8_closest_hit without groups and its sweep_closest_hit
+// do. No box can stand in for those tests. A slab test of a box that
+// holds a triangle is no bound on the t that mt_tri computes for it: on a
+// ray nearly parallel to the triangle's plane, det is a difference of
+// products of float32 values whose rounding (about 2^-24 of |e1||d||e2|
+// each) is of the size of det itself, while mt_tri only asks |det| >
+// 1e-9; t, u and v then carry errors of any size, and mt_tri accepts
+// points far outside the triangle. One float32 case (tests/
+// test_torch_flatgroup.py): mt_tri takes a triangle at t = 0.0696 where
+// the ray enters its box, padded as group_boxes pads, at t = 0.249; a
+// search over grazing rays finds such cases for every relative slack on
+// the limit up to 10%. Even a flat group at coordinate 0 (a pad of
+// 1e-30 in that axis) lets the slab's entry t round above mt_tri's t, by
+// 2 ulp on a ray at 10 degrees to the plane (the same file). So a group
+// box missed at the lane's best t proves nothing, and the kernels cull no
+// row: culling each warp's rows by group boxes returned another hit than
+// the plain sweep on such inputs. K4's group mode keeps tpt's own window (pallas_sweep.py:
+// 542-580): every lane of the block, dead and padded ones too,
+// slab-tests the treelet's 8 group boxes at its best t, and the block
+// sweeps the rows from the first group some lane enters to the last, the
+// groups between included. That is tpt's result, not the unculled one,
+// wherever tpt's window drops a hit.
 // Rows go to shared memory with cp.async (3 x 16 bytes, the 9 floats of
 // a row and its id), in two buffers of SWEEP_TILE_ROWS rows: the next
-// tile loads while the current one is tested. A lane tests its rows in
-// ascending packed row and takes a hit only if t < best; since
-// sweep_tables lays treelets out by ascending ordinal, this serial first
-// minimum is the smallest packed row among equal t, which K7's serial
-// scan (:118-131) and K4's per-sublane reduction (:600-616) pick too, so
-// kernel and Pallas kernel agree bit for bit.
+// tile loads while the current one is tested; a warp without a live lane
+// skips the tests. A lane tests its rows in ascending packed row and
+// takes a hit only if t < best; since sweep_tables lays treelets out by
+// ascending ordinal, this serial first minimum is the smallest packed row
+// among equal t, which K7's serial scan (:118-131) and K4's per-sublane
+// reduction (:600-616) pick too, so kernel and Pallas kernel agree bit
+// for bit.
 //   Any-hit mode: after each treelet a lane with a hit before
 // t_max - 1e-3 sets its budget to -3.4e38, so it demands nothing more;
-// it keeps testing the rows its warp sweeps, as tpt's lane does.
+// it keeps testing the rows its block sweeps, as tpt's lane does.
 //
 // Dead lanes (t_max <= 0) skip the arithmetic but take part in the
 // block's barriers.
@@ -86,7 +95,6 @@
 #define MISS_T 3.4e38f        // FLT_MAX of tpt/integrators/intersect.py
 #define MAX_SLOTS 8
 #define GROUPS 8              // group boxes a treelet (SweepTables.group_boxes)
-#define REST GROUPS           // segment of the rows past the groups
 #define FULL_MASK 0xffffffffu
 
 namespace {
@@ -251,39 +259,13 @@ __device__ __forceinline__ void copy_wait() {
 #endif
 }
 
-// the rows of a treelet in segments: group g < GROUPS holds rows
-// [g * group_rows, min((g + 1) * group_rows, nrows)), REST the rows from
-// rest0 on (past the groups; all rows without group boxes)
-struct Segments {
-  int nrows, group_rows, rest0;
-  __device__ __forceinline__ int lo(int g) const {
-    return g == REST ? rest0 : g * group_rows;
-  }
-  __device__ __forceinline__ int hi(int g) const {
-    return g == REST ? nrows : min((g + 1) * group_rows, nrows);
-  }
-};
-
-// packed row of the v-th row over the segments in `mask`, in order
-__device__ __forceinline__ int segment_row(const Segments& sg,
-                                           unsigned mask, int v) {
-  for (int g = 0; g <= REST; ++g) {
-    if (!(mask >> g & 1u)) continue;
-    const int size = sg.hi(g) - sg.lo(g);
-    if (v < size) return sg.lo(g) + v;
-    v -= size;
-  }
-  return -1;
-}
-
-// stage tile k of the rows of the segments in `mask` (rows
-// k*SWEEP_TILE_ROWS.. in their order): one row a thread, as one copy group
+// stage tile k of `total` rows from `rows` (rows k*SWEEP_TILE_ROWS.. in
+// order): one row a thread, as one copy group
 __device__ __forceinline__ void stage_rows(float4* dst, const float* rows,
-                                           const Segments& sg, unsigned mask,
                                            int k, int total) {
   const int v = k * SWEEP_TILE_ROWS + (int)threadIdx.x;
   if (threadIdx.x < SWEEP_TILE_ROWS && v < total) {
-    const float* src = rows + (size_t)segment_row(sg, mask, v) * 16;
+    const float* src = rows + (size_t)v * 16;
     dst += 3 * threadIdx.x;
     copy16(dst, src);
     copy16(dst + 1, src + 4);
@@ -304,8 +286,9 @@ __device__ __forceinline__ Ray pad_ray() {
 // K4 and K7: the demand sweep over blocks of LANES consecutive lanes.
 // `entry` null sweeps every requested ordinal (no demand drop);
 // `any_hit` drops a lane's remaining demand once it holds a hit before
-// t_max - 1e-3; `gbox` (SweepTables.group_boxes, null for none) culls
-// each warp's rows to the groups of group_rows rows that its lanes enter.
+// t_max - 1e-3; `gbox` (SweepTables.group_boxes, null for none) is K4's
+// group mode: each treelet's rows are cut to tpt's window of groups of
+// group_rows rows.
 template <int S, int LANES>
 __global__ void __launch_bounds__(LANES) sweep_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
@@ -357,39 +340,36 @@ __global__ void __launch_bounds__(LANES) sweep_kernel(
     if (cur >= NONE_ORD) break;
     ++sweeps;
     const int start = ranges[2 * cur];
-    Segments sg;
-    sg.nrows = ranges[2 * cur + 1] * rows_per_chunk;
-    sg.group_rows = group_rows;
-    sg.rest0 = gbox ? min(GROUPS * group_rows, sg.nrows) : 0;
-    // this lane's groups: those whose box it enters at its best t
-    unsigned m = 0;
-    if (live) {
-      if (gbox) {
-        const float4* gb = gbox + (size_t)cur * 2 * GROUPS;
-        for (int g = 0; g < GROUPS && g * group_rows < sg.nrows; ++g) {
-          float tn, tf;
-          slab(__ldg(gb + 2 * g), __ldg(gb + 2 * g + 1), r.ox, r.oy, r.oz,
-               r.ix, r.iy, r.iz, bt, &tn, &tf);
-          if (tn <= tf) m |= 1u << g;
-        }
+    const int nrows = ranges[2 * cur + 1] * rows_per_chunk;
+    int lo = 0, hi = nrows;
+    if (gbox) {
+      // tpt's window: the groups every lane enters at its best t, dead
+      // and padded lanes too (pallas_sweep.py:542-580)
+      unsigned m = 0;
+      const float4* gb = gbox + (size_t)cur * 2 * GROUPS;
+      for (int g = 0; g < GROUPS; ++g) {
+        float tn, tf;
+        slab(__ldg(gb + 2 * g), __ldg(gb + 2 * g + 1), r.ox, r.oy, r.oz,
+             r.ix, r.iy, r.iz, bt, &tn, &tf);
+        if (tn <= tf) m |= 1u << g;
       }
-      if (sg.rest0 < sg.nrows) m |= 1u << REST;
-    }
-    const unsigned wm = __reduce_or_sync(FULL_MASK, m);  // this warp's
-    if ((threadIdx.x & 31) == 0) smask[threadIdx.x >> 5] = wm;
-    __syncthreads();
-    unsigned bm = 0;                                     // the block's
+      const unsigned wm = __reduce_or_sync(FULL_MASK, m);
+      if ((threadIdx.x & 31) == 0) smask[threadIdx.x >> 5] = wm;
+      __syncthreads();
+      unsigned bm = 0;
 #pragma unroll
-    for (int w = 0; w < LANES / 32; ++w) bm |= smask[w];
-    int total = 0;
-    for (int g = 0; g <= REST; ++g)
-      if (bm >> g & 1u) total += sg.hi(g) - sg.lo(g);
+      for (int w = 0; w < LANES / 32; ++w) bm |= smask[w];
+      // smask is written again only after the next block_min's barriers
+      lo = bm ? (__ffs(bm) - 1) * group_rows : 0;
+      hi = bm ? min((32 - __clz(bm)) * group_rows, nrows) : 0;
+    }
+    const int total = max(hi - lo, 0);
     const int ntiles = (total + SWEEP_TILE_ROWS - 1) / SWEEP_TILE_ROWS;
-    const float* rows = tri + (size_t)start * 16;
-    if (ntiles > 0) stage_rows(srow[0], rows, sg, bm, 0, total);
+    const float* rows = tri + (size_t)(start + lo) * 16;
+    if (ntiles > 0) stage_rows(srow[0], rows, 0, total);
     for (int k = 0; k < ntiles; ++k) {
       if (k + 1 < ntiles) {
-        stage_rows(srow[(k + 1) & 1], rows, sg, bm, k + 1, total);
+        stage_rows(srow[(k + 1) & 1], rows, k + 1, total);
         copy_wait<1>();
       } else {
         copy_wait<0>();
@@ -398,34 +378,27 @@ __global__ void __launch_bounds__(LANES) sweep_kernel(
       const int tb = k * SWEEP_TILE_ROWS;
       const int te = min(tb + SWEEP_TILE_ROWS, total);
       const float4* buf = srow[k & 1];
-      int v0 = 0;  // this segment's first row in the block's order
-      for (int g = 0; g <= REST; ++g) {
-        if (!(bm >> g & 1u)) continue;
-        const int lo = sg.lo(g), size = sg.hi(g) - lo;
-        const int a = max(v0, tb), b = min(v0 + size, te);
-        if (a < b && (wm >> g & 1u) && live) {
-          tested += b - a;
-          for (int v = a; v < b; ++v) {
-            const float4* w = buf + 3 * (v - tb);
-            const float4 p = w[0], q = w[1], s = w[2];
-            float t, u, vv;
-            if (mt_tri(p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w, s.x, r, &t,
-                       &u, &vv) &&
-                t < bt) {
-              bt = t;
-              brow = start + lo + (v - v0);
-              bu = u;
-              bv = vv;
-            }
+      if (live) {
+        tested += te - tb;
+        for (int v = tb; v < te; ++v) {
+          const float4* w = buf + 3 * (v - tb);
+          const float4 p = w[0], q = w[1], s = w[2];
+          float t, u, vv;
+          if (mt_tri(p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w, s.x, r, &t, &u,
+                     &vv) &&
+              t < bt) {
+            bt = t;
+            brow = start + lo + v;
+            bu = u;
+            bv = vv;
           }
         }
-        v0 += size;
       }
       // the buffer read here is refilled two tiles on
       if (k + 2 < ntiles) __syncthreads();
     }
     // an occluded lane (a hit before t_max - 1e-3) demands nothing more
-    // but keeps testing the rows its warp sweeps (pallas_sweep.py:136-141,
+    // but keeps testing the rows its block sweeps (pallas_sweep.py:136-141,
     // :587-594)
     budget = (any_hit && bt < tm - 1e-3f) ? -MISS_T : bt;
   }
@@ -534,9 +507,9 @@ int tpt_dense_scan(const float* ox, const float* oy, const float* oz,
 
 // K4 (128-lane blocks) and K7 (1024-lane blocks). `entry` null: every
 // requested ordinal is swept; `any_hit` nonzero: the any-hit demand
-// drop; `gbox` non-null: per-warp group culling with `chunk_align`
-// chunks a group (null: every warp with a live lane sweeps every row of
-// the union). `stats`, if not null, accumulates (treelet sweeps summed
+// drop; `gbox` non-null: K4's group mode, tpt's window of groups of
+// `chunk_align` chunks (null: every warp with a live lane sweeps every
+// row of the union). `stats`, if not null, accumulates (treelet sweeps summed
 // over blocks, triangle tests made by live lanes, live lanes).
 int tpt_sweep8_closest_hit(const float* ox, const float* oy, const float* oz,
                            const float* dx, const float* dy, const float* dz,
