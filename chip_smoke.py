@@ -221,8 +221,6 @@ SWEEP_FRAMES = 4          # frames of the timed sweep render
 SWEEP_BOUNCES = (1, 4)    # pools whose K4 result is held against plain
 # tolerances of the kernel-vs-plain comparison (the kernel is built without
 # multiply-add contraction and walks the same order, so these have slack)
-T_RTOL = 1e-4
-TRI_MISMATCH_MAX = 1e-4   # fraction of hit rays whose triangle may differ
 # card peaks for the bound (H100 SXM data sheet: 3.35 TB/s HBM3; 67
 # TFLOP/s fp32 outside the tensor cores, which counts each FMA as two
 # operations). The kernels are built with -fmad=false and issue separate
@@ -473,49 +471,18 @@ def bound(pack, n: int, out_bytes: int, stats) -> tuple:
     return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
 
 
-def check_closest_hit(label: str, res_k, res_p, kernel: str,
-                      exact: bool) -> float:
+def check_closest_hit(label: str, res_k, res_p, kernel: str) -> float:
     """Hold a closest-hit kernel's (HitRecord, capped) against the plain
-    version's, with no capped ray: bit for bit when `exact`, else hit masks
-    equal, t within T_RTOL and triangles differing on at most
-    TRI_MISMATCH_MAX of the hits. Returns the largest absolute difference
-    of t on hits and of u, v where the triangles agree."""
-    import torch
-
+    version's, bit for bit with no capped ray; returns the largest
+    absolute difference of t, u and v (0)."""
     (hk, cap_k), (hp, cap_p) = res_k, res_p
     if int(cap_k) or int(cap_p):
         raise RuntimeError(f"{label}: capped rays, kernel {int(cap_k)}, "
                            f"plain {int(cap_p)}")
-    hit_k, hit_p = hk.tri >= 0, hp.tri >= 0
-    n_hit = int(hit_k.sum())
-    if exact:
-        equal_hits(f"{kernel} vs plain, {label}", hk, hp)
-        print(f"  {kernel} vs plain, {label}: {hk.tri.numel()} rays, "
-              f"{n_hit} hits, bit-equal")
-        return 0.0
-    if not torch.equal(hit_k, hit_p):
-        raise RuntimeError(f"{label}: {kernel} hit mask differs on "
-                           f"{int((hit_k != hit_p).sum())} rays")
-    if not torch.equal(hk.t[~hit_k], hp.t[~hit_k]):
-        raise RuntimeError(f"{label}: {kernel} t differs on misses")
-    tk, tp = hk.t[hit_k], hp.t[hit_k]
-    t_rel = float(((tk - tp).abs() / tp.abs().clamp_min(1e-30)).max()) \
-        if n_hit else 0.0
-    if t_rel > T_RTOL:
-        raise RuntimeError(f"{label}: {kernel} t differs, max rel {t_rel}")
-    same = hk.tri == hp.tri
-    tri_diff = int((~same).sum())
-    if tri_diff > TRI_MISMATCH_MAX * n_hit:
-        raise RuntimeError(f"{label}: {kernel} triangle differs on "
-                           f"{tri_diff} rays")
-    err = float((tk - tp).abs().max()) if n_hit else 0.0
-    if bool(same.any()):
-        err = max(err, float((hk.u - hp.u)[same].abs().max()),
-                  float((hk.v - hp.v)[same].abs().max()))
-    print(f"  {kernel} vs plain, {label}: {hk.tri.numel()} rays, {n_hit} hits, "
-          f"t max rel {t_rel:.3g}, tri differs {tri_diff}, "
-          f"max abs err {err:.3g}")
-    return err
+    equal_hits(f"{kernel} vs plain, {label}", hk, hp)
+    print(f"  {kernel} vs plain, {label}: {hk.tri.numel()} rays, "
+          f"{int((hk.tri >= 0).sum())} hits, bit-equal")
+    return 0.0
 
 
 def check_any_hit(label: str, res_k, res_p, t_max, kernel: str) -> float:
@@ -702,43 +669,53 @@ def check_image(label: str, img) -> None:
                            f"mean {float(np.nanmean(img))}")
 
 
+WALK_ROUNDS = 3   # interleaved rounds of wide_walk_times
+
+
+def walk_name(walk: int) -> str:
+    """K1/K2's walk by name (packet_traverse.WALK_THREAD, WALK_COOP)."""
+    return ("per-thread", "cooperative")[walk]
+
+
 def wide_walk_times(label: str, pack, closest_sets, any_sets) -> dict:
     """K2 on each of `closest_sets` and K1 on each of `any_sets` ((o, d,
-    t_max) casts) with each (walk, block) of packet_traverse.WALKS forced,
-    CUDA-event medians, printed with each kernel's registers a thread and
-    local bytes (cudaFuncGetAttributes). Returns {walk: [ms, ...]}, the
-    closest sets first."""
+    t_max) casts) with each walk of packet_traverse.WALKS forced, in
+    WALK_ROUNDS interleaved rounds (walk 0, walk 1, walk 0, ...) of
+    CUDA-event medians, printed as the median over the rounds with each
+    kernel's registers a thread and local bytes (cudaFuncGetAttributes)."""
     from tpt_torch.bvh import packet_traverse as pt
 
-    out = {}
-    for walk in pt.WALKS:
-        ms = [cuda_time_ms(lambda: pt._closest_wide(pack, *r, walk=walk),
-                           TIMING_REPS) for r in closest_sets]
-        ms += [cuda_time_ms(lambda: pt._any_wide(pack, *r, walk=walk),
-                            TIMING_REPS) for r in any_sets]
-        out[walk] = ms
-        regs = [pt.kernel_attributes(a, pack.arity, *walk) for a in (0, 1)]
-        print(f"  walk {walk} ({label}): " + ", ".join(
-            f"{m:.3f}" for m in ms) + " ms; K2 " + "{regs} regs, "
-            "{local_bytes} B local".format(**regs[0]) + "; K1 " +
+    rounds = {walk: [] for walk in pt.WALKS}
+    for _ in range(WALK_ROUNDS):
+        for walk in pt.WALKS:
+            ms = [cuda_time_ms(lambda: pt._closest_wide(pack, *r, walk=walk),
+                               TIMING_REPS) for r in closest_sets]
+            ms += [cuda_time_ms(lambda: pt._any_wide(pack, *r, walk=walk),
+                                TIMING_REPS) for r in any_sets]
+            rounds[walk].append(ms)
+    for walk, runs in rounds.items():
+        regs = [pt.kernel_attributes(a, pack.arity, walk) for a in (0, 1)]
+        print(f"  {walk_name(walk)} walk ({label}): " + ", ".join(
+            f"{sorted(x)[len(x) // 2]:.3f} ({min(x):.3f}-{max(x):.3f})"
+            for x in zip(*runs)) + " ms; K2 " +
+            "{regs} regs, {local_bytes} B local".format(**regs[0]) + "; K1 " +
             "{regs} regs, {local_bytes} B local".format(**regs[1]))
-    return out
 
 
 def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
-               closest_plain, any_plain, exact: bool, walks=()) -> dict:
+               closest_plain, any_plain, walks=()) -> dict:
     """The cast kernels of `scene`'s pack, closest(pack, o, d, t_max) and
     any_hit(...), against their plain versions on the casts of bounces 0
     and 1 of a BVH_PALLAS frame: first on N_COMPARE live rays (camera
     primaries and one real diffuse bounce, and the NEE shadow rays of both
     bounces), then on every lane of each of those casts as the render
-    launches them, dead lanes included (check_closest_hit with `exact`,
-    check_any_hit). Then CUDA-event timings on all lanes (the closest hit
-    on the primaries and the bounce-1 pool, the any hit on the bounce-0
-    shadow rays) and bounds from the tests the kernels count. `names` are
-    the two kernels' labels. `walks` (K1/K2): each (walk, block) is also
-    forced on every set and held against the plain version the same way,
-    and every walk of packet_traverse.WALKS is timed (wide_walk_times).
+    launches them, dead lanes included (check_closest_hit,
+    check_any_hit: bit for bit). Then CUDA-event timings on all lanes (the
+    closest hit on the primaries and the bounce-1 pool, the any hit on the
+    bounce-0 shadow rays) and bounds from the tests the kernels count.
+    `names` are the two kernels' labels. `walks` (K1/K2): each walk is
+    also forced on every set and held against the plain version the same
+    way, and timed (wide_walk_times).
     Returns the lane count, the primaries, and each kernel's numbers for
     the kernels line."""
     import torch
@@ -764,11 +741,11 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
 
     def check_c(label, rays):
         res_p, plain_ms = timed_once(lambda: closest_plain(pack, *rays))
-        err = check_closest_hit(label, closest(pack, *rays), res_p, kc, exact)
+        err = check_closest_hit(label, closest(pack, *rays), res_p, kc)
         for w in walks:
             err = max(err, check_closest_hit(
-                f"{label}, walk {w}", pt._closest_wide(pack, *rays, walk=w),
-                res_p, kc, exact))
+                f"{label}, {walk_name(w)} walk",
+                pt._closest_wide(pack, *rays, walk=w), res_p, kc))
         return err, plain_ms
 
     def check_a(label, rays):
@@ -776,8 +753,8 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
         err = check_any_hit(label, any_hit(pack, *rays), res_p, rays[2], ka)
         for w in walks:
             err = max(err, check_any_hit(
-                f"{label}, walk {w}", pt._any_wide(pack, *rays, walk=w),
-                res_p, rays[2], ka))
+                f"{label}, {walk_name(w)} walk",
+                pt._any_wide(pack, *rays, walk=w), res_p, rays[2], ka))
         return err, plain_ms
 
     c_err = check_c("picked live rays", cat_rays(live(prim), live(pool)))[0]
@@ -859,7 +836,7 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float) -> tuple:
     t0 = time.perf_counter()
     res = cast_phase(bscene, cam, dev, ("K8a", "K8b"), pt.packet_closest_hit,
                      pt.packet_any_hit, pt.closest_hit_plain,
-                     pt.any_hit_plain, exact=True)
+                     pt.any_hit_plain)
     prim = res.pop("primaries")
     stats_2 = torch.zeros(3, dtype=torch.int64, device=dev)
     pt.packet_closest_hit_wide(scene.pack, *prim, stats=stats_2)
@@ -1114,22 +1091,26 @@ def bench_wide_casts(pack, tail, shadow) -> dict:
     and the wrappers' own pick held against the plain versions bit for
     bit with 0 capped; then each kernel alone by CUDA events, in each walk
     of packet_traverse.WALKS, with bounds from the tests the kernels
-    count (stats). Returns the wrappers' times."""
+    count (stats). Returns the wrappers' times (tail, shadow)."""
     import torch
 
     from tpt_torch.bvh import packet_traverse as pt
 
     n_t, n_s = tail[2].numel(), shadow[2].numel()
     dev = tail[2].device
-    for walk in (None, pt.THREAD_WALK, (pt.WALK_COOP, 128)):
-        label = f"walk {walk if walk else pt._walk_for(n_t, pack.arity, dev)}"
+    pick_t = walk_name(pt._walk_for(n_t, pack.arity, dev))
+    pick_s = walk_name(pt._walk_for(n_s, pack.arity, dev))
+    for walk in (None,) + pt.WALKS:
+        label = (f"the wrapper's pick ({pick_t})" if walk is None
+                 else f"{walk_name(walk)} walk")
         check_closest_hit(f"bench bounce-1 tail, {label}",
                           pt._closest_wide(pack, *tail, walk=walk),
-                          pt.closest_hit_wide_plain(pack, *tail), "K2", True)
+                          pt.closest_hit_wide_plain(pack, *tail), "K2")
     p_ms = timed_once(lambda: pt.closest_hit_wide_plain(pack, *tail))[1]
     occ_p, a_plain_ms = timed_once(lambda: pt.any_hit_wide_plain(pack, *shadow))
-    for walk in (None, pt.THREAD_WALK, (pt.WALK_COOP, 128)):
-        label = f"walk {walk if walk else pt._walk_for(n_s, pack.arity, dev)}"
+    for walk in (None,) + pt.WALKS:
+        label = (f"the wrapper's pick ({pick_s})" if walk is None
+                 else f"{walk_name(walk)} walk")
         check_any_hit(f"bench bounce-1 shadow, {label}",
                       pt._any_wide(pack, *shadow, walk=walk), occ_p,
                       shadow[2], "K1")
@@ -1144,18 +1125,16 @@ def bench_wide_casts(pack, tail, shadow) -> dict:
     t_bound, t_by = bound(pack, n_t, 16, st_t.cpu())
     s_bound, s_by = bound(pack, n_s, 1, st_s.cpu())
     print(f"  K2 on the bench bounce-1 tail: {n_t} lanes, "
-          f"{t_ms:.3f} ms (walk {pt._walk_for(n_t, pack.arity, dev)}), plain "
+          f"{t_ms:.3f} ms ({pick_t} walk), plain "
           f"{p_ms:.1f} ms, bound {t_bound:.4f} ms ({t_by}); "
           f"{tests_done(st_t.cpu())}")
     print(f"  K1 on the bench bounce-1 shadow rays: {n_s} lanes "
-          f"({int((shadow[2] - 1e-3 <= 0).sum())} dead), {s_ms:.3f} ms (walk "
-          f"{pt._walk_for(n_s, pack.arity, dev)}), plain {a_plain_ms:.1f} ms, "
+          f"({int((shadow[2] - 1e-3 <= 0).sum())} dead), {s_ms:.3f} ms "
+          f"({pick_s} walk), plain {a_plain_ms:.1f} ms, "
           f"bound {s_bound:.4f} ms ({s_by}); {tests_done(st_s.cpu())}")
-    walks = wide_walk_times("bench tail (K2), bench shadow (K1)", pack,
-                            [tail], [shadow])
-    return dict(tail_ms=t_ms, shadow_ms=s_ms, tail_bound=t_bound,
-                shadow_bound=s_bound, tail_plain_ms=p_ms,
-                shadow_plain_ms=a_plain_ms, walks=walks)
+    wide_walk_times("bench tail (K2), bench shadow (K1)", pack, [tail],
+                    [shadow])
+    return t_ms, s_ms
 
 
 def sweep_phases(scene, cam, dev) -> tuple:
@@ -1315,12 +1294,12 @@ def sweep_phases(scene, cam, dev) -> tuple:
           f"({int(st4[1]) / max(1, need4[0]):.2f}x the need), live lanes "
           f"{int(st4[2])}, unresolved (tail) {100 * tail_frac:.3f}% of "
           f"live lanes")
-    bench = bench_wide_casts(scene.pack, grabbed["tail"], grabbed["shadow"])
+    k2_tail_ms, k1_shadow_ms = bench_wide_casts(scene.pack, grabbed["tail"],
+                                                grabbed["shadow"])
     phase("sweep_kernels", t0, lanes=n, k3_ms=f"{k3_ms:.3f}",
           k4_ms=f"{k4_ms:.3f}", mean_union=f"{union:.2f}",
           tail_pct=f"{100 * tail_frac:.3f}",
-          k2_tail_ms=f"{bench['tail_ms']:.3f}",
-          k1_shadow_ms=f"{bench['shadow_ms']:.3f}")
+          k2_tail_ms=f"{k2_tail_ms:.3f}", k1_shadow_ms=f"{k1_shadow_ms:.3f}")
     del grabbed, spool, ori, d, tmax, s_o, s_t, thr, raw, fin, ref
 
     # ---- sweep_render: the bench configuration, the second main path -----
@@ -2608,8 +2587,7 @@ def main() -> int:
     t0 = time.perf_counter()
     res = cast_phase(scene, cam, dev, ("K2", "K1"), pt.packet_closest_hit_wide,
                      pt.packet_any_hit_wide, pt.closest_hit_wide_plain,
-                     pt.any_hit_wide_plain, exact=True,
-                     walks=(pt.THREAD_WALK, (pt.WALK_COOP, 128)))
+                     pt.any_hit_wide_plain, walks=pt.WALKS)
     del res["primaries"]
     print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
           "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject, "

@@ -128,7 +128,7 @@ def _p(a):
     return ctypes.c_void_p(a.data_ptr() if a is not None else None)
 
 
-def _cast(lib, pack, o, d, t_max, any_hit, walk, block):
+def _cast(lib, pack, o, d, t_max, any_hit, walk):
     """K2 (K1 with `any_hit`) of the emulated library: (result, capped,
     stats)."""
     n = t_max.numel()
@@ -137,7 +137,7 @@ def _cast(lib, pack, o, d, t_max, any_hit, walk, block):
     args = [_p(a) for a in (o.x, o.y, o.z, d.x, d.y, d.z, t_max)]
     args += [n, _p(pack.node_f32), pack.node_f32.shape[1], _p(pack.node_child),
              pack.num_nodes, _p(pack.tri_f32), pack.tri_f32.shape[0],
-             pack.arity, pack.max_cluster, walk, block]
+             pack.arity, pack.max_cluster, walk]
     if any_hit:
         occ = torch.zeros(n, dtype=torch.uint8)
         fn = lib.tpt_packet_any_hit_wide
@@ -174,8 +174,7 @@ def _bits(a):
     return a.view(torch.int32) if a.dtype == torch.float32 else a
 
 
-WALKS = [(pt.WALK_THREAD, 128), (pt.WALK_THREAD_SHARED, 128),
-         (pt.WALK_THREAD, 256), (pt.WALK_COOP, 128)]
+WALKS = pt.WALKS
 
 
 @pytest.mark.parametrize("arity", [4, 8])
@@ -190,14 +189,14 @@ def test_wide_walks_equal_plain(libs, cornell, cornell8, arity):
     occ_want, cap_a = pt.any_hit_wide_plain(pack, o, d, t_max)
     assert int(cap) == 0 and int(cap_a) == 0
     counts = []
-    for walk, block in WALKS:
+    for walk in WALKS:
         got, capped, st = _cast(libs["packet_wide"], pack, o, d, t_max, False,
-                                walk, block)
+                                walk)
         for a, b in zip(got, (want.t, want.tri, want.u, want.v)):
-            assert torch.equal(_bits(a), _bits(b)), (walk, block)
+            assert torch.equal(_bits(a), _bits(b)), walk
         occ, capped_a, st_a = _cast(libs["packet_wide"], pack, o, d, t_max,
-                                    True, walk, block)
-        assert torch.equal(occ, occ_want), (walk, block)
+                                    True, walk)
+        assert torch.equal(occ, occ_want), walk
         assert capped == 0 and capped_a == 0
         counts.append((st.tolist(), st_a.tolist()))
     assert all(c == counts[0] for c in counts)
@@ -211,11 +210,11 @@ def test_wide_walks_on_equal_t_ties(libs):
     pack = fg.flat_pack("cpu")
     o, d, t_max, _, _ = fg.edge_pool(512, 3, "cpu")
     want, _ = pt.closest_hit_wide_plain(pack, o, d, t_max)
-    for walk, block in (WALKS[0], WALKS[-1]):
+    for walk in WALKS:
         got, capped, _ = _cast(libs["packet_wide"], pack, o, d, t_max, False,
-                               walk, block)
+                               walk)
         for a, b in zip(got, (want.t, want.tri, want.u, want.v)):
-            assert torch.equal(_bits(a), _bits(b)), (walk, block)
+            assert torch.equal(_bits(a), _bits(b)), walk
         assert capped == 0
 
 
@@ -232,9 +231,9 @@ def test_wide_cyclic_table_caps_every_ray(libs, cornell):
     d = Vec3.from_stacked(d / d.norm(dim=1, keepdim=True))
     t_max = torch.full((8,), 1e4)
     _, cap_p = pt.closest_hit_wide_plain(bad, o, d, t_max)
-    for walk, block, any_hit in ((*WALKS[0], True), (*WALKS[-1], False)):
+    for walk, any_hit in ((pt.WALK_THREAD, True), (pt.WALK_COOP, False)):
         _, capped, _ = _cast(libs["packet_wide"], bad, o, d, t_max, any_hit,
-                             walk, block)
+                             walk)
         assert capped == int(cap_p) == 8
 
 

@@ -151,13 +151,11 @@ def test_render_on_card_matches_cpu(cornell, cuda):
 
 
 # ---------------------------------------------------------------------------
-# K2/K1's walks, each forced: one thread a ray (stack below the top in
-# local or shared memory, 128 or 256 threads a block) and the cooperative
-# walk (a group of `arity` lanes a ray)
+# K2/K1's walks, each forced: one thread a ray and the cooperative walk (a
+# group of `arity` lanes a ray)
 # ---------------------------------------------------------------------------
 
-WALKS = [pt.THREAD_WALK, (pt.WALK_THREAD, 128), (pt.WALK_THREAD, 256),
-         (pt.WALK_THREAD_SHARED, 128), (pt.WALK_COOP, 128)]
+WALKS = pt.WALKS
 
 
 def _walk_cases(data, cuda):
@@ -233,8 +231,8 @@ def test_wide_walk_picked_by_launch_size(cornell, cuda):
     _, data = cornell
     props = torch.cuda.get_device_properties(cuda)
     resident = props.multi_processor_count * props.max_threads_per_multi_processor
-    assert pt._walk_for(resident // 4, 4, cuda) == (pt.WALK_COOP, 128)
-    assert pt._walk_for(resident // 4 + 1, 4, cuda) == pt.THREAD_WALK
+    assert pt._walk_for(resident // 4, 4, cuda) == pt.WALK_COOP
+    assert pt._walk_for(resident // 4 + 1, 4, cuda) == pt.WALK_THREAD
     for n in (resident // 4, resident // 4 + 1):
         o, d = _rays(n, [0, 0, 0], [556, 548, 560], 54, cuda)
         t_max = torch.full((n,), intersect.FLT_MAX, device=cuda)
@@ -263,12 +261,12 @@ def test_wide_walk_registers(cuda):
     """Every walk is built; none spills its registers to local memory
     beyond the per-thread stack."""
     for any_hit in (False, True):
-        for walk, block in WALKS:
-            a = pt.kernel_attributes(any_hit, 4, walk, block)
-            assert 0 < a["regs"] <= 255 and a["max_threads"] >= block
-            stack = 4 * (pt.STACK_DEPTH - 1)
-            assert a["local_bytes"] <= (stack if walk != pt.WALK_THREAD_SHARED
-                                        else 0) + 16, (walk, block, a)
+        for walk in WALKS:
+            for arity in (4, 8):
+                a = pt.kernel_attributes(any_hit, arity, walk)
+                assert 0 < a["regs"] <= 255 and a["max_threads"] >= 128
+                assert a["local_bytes"] <= 4 * (pt.STACK_DEPTH - 1) + 16, (
+                    walk, arity, a)
 
 
 # ---------------------------------------------------------------------------

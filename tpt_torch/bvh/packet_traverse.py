@@ -64,16 +64,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 
-# K1/K2's walks (csrc/packet_wide.cu Walk): one thread a ray with the
-# stack below its top in local or in shared memory, or a group of `arity`
-# lanes a ray
-WALK_THREAD, WALK_THREAD_SHARED, WALK_COOP = 0, 1, 2
-# the per-thread walk's stack and threads a block, chosen by measurement
-# on an H100 (PERF.md)
-THREAD_WALK = (WALK_THREAD, 128)
-# (walk, block) pairs the library is built for
-WALKS = ((WALK_THREAD, 128), (WALK_THREAD, 256), (WALK_THREAD_SHARED, 128),
-         (WALK_COOP, 128))
+# K1/K2's walks (csrc/packet_wide.cu Walk): one thread a ray, or a group
+# of `arity` lanes a ray (the cooperative walk)
+WALK_THREAD, WALK_COOP = 0, 1
+WALKS = (WALK_THREAD, WALK_COOP)
 
 
 def max_steps(pack: PacketBVH) -> int:
@@ -93,7 +87,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_tpt_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         common = [p] * 7 + [i, p, i, p, i, p, i, i, i]
-        for suffix, walk in (("_wide", [i, i]), ("", [])):
+        for suffix, walk in (("_wide", [i]), ("", [])):
             closest = getattr(lib, "tpt_packet_closest_hit" + suffix)
             closest.restype = ctypes.c_int
             closest.argtypes = common + walk + [p] * 7
@@ -101,7 +95,7 @@ def _lib() -> ctypes.CDLL:
             any_hit.restype = ctypes.c_int
             any_hit.argtypes = common + walk + [p] * 4
         lib.tpt_packet_wide_attributes.restype = ctypes.c_int
-        lib.tpt_packet_wide_attributes.argtypes = [i, i, i, i, p]
+        lib.tpt_packet_wide_attributes.argtypes = [i, i, i, p]
         lib.tpt_stack_depth.restype = ctypes.c_int
         lib.tpt_stack_depth.argtypes = []
         if lib.tpt_stack_depth() != STACK_DEPTH:
@@ -116,13 +110,12 @@ def build_kernels() -> None:
     _lib()
 
 
-def kernel_attributes(any_hit: bool, arity: int, walk: int,
-                      block: int) -> dict:
+def kernel_attributes(any_hit: bool, arity: int, walk: int) -> dict:
     """Registers a thread, local bytes a thread, static shared bytes a
     block and the most threads a block of the K2 (K1 with `any_hit`)
-    kernel of a (walk, block) of WALKS, as compiled (without stats)."""
+    kernel of `walk`, as compiled (without stats)."""
     out = (ctypes.c_int * 4)()
-    rc = _lib().tpt_packet_wide_attributes(int(any_hit), arity, walk, block,
+    rc = _lib().tpt_packet_wide_attributes(int(any_hit), arity, walk,
                                            ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {rc}")
@@ -130,13 +123,13 @@ def kernel_attributes(any_hit: bool, arity: int, walk: int,
                 max_threads=out[3])
 
 
-def _walk_for(n: int, arity: int, dev: torch.device) -> Tuple[int, int]:
+def _walk_for(n: int, arity: int, dev: torch.device) -> int:
     """K1/K2's walk for n rays: the cooperative one where its n * arity
     lanes fit in what the card keeps resident (SMs x resident threads an
-    SM), else THREAD_WALK."""
+    SM), else the per-thread one."""
     props = torch.cuda.get_device_properties(dev)
     resident = props.multi_processor_count * props.max_threads_per_multi_processor
-    return (WALK_COOP, 128) if n * arity <= resident else THREAD_WALK
+    return WALK_COOP if n * arity <= resident else WALK_THREAD
 
 
 def _check(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
@@ -182,9 +175,9 @@ def _check(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
 
 def _launch(name: str, pack: PacketBVH, ori: Vec3, d: Vec3,
             t_max: torch.Tensor, outs, capped, stats,
-            walk: Optional[Tuple[int, int]] = None) -> None:
-    """Launch K1/K2 (with the (walk, block) `walk` of WALKS, _walk_for's
-    by default) or K8a/K8b (`walk` None)."""
+            walk: Optional[int] = None) -> None:
+    """Launch K1/K2 (with `walk`, one of WALKS, _walk_for's by default)
+    or K8a/K8b (`walk` None)."""
     n = ori.x.shape[0]
     if n >= 2**31 // 8:
         raise ValueError(f"{n} rays exceed the kernels' int32 lane index")
@@ -206,9 +199,9 @@ def _launch(name: str, pack: PacketBVH, ori: Vec3, d: Vec3,
                              "a node width that is a multiple of 4")
         if walk is None:
             walk = _walk_for(n, pack.arity, ori.x.device)
-        if tuple(walk) not in WALKS:
+        if walk not in WALKS:
             raise ValueError(f"no K1/K2 walk {walk}; the library has {WALKS}")
-        args += list(walk)
+        args.append(walk)
     args += [ptr(o) for o in outs] + [ptr(capped)]
     args.append(ptr(stats) if stats is not None else ctypes.c_void_p(None))
     _build.launch(_lib, LAUNCHES, name, ori.x.device, *args)
@@ -235,8 +228,8 @@ def packet_any_hit_wide(pack: PacketBVH, ori: Vec3, d: Vec3,
 
 
 def _closest_wide(pack, ori, d, t_max, stats=None, walk=None):
-    """K2 with `walk`, a (walk, block) of WALKS, forced (tests and
-    chip_smoke.py hold both walks against the plain version)."""
+    """K2 with `walk`, one of WALKS, forced (tests and chip_smoke.py hold
+    both walks against the plain version)."""
     n = _check(pack, ori, d, t_max)
     dev = ori.x.device
     if dev.type == "cpu":

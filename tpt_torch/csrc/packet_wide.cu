@@ -76,8 +76,10 @@
 // clusters, so lanes on nodes and lanes on clusters do not take turns on
 // every step. The stack keeps its top entry in a register (the nearest
 // child, pushed last, is popped next without a memory round trip) and the
-// rest in local memory, or in shared memory (entry k of thread x at
-// k * block + x); the counters of `stats` are compiled in only for
+// rest in local memory, 128 threads a block: on an H100 a stack in shared
+// memory (entry k of thread x at k * 128 + x) and 256-thread blocks ran
+// within the noise of one kernel's repeated timings (PERF.md), so the
+// simplest stayed. The counters of `stats` are compiled in only for
 // launches that ask for them.
 //
 // Cooperative walk (wide_coop_kernel), for launches too small to fill the
@@ -101,7 +103,7 @@
 #include "ray_common.cuh"
 
 #define STACK_DEPTH 64
-#define BLOCK 128        // threads a block: binary walk, cooperative walk
+#define BLOCK 128        // threads a block, every walk
 #define BIG 3.0e38f
 #define MISS_T 3.4e38f
 #define FULL_MASK 0xffffffffu
@@ -346,10 +348,8 @@ struct Outs {
 
 constexpr int kWideStepPad = 8192;
 
-// a ray's stack: the top entry in a register, the entries below it at
-// mem[k * kStride] (k = 0 the bottom): a per-thread array (local memory,
-// kStride 1) or a block's shared array (kStride = threads a block)
-template <int kStride>
+// a ray's stack: the top entry in a register, the entries below it in
+// the thread's array `mem` (local memory), mem[0] the bottom
 struct RayStack {
   int* mem;
   int top;
@@ -357,7 +357,7 @@ struct RayStack {
 
   __device__ __forceinline__ bool push(int c) {
     if (sp >= STACK_DEPTH) return false;
-    if (sp > 0) mem[(sp - 1) * kStride] = top;
+    if (sp > 0) mem[sp - 1] = top;
     top = c;
     ++sp;
     return true;
@@ -365,14 +365,14 @@ struct RayStack {
   __device__ __forceinline__ int pop() {
     const int c = top;
     --sp;
-    if (sp > 0) top = mem[(sp - 1) * kStride];
+    if (sp > 0) top = mem[sp - 1];
     return c;
   }
 };
 
 // The state of one ray's wide walk, shared by both walks: the pop with
 // its step cap, the cluster decode, the result.
-template <bool kAny, int kStride>
+template <bool kAny>
 struct WideRay {
   Ray r;
   float tm;
@@ -383,7 +383,7 @@ struct WideRay {
   bool occ, exact, done;
   int held;      // the code popped last (node >= 0, cluster < -1)
   int steps, max_steps;
-  RayStack<kStride> st;
+  RayStack st;
   unsigned long long nodes, slabs, tris;
 
   __device__ __forceinline__ void start(const Rays& ra, int i, bool in,
@@ -399,7 +399,7 @@ struct WideRay {
     exact = true;
     steps = 0;
     max_steps = 8 * tb.num_nodes + kWideStepPad;
-    st = RayStack<kStride>{mem, 0, 0};
+    st = RayStack{mem, 0, 0};
     nodes = slabs = tris = 0;
     held = 0;
     done = !(in && ray_finite(r, tm) && (kAny ? !occ : bt > 0.0f));
@@ -474,19 +474,15 @@ __device__ __forceinline__ void report(const W& w, bool lead, const Outs& o) {
 }
 
 // The per-thread walk: one thread a ray, while-while over the warp.
-// kStride 1 keeps the stack below the top in local memory, kBlock in
-// shared memory.
-template <bool kAny, int A, int kBlock, bool kShared, bool kStats>
-__global__ void __launch_bounds__(kBlock) wide_thread_kernel(Rays ra,
-                                                             Tables tb,
-                                                             Outs o) {
-  constexpr int kStride = kShared ? kBlock : 1;
-  __shared__ int sstack[kShared ? (STACK_DEPTH - 1) * kBlock : 1];
-  int lstack[kShared ? 1 : STACK_DEPTH - 1];
-  const int i = blockIdx.x * kBlock + threadIdx.x;
+template <bool kAny, int A, bool kStats>
+__global__ void __launch_bounds__(BLOCK) wide_thread_kernel(Rays ra,
+                                                            Tables tb,
+                                                            Outs o) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool in = i < ra.n;
-  WideRay<kAny, kStride> w;
-  w.start(ra, i, in, tb, kShared ? sstack + threadIdx.x : lstack);
+  int stack[STACK_DEPTH - 1];
+  WideRay<kAny> w;
+  w.start(ra, i, in, tb, stack);
   const float4* tri4 = reinterpret_cast<const float4*>(tb.tri_f32);
   while (__any_sync(FULL_MASK, !w.done)) {
     // nodes, until every lane of the warp holds a cluster or is done
@@ -566,15 +562,15 @@ template <bool kAny, int A, bool kStats>
 __global__ void __launch_bounds__(BLOCK) wide_coop_kernel(Rays ra, Tables tb,
                                                           Outs o) {
   static_assert(BLOCK % 32 == 0 && 32 % A == 0, "groups must tile a warp");
-  int lstack[STACK_DEPTH - 1];
   const int g = threadIdx.x & (A - 1);           // this lane's slot
   const int base = (threadIdx.x & 31) & ~(A - 1);  // the group's first lane
   const unsigned all = (1u << A) - 1u;
   const unsigned gmask = all << base;
   const int i = (blockIdx.x * BLOCK + threadIdx.x) / A;
   const bool in = i < ra.n;
-  WideRay<kAny, 1> w;
-  w.start(ra, i, in, tb, lstack);
+  int stack[STACK_DEPTH - 1];
+  WideRay<kAny> w;
+  w.start(ra, i, in, tb, stack);
   const float4* tri4 = reinterpret_cast<const float4*>(tb.tri_f32);
   while (__any_sync(FULL_MASK, !w.done)) {
     while (__any_sync(FULL_MASK, w.on_node())) {
@@ -670,43 +666,25 @@ int launch_any(const float* ox, const float* oy, const float* oz,
   return (int)cudaGetLastError();
 }
 
-// the walks the wrapper can pick (packet_traverse.WALKS)
-enum Walk { kThreadLocal = 0, kThreadShared = 1, kCoop = 2 };
-
-template <bool kAny, int A, int kBlock, bool kShared>
-void launch_thread(const Rays& ra, const Tables& tb, const Outs& o,
-                   cudaStream_t s) {
-  const int grid = (ra.n + kBlock - 1) / kBlock;
-  if (o.stats)
-    wide_thread_kernel<kAny, A, kBlock, kShared, true><<<grid, kBlock, 0, s>>>(
-        ra, tb, o);
-  else
-    wide_thread_kernel<kAny, A, kBlock, kShared, false><<<grid, kBlock, 0, s>>>(
-        ra, tb, o);
-}
-
-template <bool kAny, int A>
-void launch_coop(const Rays& ra, const Tables& tb, const Outs& o,
-                 cudaStream_t s) {
-  const long long lanes = (long long)ra.n * A;
-  const int grid = (int)((lanes + BLOCK - 1) / BLOCK);
-  if (o.stats)
-    wide_coop_kernel<kAny, A, true><<<grid, BLOCK, 0, s>>>(ra, tb, o);
-  else
-    wide_coop_kernel<kAny, A, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
-}
+// the walks the wrapper can pick (packet_traverse.WALK_*)
+enum Walk { kThread = 0, kCoop = 1 };
 
 template <bool kAny, int A>
 int launch_wide_arity(const Rays& ra, const Tables& tb, const Outs& o,
-                      int walk, int block, cudaStream_t s) {
-  if (walk == kCoop) {
-    launch_coop<kAny, A>(ra, tb, o, s);
-  } else if (walk == kThreadShared && block == 128) {
-    launch_thread<kAny, A, 128, true>(ra, tb, o, s);
-  } else if (walk == kThreadLocal && block == 128) {
-    launch_thread<kAny, A, 128, false>(ra, tb, o, s);
-  } else if (walk == kThreadLocal && block == 256) {
-    launch_thread<kAny, A, 256, false>(ra, tb, o, s);
+                      int walk, cudaStream_t s) {
+  if (walk == kThread) {
+    const int grid = (ra.n + BLOCK - 1) / BLOCK;
+    if (o.stats)
+      wide_thread_kernel<kAny, A, true><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+    else
+      wide_thread_kernel<kAny, A, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+  } else if (walk == kCoop) {
+    const long long lanes = (long long)ra.n * A;
+    const int grid = (int)((lanes + BLOCK - 1) / BLOCK);
+    if (o.stats)
+      wide_coop_kernel<kAny, A, true><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+    else
+      wide_coop_kernel<kAny, A, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -715,11 +693,11 @@ int launch_wide_arity(const Rays& ra, const Tables& tb, const Outs& o,
 
 template <bool kAny>
 int launch_wide(const Rays& ra, const Tables& tb, const Outs& o, int walk,
-                int block, void* stream) {
+                void* stream) {
   if (ra.n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (tb.arity == 4) return launch_wide_arity<kAny, 4>(ra, tb, o, walk, block, s);
-  if (tb.arity == 8) return launch_wide_arity<kAny, 8>(ra, tb, o, walk, block, s);
+  if (tb.arity == 4) return launch_wide_arity<kAny, 4>(ra, tb, o, walk, s);
+  if (tb.arity == 8) return launch_wide_arity<kAny, 8>(ra, tb, o, walk, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -753,42 +731,34 @@ int tpt_stack_depth() { return STACK_DEPTH; }
   Tables { node_f32, node_width, node_child, num_nodes, tri_f32, tri_rows, \
            arity, max_cluster }
 
-// K2/K1: `walk` 0 per-thread with the stack in local memory, 1 per-thread
-// with the stack in shared memory, 2 cooperative; `block` the per-thread
-// walk's threads a block (128 or 256 with walk 0, 128 with walk 1). The
-// node table's rows and the triangle table must be 16-byte aligned and
-// node_width a multiple of 4. cudaErrorInvalidValue for another walk,
-// block or arity.
-int tpt_packet_closest_hit_wide(TABLES_ARGS, int walk, int block,
+// K2/K1: `walk` 0 per-thread, 1 cooperative. The node table's rows and
+// the triangle table must be 16-byte aligned and node_width a multiple of
+// 4. cudaErrorInvalidValue for another walk or arity.
+int tpt_packet_closest_hit_wide(TABLES_ARGS, int walk,
                                 float* t_out, int* tri_out, float* u_out,
                                 float* v_out, int* capped,
                                 unsigned long long* stats, void* stream) {
   const Rays ra{ox, oy, oz, dx, dy, dz, tmax, n};
   const Outs o{t_out, tri_out, u_out, v_out, nullptr, capped, stats};
-  return launch_wide<false>(ra, TABLES, o, walk, block, stream);
+  return launch_wide<false>(ra, TABLES, o, walk, stream);
 }
 
-int tpt_packet_any_hit_wide(TABLES_ARGS, int walk, int block,
+int tpt_packet_any_hit_wide(TABLES_ARGS, int walk,
                             unsigned char* occ_out, int* capped,
                             unsigned long long* stats, void* stream) {
   const Rays ra{ox, oy, oz, dx, dy, dz, tmax, n};
   const Outs o{nullptr, nullptr, nullptr, nullptr, occ_out, capped, stats};
-  return launch_wide<true>(ra, TABLES, o, walk, block, stream);
+  return launch_wide<true>(ra, TABLES, o, walk, stream);
 }
 
 // registers a thread, local bytes a thread, static shared bytes a block
 // and the most threads a block of the stats-free K2 (any_hit 0) or K1
-// (any_hit 1) kernel of `walk`, `block` and `arity`, into out[0..3]
-int tpt_packet_wide_attributes(int any_hit, int arity, int walk, int block,
-                               int* out) {
-#define ATTR(K, A)                                                         \
-  if (walk == kCoop) return attributes(wide_coop_kernel<K, A, false>, out); \
-  if (walk == kThreadShared && block == 128)                               \
-    return attributes(wide_thread_kernel<K, A, 128, true, false>, out);    \
-  if (walk == kThreadLocal && block == 128)                                \
-    return attributes(wide_thread_kernel<K, A, 128, false, false>, out);   \
-  if (walk == kThreadLocal && block == 256)                                \
-    return attributes(wide_thread_kernel<K, A, 256, false, false>, out);
+// (any_hit 1) kernel of `walk` and `arity`, into out[0..3]
+int tpt_packet_wide_attributes(int any_hit, int arity, int walk, int* out) {
+#define ATTR(K, A)                                                       \
+  if (walk == kThread)                                                   \
+    return attributes(wide_thread_kernel<K, A, false>, out);             \
+  if (walk == kCoop) return attributes(wide_coop_kernel<K, A, false>, out);
   if (arity == 4 && !any_hit) { ATTR(false, 4) }
   if (arity == 4 && any_hit) { ATTR(true, 4) }
   if (arity == 8 && !any_hit) { ATTR(false, 8) }

@@ -54,12 +54,12 @@
 // 2 ulp on a ray at 10 degrees to the plane (the same file). So a group
 // box missed at the lane's best t proves nothing, and the kernels cull no
 // row: culling each warp's rows by group boxes returned another hit than
-// the plain sweep on such inputs. K4's group mode keeps tpt's own window (pallas_sweep.py:
-// 542-580): every lane of the block, dead and padded ones too,
-// slab-tests the treelet's 8 group boxes at its best t, and the block
-// sweeps the rows from the first group some lane enters to the last, the
-// groups between included. That is tpt's result, not the unculled one,
-// wherever tpt's window drops a hit.
+// the plain sweep on such inputs. K4's group mode keeps tpt's own window
+// (pallas_sweep.py:542-580): every lane of the block, dead and padded
+// ones too, slab-tests the treelet's 8 group boxes at its best t, and the
+// block sweeps the rows from the first group some lane enters to the
+// last, the groups between included. That is tpt's result, not the
+// unculled one, wherever tpt's window drops a hit.
 // Rows go to shared memory with cp.async (3 x 16 bytes, the 9 floats of
 // a row and its id), in two buffers of SWEEP_TILE_ROWS rows: the next
 // tile loads while the current one is tested; a warp without a live lane
