@@ -3,33 +3,37 @@
 // CPU, so a test can hold a kernel's own source against the plain PyTorch
 // version without a card (tests/test_torch_csrc_emu.py).
 //
-// A launch runs its blocks one after another; each thread of a block is
-// an std::thread with its own threadIdx. __shared__ variables become
-// function-local statics, which the threads of the running block share.
-// __syncthreads is a barrier over the block. The warp intrinsics
-// (shuffles, votes, reductions) exchange values through a per-block
-// array between two waits on a barrier of the threads named in the mask
-// (one barrier per warp and mask), so every thread of the mask must call
-// them, as CUDA requires. Atomics take a lock. __ldg is a plain load.
-// Inline PTX sits under __CUDA_ARCH__ in the sources and is not compiled
-// here. The sources are compiled with -ffp-contract=off, so float
-// arithmetic rounds as the card's does with -fmad=false; launches are
-// rewritten from k<<<grid, block, smem, stream>>>(args) to
-// emu_launch(grid, block, [&] { k(args); }) by the test.
+// A launch runs its blocks one after another. The threads of a block are
+// fibers (ucontext) on the calling thread, run one at a time: a thread
+// runs until it waits on a barrier, then the next runnable one runs, so
+// no OS thread is created and a loaded machine does not slow the
+// barriers down. __shared__ variables become function-local statics,
+// which the threads of the running block share. __syncthreads is a
+// barrier over the block. The warp intrinsics (shuffles, votes,
+// reductions) exchange values through a per-block array between two
+// waits on a barrier of the threads named in the mask (one barrier per
+// warp and mask), so every thread of the mask must call them, as CUDA
+// requires. __ldg is a plain load. Inline PTX sits under __CUDA_ARCH__ in
+// the sources and is not compiled here. The sources are compiled with
+// -ffp-contract=off, so float arithmetic rounds as the card's does with
+// -fmad=false; launches are rewritten from k<<<grid, block, smem,
+// stream>>>(args) to emu_launch(grid, block, [&] { k(args); }) by the
+// test.
 
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
 #include <string.h>
 
+#include <ucontext.h>
+
 #include <algorithm>
-#include <barrier>
 #include <functional>
 #include <map>
 #include <memory>
-#include <mutex>
-#include <thread>
 #include <utility>
 #include <vector>
 
@@ -65,7 +69,7 @@ inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
-inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 using std::max;
 using std::min;
@@ -82,25 +86,55 @@ inline T __ldg(const T* p) { return *p; }
 
 namespace emu {
 
+struct Barrier {
+  int needed = 0, arrived = 0;
+  unsigned long long gen = 0;
+};
+
+struct Fiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  bool done = false;
+  const Barrier* wait = nullptr;  // the barrier it waits on, if any
+  unsigned long long wait_gen = 0;
+};
+
+constexpr size_t kStack = 64 * 1024;  // a kernel's frames and arrays
+
 struct Block {
-  int threads = 0;
-  std::unique_ptr<std::barrier<>> all;
-  std::mutex lock;
-  std::map<std::pair<int, unsigned>, std::unique_ptr<std::barrier<>>> masks;
+  std::vector<Fiber> fibers;
+  Barrier all;
+  std::map<std::pair<int, unsigned>, Barrier> masks;
   std::vector<unsigned long long> slot;  // one exchange word a thread
+  ucontext_t sched;
+  int cur = 0;
+  std::function<void()> body;
 };
 
 inline Block* current = nullptr;  // the block that runs now
-inline std::mutex atomics;
 
 inline int lane() { return (int)(threadIdx.x & 31); }
 
-inline std::barrier<>& mask_barrier(unsigned mask) {
+// arrive at `b` and wait until every thread it names has arrived
+inline void wait(Barrier& b) {
+  const unsigned long long g = b.gen;
+  if (++b.arrived == b.needed) {
+    b.arrived = 0;
+    ++b.gen;
+    return;
+  }
+  Fiber& f = current->fibers[current->cur];
+  f.wait = &b;
+  f.wait_gen = g;
+  swapcontext(&f.ctx, &current->sched);
+  f.wait = nullptr;
+}
+
+inline Barrier& mask_barrier(unsigned mask) {
   const int warp = (int)(threadIdx.x >> 5);
-  std::lock_guard<std::mutex> g(current->lock);
-  auto& b = current->masks[{warp, mask}];
-  if (!b) b = std::make_unique<std::barrier<>>(__builtin_popcount(mask));
-  return *b;
+  Barrier& b = current->masks[{warp, mask}];
+  if (!b.needed) b.needed = __builtin_popcount(mask);
+  return b;
 }
 
 // every thread of `mask` posts `v`; returns the word lane `src` posted
@@ -108,12 +142,12 @@ template <class T>
 inline unsigned long long exchange(unsigned mask, T v, int src) {
   unsigned long long w = 0;
   memcpy(&w, &v, sizeof(T));
-  auto& bar = mask_barrier(mask);
+  Barrier& bar = mask_barrier(mask);
   const int base = (int)(threadIdx.x & ~31u);
   current->slot[threadIdx.x] = w;
-  bar.arrive_and_wait();
+  wait(bar);
   const unsigned long long r = current->slot[base + src];
-  bar.arrive_and_wait();
+  wait(bar);
   return r;
 }
 
@@ -122,10 +156,10 @@ template <class T, class F>
 inline T gather(unsigned mask, T v, F f) {
   unsigned long long w = 0;
   memcpy(&w, &v, sizeof(T));
-  auto& bar = mask_barrier(mask);
+  Barrier& bar = mask_barrier(mask);
   const int base = (int)(threadIdx.x & ~31u);
   current->slot[threadIdx.x] = w;
-  bar.arrive_and_wait();
+  wait(bar);
   T acc{};
   bool first = true;
   for (int k = 0; k < 32; ++k) {
@@ -135,8 +169,13 @@ inline T gather(unsigned mask, T v, F f) {
     acc = first ? x : f(acc, x, k);
     first = false;
   }
-  bar.arrive_and_wait();
+  wait(bar);
   return acc;
+}
+
+inline void fiber_main() {
+  current->body();
+  current->fibers[current->cur].done = true;
 }
 
 }  // namespace emu
@@ -180,45 +219,65 @@ inline int __reduce_add_sync(unsigned mask, int v) {
   return emu::gather(mask, v, [](int a, int b, int) { return a + b; });
 }
 inline void __syncwarp(unsigned mask = 0xffffffffu) {
-  emu::mask_barrier(mask).arrive_and_wait();
+  emu::wait(emu::mask_barrier(mask));
 }
-inline void __syncthreads() { emu::current->all->arrive_and_wait(); }
+inline void __syncthreads() { emu::wait(emu::current->all); }
 
+// one thread runs at a time, so atomics are plain read-modify-writes
 inline int atomicAdd(int* p, int v) {
-  std::lock_guard<std::mutex> g(emu::atomics);
   const int old = *p;
   *p += v;
   return old;
 }
 inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
-  std::lock_guard<std::mutex> g(emu::atomics);
   const unsigned long long old = *p;
   *p += v;
   return old;
 }
 
-// runs `f` as the kernel body of every thread of a grid x block launch
+// runs `f` as the kernel body of every thread of a grid x block launch:
+// a block's threads are fibers, resumed in turn, each until it waits on a
+// barrier that is not yet complete or ends
 template <class F>
 inline void emu_launch(dim3 grid, dim3 block, F f) {
   const int nt = (int)(block.x * block.y * block.z);
+  blockDim = block;
+  gridDim = grid;
   for (unsigned b = 0; b < grid.x; ++b) {
     emu::Block blk;
-    blk.threads = nt;
-    blk.all = std::make_unique<std::barrier<>>(nt);
+    blk.fibers.resize(nt);
+    blk.all.needed = nt;
     blk.slot.assign(nt, 0);
+    blk.body = f;
     emu::current = &blk;
-    std::vector<std::thread> ts;
-    ts.reserve(nt);
-    for (int t = 0; t < nt; ++t)
-      ts.emplace_back([&, t] {
+    blockIdx = dim3(b);
+    for (auto& fb : blk.fibers) {
+      fb.stack.reset(new char[emu::kStack]);
+      getcontext(&fb.ctx);
+      fb.ctx.uc_stack.ss_sp = fb.stack.get();
+      fb.ctx.uc_stack.ss_size = emu::kStack;
+      fb.ctx.uc_link = &blk.sched;
+      makecontext(&fb.ctx, emu::fiber_main, 0);
+    }
+    for (bool left = true; left;) {
+      left = false;
+      bool ran = false;
+      for (int t = 0; t < nt; ++t) {
+        emu::Fiber& fb = blk.fibers[t];
+        if (fb.done) continue;
+        left = true;
+        if (fb.wait && fb.wait->gen == fb.wait_gen) continue;
+        blk.cur = t;
         threadIdx = dim3((unsigned)t);
-        blockIdx = dim3(b);
-        blockDim = block;
-        gridDim = grid;
-        f();
-      });
-    for (auto& t : ts) t.join();
+        swapcontext(&blk.sched, &fb.ctx);
+        ran = true;
+      }
+      if (left && !ran) {
+        fprintf(stderr, "emu_launch: every thread of block %u waits\n", b);
+        abort();
+      }
+    }
     emu::current = nullptr;
   }
 }

@@ -1,14 +1,14 @@
 """The port's CUDA sources run on the CPU: `csrc/packet_wide.cu` (K2/K1 in
 every walk) and `csrc/sweep.cu` (K4 and K7) compiled with g++ against the
-stand-in `tests/cuda_emu/cuda_runtime.h` (one std::thread per CUDA
-thread, barriers for the warp intrinsics) with -ffp-contract=off, and
+stand-in `tests/cuda_emu/cuda_runtime.h` (a block's threads as fibers,
+barriers for the warp intrinsics) with -ffp-contract=off, and
 held bit for bit against their plain PyTorch versions: K2/K1 on Cornell
 rays (dead lanes, NaN rays, arity 4 and 8, a cyclic table that caps every
 ray), the sweeps on the flat-group warp and edge pool of
 `torch_flatgroup`. This checks a kernel's control flow and arithmetic
 before a card runs it; it says nothing of its speed.
 
-Skips where no g++ with C++20 <barrier> is found.
+Skips where no g++ is found.
 """
 
 import ctypes
@@ -33,7 +33,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "..", "tpt_torch", "csrc")
 STUB = os.path.join(HERE, "cuda_emu")
 FLAGS = ["-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-pthread", "-w", "-x", "c++"]
+         "-w", "-x", "c++"]
 
 
 def _split_top(s):
@@ -105,8 +105,6 @@ def libs(tmp_path_factory):
     for name, (proc, so) in procs.items():
         log = proc.communicate(timeout=300)[0].decode()
         if proc.returncode != 0:
-            if "barrier" in log and "No such file" in log:
-                pytest.skip("g++ has no C++20 <barrier>")
             raise RuntimeError(f"g++ {name}.cu failed:\n{log[-4000:]}")
         built[name] = ctypes.CDLL(str(so))
     return built

@@ -77,10 +77,11 @@
 // every step. The stack keeps its top entry in a register (the nearest
 // child, pushed last, is popped next without a memory round trip) and the
 // rest in local memory, 128 threads a block: on an H100 a stack in shared
-// memory (entry k of thread x at k * 128 + x) and 256-thread blocks ran
-// within the noise of one kernel's repeated timings (PERF.md), so the
-// simplest stayed. The counters of `stats` are compiled in only for
-// launches that ask for them.
+// memory (entry k of thread x at k * 128 + x) and 256-thread blocks were
+// no faster (slower on the bench's shadow rays, within the noise of
+// repeated timings elsewhere; PERF.md), so the simplest stayed. The
+// counters of `stats` are compiled in only for launches that ask for
+// them.
 //
 // Cooperative walk (wide_coop_kernel), for launches too small to fill the
 // card (the sweep's unresolved tail: a few ten thousand rays, a few warps
@@ -97,6 +98,7 @@
 // group's hits and stops. The loop is while-while over the warp as above.
 // The wrapper takes this walk when the launch's lanes fit in what the card
 // keeps resident (SMs x resident threads an SM).
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
