@@ -36,11 +36,8 @@ phase (name, seconds, key numbers):
              on 262,144 live rays (camera primaries and one real diffuse
              bounce of the render, and the NEE shadow rays of both
              bounces), then on all 2,073,600 lanes of each of those casts
-             as the render launches them, dead lanes included, as the
-             wrappers pick their walk and with the per-thread and the
-             cooperative walk forced; then CUDA-event timings, and each
-             walk of packet_traverse.WALKS timed with its registers a
-             thread
+             as the render launches them, dead lanes included; then
+             CUDA-event timings, and K2's and K1's registers a thread
   flatgroup_check
              K4 (default, groups, any-hit) and K7 (demand, any-hit)
              against their plain versions, bit for bit, on flat groups at
@@ -67,8 +64,8 @@ phase (name, seconds, key numbers):
              bounds (K4's by the tests its result needs,
              sweep.sweep_need), union sizes, tail share; K2 on the frame's
              compacted bounce-1 tail and K1 on its bounce-1 shadow rays,
-             each walk against plain bit for bit, timed alone in each walk
-             with bounds from their stats
+             against plain bit for bit, timed alone with bounds from their
+             stats
   sweep_render
              wavefront.render in the bench configuration (BVH_SWEEP, depth
              8, spp_batch 4, sweep_unroll 8) at 1080p, with all launch
@@ -151,7 +148,8 @@ phase (name, seconds, key numbers):
              group mode against their plain versions on whole 1024-lane
              blocks (262,144 lanes) of the bin-sorted pool, bit for bit,
              and on every lane how often K4's group mode (tpt's window)
-             differs from K4 without groups; K7's
+             differs from K4 without groups, with both modes held against
+             their plain versions on the blocks where they differ; K7's
              and K4's any-hit modes on whole blocks of the shadow rays; K11
              against its plain version on the first 2,073,600 lanes of the
              unsorted pool, its slots equal to K3's, then through the bin
@@ -190,6 +188,11 @@ and last `{"ok": true, "device": {...}}`. Any failed check raises, so the
 run exits nonzero and prints no result; so does a run without a CUDA
 device or outside the repository. A watchdog ends the whole run, with a
 traceback of every thread, after WATCHDOG_S seconds.
+
+tests/ is the shared home of the check inputs this script and the tests
+both use: the stored golden image (tests/golden_cornell_pallas_64.npz)
+and the flat-group tables and rays of tests/torch_flatgroup.py, a module
+that imports only numpy, torch and tpt_torch.
 """
 
 from __future__ import annotations
@@ -669,41 +672,18 @@ def check_image(label: str, img) -> None:
                            f"mean {float(np.nanmean(img))}")
 
 
-WALK_ROUNDS = 3   # interleaved rounds of wide_walk_times
-
-
-def walk_name(walk: int) -> str:
-    """K1/K2's walk by name (packet_traverse.WALK_THREAD, WALK_COOP)."""
-    return ("per-thread", "cooperative")[walk]
-
-
-def wide_walk_times(label: str, pack, closest_sets, any_sets) -> dict:
-    """K2 on each of `closest_sets` and K1 on each of `any_sets` ((o, d,
-    t_max) casts) with each walk of packet_traverse.WALKS forced, in
-    WALK_ROUNDS interleaved rounds (walk 0, walk 1, walk 0, ...) of
-    CUDA-event medians, printed as the median over the rounds with each
-    kernel's registers a thread and local bytes (cudaFuncGetAttributes)."""
+def wide_registers(arity: int) -> str:
+    """K2's and K1's registers a thread and local bytes
+    (cudaFuncGetAttributes), as built."""
     from tpt_torch.bvh import packet_traverse as pt
 
-    rounds = {walk: [] for walk in pt.WALKS}
-    for _ in range(WALK_ROUNDS):
-        for walk in pt.WALKS:
-            ms = [cuda_time_ms(lambda: pt._closest_wide(pack, *r, walk=walk),
-                               TIMING_REPS) for r in closest_sets]
-            ms += [cuda_time_ms(lambda: pt._any_wide(pack, *r, walk=walk),
-                                TIMING_REPS) for r in any_sets]
-            rounds[walk].append(ms)
-    for walk, runs in rounds.items():
-        regs = [pt.kernel_attributes(a, pack.arity, walk) for a in (0, 1)]
-        print(f"  {walk_name(walk)} walk ({label}): " + ", ".join(
-            f"{sorted(x)[len(x) // 2]:.3f} ({min(x):.3f}-{max(x):.3f})"
-            for x in zip(*runs)) + " ms; K2 " +
-            "{regs} regs, {local_bytes} B local".format(**regs[0]) + "; K1 " +
-            "{regs} regs, {local_bytes} B local".format(**regs[1]))
+    return "; ".join(
+        f"{k} " + "{regs} regs, {local_bytes} B local".format(
+            **pt.kernel_attributes(a, arity)) for k, a in (("K2", 0), ("K1", 1)))
 
 
 def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
-               closest_plain, any_plain, walks=()) -> dict:
+               closest_plain, any_plain) -> dict:
     """The cast kernels of `scene`'s pack, closest(pack, o, d, t_max) and
     any_hit(...), against their plain versions on the casts of bounces 0
     and 1 of a BVH_PALLAS frame: first on N_COMPARE live rays (camera
@@ -713,14 +693,10 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
     check_any_hit: bit for bit). Then CUDA-event timings on all lanes (the
     closest hit on the primaries and the bounce-1 pool, the any hit on the
     bounce-0 shadow rays) and bounds from the tests the kernels count.
-    `names` are the two kernels' labels. `walks` (K1/K2): each walk is
-    also forced on every set and held against the plain version the same
-    way, and timed (wide_walk_times).
+    `names` are the two kernels' labels.
     Returns the lane count, the primaries, and each kernel's numbers for
     the kernels line."""
     import torch
-
-    from tpt_torch.bvh import packet_traverse as pt
 
     from tpt_torch.config import RayCastBackend, RenderConfig
     from tpt_torch.integrators import common, wavefront
@@ -742,19 +718,11 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
     def check_c(label, rays):
         res_p, plain_ms = timed_once(lambda: closest_plain(pack, *rays))
         err = check_closest_hit(label, closest(pack, *rays), res_p, kc)
-        for w in walks:
-            err = max(err, check_closest_hit(
-                f"{label}, {walk_name(w)} walk",
-                pt._closest_wide(pack, *rays, walk=w), res_p, kc))
         return err, plain_ms
 
     def check_a(label, rays):
         res_p, plain_ms = timed_once(lambda: any_plain(pack, *rays))
         err = check_any_hit(label, any_hit(pack, *rays), res_p, rays[2], ka)
-        for w in walks:
-            err = max(err, check_any_hit(
-                f"{label}, {walk_name(w)} walk",
-                pt._any_wide(pack, *rays, walk=w), res_p, rays[2], ka))
         return err, plain_ms
 
     c_err = check_c("picked live rays", cat_rays(live(prim), live(pool)))[0]
@@ -782,9 +750,6 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
     print(f"  {ka} bounce-0 shadow: {a_ms:.3f} ms ({mr(a_ms):.1f} Mrays/s), "
           f"plain {a_plain_ms:.1f} ms, bound {a_bound:.3f} ms ({a_by}); "
           f"{tests_done(stats_a.cpu())}")
-    if walks:
-        wide_walk_times("BVH_PALLAS primaries, bounce-1 pool, bounce-0 "
-                        "shadow", pack, [prim, pool], [shd0])
     return dict(
         lanes=n, primaries=prim,
         closest=dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
@@ -1087,53 +1052,44 @@ def flatgroup_phase(dev) -> None:
 
 def bench_wide_casts(pack, tail, shadow) -> dict:
     """K2 on the bench frame's compacted bounce-1 tail and K1 on its
-    bounce-1 shadow rays, as the frame launched them: both walks forced
-    and the wrappers' own pick held against the plain versions bit for
-    bit with 0 capped; then each kernel alone by CUDA events, in each walk
-    of packet_traverse.WALKS, with bounds from the tests the kernels
-    count (stats). Returns the wrappers' times (tail, shadow)."""
+    bounce-1 shadow rays, as the frame launched them, held against the
+    plain versions bit for bit with 0 capped; then each kernel alone by
+    CUDA events (kernel_ms), with bounds from the tests the kernels count
+    (stats) and their registers a thread. Returns their times (tail,
+    shadow)."""
     import torch
 
     from tpt_torch.bvh import packet_traverse as pt
 
     n_t, n_s = tail[2].numel(), shadow[2].numel()
     dev = tail[2].device
-    pick_t = walk_name(pt._walk_for(n_t, pack.arity, dev))
-    pick_s = walk_name(pt._walk_for(n_s, pack.arity, dev))
-    for walk in (None,) + pt.WALKS:
-        label = (f"the wrapper's pick ({pick_t})" if walk is None
-                 else f"{walk_name(walk)} walk")
-        check_closest_hit(f"bench bounce-1 tail, {label}",
-                          pt._closest_wide(pack, *tail, walk=walk),
-                          pt.closest_hit_wide_plain(pack, *tail), "K2")
-    p_ms = timed_once(lambda: pt.closest_hit_wide_plain(pack, *tail))[1]
+    res_p, p_ms = timed_once(lambda: pt.closest_hit_wide_plain(pack, *tail))
+    check_closest_hit("bench bounce-1 tail",
+                      pt.packet_closest_hit_wide(pack, *tail), res_p, "K2")
     occ_p, a_plain_ms = timed_once(lambda: pt.any_hit_wide_plain(pack, *shadow))
-    for walk in (None,) + pt.WALKS:
-        label = (f"the wrapper's pick ({pick_s})" if walk is None
-                 else f"{walk_name(walk)} walk")
-        check_any_hit(f"bench bounce-1 shadow, {label}",
-                      pt._any_wide(pack, *shadow, walk=walk), occ_p,
-                      shadow[2], "K1")
+    check_any_hit("bench bounce-1 shadow",
+                  pt.packet_any_hit_wide(pack, *shadow), occ_p, shadow[2],
+                  "K1")
     st_t = torch.zeros(3, dtype=torch.int64, device=dev)
     st_s = torch.zeros(3, dtype=torch.int64, device=dev)
     pt.packet_closest_hit_wide(pack, *tail, stats=st_t)
     pt.packet_any_hit_wide(pack, *shadow, stats=st_s)
-    t_ms = cuda_time_ms(lambda: pt.packet_closest_hit_wide(pack, *tail),
-                        TIMING_REPS)
-    s_ms = cuda_time_ms(lambda: pt.packet_any_hit_wide(pack, *shadow),
-                        TIMING_REPS)
+    # device time by back-to-back launches (kernel_ms); beside it one
+    # launch between two events, which also catches the host's launch path
+    k2 = lambda: pt.packet_closest_hit_wide(pack, *tail)
+    k1 = lambda: pt.packet_any_hit_wide(pack, *shadow)
+    t_ms, t_ev = kernel_ms(k2, KERNEL_REPS), cuda_time_ms(k2, TIMING_REPS)
+    s_ms, s_ev = kernel_ms(k1, KERNEL_REPS), cuda_time_ms(k1, TIMING_REPS)
     t_bound, t_by = bound(pack, n_t, 16, st_t.cpu())
     s_bound, s_by = bound(pack, n_s, 1, st_s.cpu())
-    print(f"  K2 on the bench bounce-1 tail: {n_t} lanes, "
-          f"{t_ms:.3f} ms ({pick_t} walk), plain "
-          f"{p_ms:.1f} ms, bound {t_bound:.4f} ms ({t_by}); "
-          f"{tests_done(st_t.cpu())}")
+    print(f"  K2 on the bench bounce-1 tail: {n_t} lanes, {t_ms:.3f} ms "
+          f"(one launch between events {t_ev:.3f}), plain {p_ms:.1f} ms, "
+          f"bound {t_bound:.4f} ms ({t_by}); {tests_done(st_t.cpu())}")
     print(f"  K1 on the bench bounce-1 shadow rays: {n_s} lanes "
           f"({int((shadow[2] - 1e-3 <= 0).sum())} dead), {s_ms:.3f} ms "
-          f"({pick_s} walk), plain {a_plain_ms:.1f} ms, "
-          f"bound {s_bound:.4f} ms ({s_by}); {tests_done(st_s.cpu())}")
-    wide_walk_times("bench tail (K2), bench shadow (K1)", pack, [tail],
-                    [shadow])
+          f"(one launch between events {s_ev:.3f}), plain {a_plain_ms:.1f} "
+          f"ms, bound {s_bound:.4f} ms ({s_by}); {tests_done(st_s.cpu())}")
+    print(f"  {wide_registers(pack.arity)}")
     return t_ms, s_ms
 
 
@@ -2257,7 +2213,9 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     # K4's group mode: against plain on the same blocks; on every lane,
     # how often tpt's window (which can drop a hit whose t Moller-Trumbore
     # puts before the lane's entry into a group box) differs from K4
-    # without groups
+    # without groups, and on the blocks where it does, both K4 modes bit
+    # for bit against their plain versions, so every difference is the
+    # plain window's own
     k4g = lambda *a, **kw: sw.sweep8_closest_hit(tables, *a, unroll=unroll,
                                                  use_groups=True, **kw)
     k4g_plain_ms = held(
@@ -2266,10 +2224,32 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
                                                use_groups=True), c)
     hg = k4g(ori, d, tmax, s_o, s_t)
     hf = sw.sweep8_closest_hit(tables, ori, d, tmax, s_o, s_t, unroll=unroll)
+    differ = ((bit_patterns(hg.t) != bit_patterns(hf.t)) | (hg.tri != hf.tri)
+              | (bit_patterns(hg.u) != bit_patterns(hf.u))
+              | (bit_patterns(hg.v) != bit_patterns(hf.v)))
+    n_differ = int(differ.sum())
     print(f"  K4 groups vs K4 without, every lane: t differs on "
           f"{int((hg.t != hf.t).sum())}, tri on "
-          f"{int((hg.tri != hf.tri).sum())} of {n} lanes")
-    del hg, hf
+          f"{int((hg.tri != hf.tri).sum())}, any field on {n_differ} of {n} "
+          f"lanes")
+    if n_differ:
+        blocks = torch.unique(torch.nonzero(differ).flatten() // sw.LANES)
+        bl = (blocks[:, None] * sw.LANES
+              + torch.arange(sw.LANES, device=dev)).flatten()
+        bl = bl[bl < n]
+        args = (sub(ori, bl), sub(d, bl), tmax[bl].contiguous(),
+                s_o[:, bl].contiguous(), s_t[:, bl].contiguous())
+        pick = lambda h: type(h)(t=h.t[bl], tri=h.tri[bl], u=h.u[bl],
+                                 v=h.v[bl])
+        equal_hits("K4 groups on the blocks where it differs from K4", pick(hg),
+                   sw.sweep8_closest_hit_plain(tables, *args, unroll=unroll,
+                                               use_groups=True))
+        equal_hits("K4 on the blocks where K4 groups differs", pick(hf),
+                   sw.sweep8_closest_hit_plain(tables, *args, unroll=unroll))
+        print(f"  on those {blocks.numel()} blocks both modes equal their "
+              "plain versions bit for bit: the plain window differs there "
+              "too")
+    del hg, hf, differ
     k4g_ms, st4g = timed_stats(lambda **kw: k4g(ori, d, tmax, s_o, s_t, **kw),
                                3)
     galign = tables.chunk_align
@@ -2587,8 +2567,9 @@ def main() -> int:
     t0 = time.perf_counter()
     res = cast_phase(scene, cam, dev, ("K2", "K1"), pt.packet_closest_hit_wide,
                      pt.packet_any_hit_wide, pt.closest_hit_wide_plain,
-                     pt.any_hit_wide_plain, walks=pt.WALKS)
+                     pt.any_hit_wide_plain)
     del res["primaries"]
+    print(f"  {wide_registers(pack.arity)}")
     print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
           "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject, "
           "K7 sweep_closest_hit, K8a packet_closest_hit, K8b packet_any_hit, "

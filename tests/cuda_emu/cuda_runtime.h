@@ -181,19 +181,8 @@ inline void fiber_main() {
 }  // namespace emu
 
 template <class T>
-inline T __shfl_sync(unsigned mask, T v, int src, int width = 32) {
-  const int l = emu::lane();
-  const int s = (l & ~(width - 1)) + (src & (width - 1));
-  const unsigned long long w = emu::exchange(mask, v, s);
-  T r;
-  memcpy(&r, &w, sizeof(T));
-  return r;
-}
-template <class T>
-inline T __shfl_xor_sync(unsigned mask, T v, int off, int width = 32) {
-  const int l = emu::lane();
-  const int s = (l & ~(width - 1)) + ((l ^ off) & (width - 1));
-  const unsigned long long w = emu::exchange(mask, v, s);
+inline T __shfl_xor_sync(unsigned mask, T v, int off) {
+  const unsigned long long w = emu::exchange(mask, v, (emu::lane() ^ off) & 31);
   T r;
   memcpy(&r, &w, sizeof(T));
   return r;
@@ -207,9 +196,6 @@ inline unsigned __ballot_sync(unsigned mask, bool p) {
 inline bool __any_sync(unsigned mask, bool p) {
   return __ballot_sync(mask, p) != 0;
 }
-inline bool __all_sync(unsigned mask, bool p) {
-  return __ballot_sync(mask, p) == (mask & __ballot_sync(mask, true));
-}
 inline unsigned __reduce_or_sync(unsigned mask, unsigned v) {
   return emu::gather(mask, v, [](unsigned a, unsigned b, int) {
     return a | b;
@@ -217,9 +203,6 @@ inline unsigned __reduce_or_sync(unsigned mask, unsigned v) {
 }
 inline int __reduce_add_sync(unsigned mask, int v) {
   return emu::gather(mask, v, [](int a, int b, int) { return a + b; });
-}
-inline void __syncwarp(unsigned mask = 0xffffffffu) {
-  emu::wait(emu::mask_barrier(mask));
 }
 inline void __syncthreads() { emu::wait(emu::current->all); }
 

@@ -1,10 +1,10 @@
-"""The port's CUDA sources run on the CPU: `csrc/packet_wide.cu` (K2/K1 in
-every walk) and `csrc/sweep.cu` (K4 and K7) compiled with g++ against the
+"""The port's CUDA sources run on the CPU: `csrc/packet_wide.cu` (K2/K1)
+and `csrc/sweep.cu` (K4 and K7) compiled with g++ against the
 stand-in `tests/cuda_emu/cuda_runtime.h` (a block's threads as fibers,
 barriers for the warp intrinsics) with -ffp-contract=off, and
 held bit for bit against their plain PyTorch versions: K2/K1 on Cornell
-rays (dead lanes, NaN rays, arity 4 and 8, a cyclic table that caps every
-ray), the sweeps on the flat-group warp and edge pool of
+rays (dead lanes, NaN rays, arity 4 and 8, equal-t ties, a cyclic table
+that caps a ray), the sweeps on the flat-group warp and edge pool of
 `torch_flatgroup`. This checks a kernel's control flow and arithmetic
 before a card runs it; it says nothing of its speed.
 
@@ -126,7 +126,7 @@ def _p(a):
     return ctypes.c_void_p(a.data_ptr() if a is not None else None)
 
 
-def _cast(lib, pack, o, d, t_max, any_hit, walk):
+def _cast(lib, pack, o, d, t_max, any_hit):
     """K2 (K1 with `any_hit`) of the emulated library: (result, capped,
     stats)."""
     n = t_max.numel()
@@ -135,7 +135,7 @@ def _cast(lib, pack, o, d, t_max, any_hit, walk):
     args = [_p(a) for a in (o.x, o.y, o.z, d.x, d.y, d.z, t_max)]
     args += [n, _p(pack.node_f32), pack.node_f32.shape[1], _p(pack.node_child),
              pack.num_nodes, _p(pack.tri_f32), pack.tri_f32.shape[0],
-             pack.arity, pack.max_cluster, walk]
+             pack.arity, pack.max_cluster]
     if any_hit:
         occ = torch.zeros(n, dtype=torch.uint8)
         fn = lib.tpt_packet_any_hit_wide
@@ -172,67 +172,49 @@ def _bits(a):
     return a.view(torch.int32) if a.dtype == torch.float32 else a
 
 
-WALKS = pt.WALKS
-
-
 @pytest.mark.parametrize("arity", [4, 8])
 def test_wide_walks_equal_plain(libs, cornell, cornell8, arity):
-    """Every walk of K2 and K1 on 300 rays (dead lanes, NaN and infinite
-    rays, short segments; n not a multiple of a block or group), bit for
-    bit, 0 capped, and the same counts of node visits, slab tests and
-    triangle tests: the same pops in the same order."""
+    """K2 and K1 on 300 rays (dead lanes, NaN and infinite rays, short
+    segments; n not a multiple of a block), bit for bit, 0 capped."""
     pack = (cornell if arity == 4 else cornell8).pack
     o, d, t_max = _rays(300, 41)
     want, cap = pt.closest_hit_wide_plain(pack, o, d, t_max)
     occ_want, cap_a = pt.any_hit_wide_plain(pack, o, d, t_max)
     assert int(cap) == 0 and int(cap_a) == 0
-    counts = []
-    for walk in WALKS:
-        got, capped, st = _cast(libs["packet_wide"], pack, o, d, t_max, False,
-                                walk)
-        for a, b in zip(got, (want.t, want.tri, want.u, want.v)):
-            assert torch.equal(_bits(a), _bits(b)), walk
-        occ, capped_a, st_a = _cast(libs["packet_wide"], pack, o, d, t_max,
-                                    True, walk)
-        assert torch.equal(occ, occ_want), walk
-        assert capped == 0 and capped_a == 0
-        counts.append((st.tolist(), st_a.tolist()))
-    assert all(c == counts[0] for c in counts)
+    got, capped, _ = _cast(libs["packet_wide"], pack, o, d, t_max, False)
+    for a, b in zip(got, (want.t, want.tri, want.u, want.v)):
+        assert torch.equal(_bits(a), _bits(b))
+    occ, capped_a, _ = _cast(libs["packet_wide"], pack, o, d, t_max, True)
+    assert torch.equal(occ, occ_want)
+    assert capped == 0 and capped_a == 0
     assert bool((want.tri >= 0).any()) and bool(occ_want.any())
 
 
 def test_wide_walks_on_equal_t_ties(libs):
-    """K2 in both walks on the two flat triangles packed as one cluster,
-    with rays at their shared edge (many hit both at the same t): the
-    serial first minimum, bit for bit."""
+    """K2 on the two flat triangles packed as one cluster, with rays at
+    their shared edge (many hit both at the same t): the serial first
+    minimum, bit for bit."""
     pack = fg.flat_pack("cpu")
     o, d, t_max, _, _ = fg.edge_pool(512, 3, "cpu")
     want, _ = pt.closest_hit_wide_plain(pack, o, d, t_max)
-    for walk in WALKS:
-        got, capped, _ = _cast(libs["packet_wide"], pack, o, d, t_max, False,
-                               walk)
-        for a, b in zip(got, (want.t, want.tri, want.u, want.v)):
-            assert torch.equal(_bits(a), _bits(b)), walk
-        assert capped == 0
+    got, capped, _ = _cast(libs["packet_wide"], pack, o, d, t_max, False)
+    for a, b in zip(got, (want.t, want.tri, want.u, want.v)):
+        assert torch.equal(_bits(a), _bits(b))
+    assert capped == 0
 
 
 def test_wide_cyclic_table_caps_every_ray(libs, cornell):
-    """A root that lists itself as its children: every ray overflows its
-    stack and reaches the step cap, in every walk, as in the plain walk."""
+    """A root that lists itself as its children: the ray overflows its
+    stack and reaches the step cap, and is counted once, as the plain walk
+    counts it (tests/test_torch_traverse.py)."""
     child = cornell.pack.node_child.clone()
     child[0, :4] = 0
     bad = replace(cornell.pack, node_child=child)
-    rs = np.random.default_rng(42)
-    o = Vec3.from_stacked(torch.from_numpy(
-        rs.uniform(270, 280, (8, 3)).astype(np.float32)))
-    d = torch.from_numpy(rs.normal(size=(8, 3)).astype(np.float32))
-    d = Vec3.from_stacked(d / d.norm(dim=1, keepdim=True))
-    t_max = torch.full((8,), 1e4)
-    _, cap_p = pt.closest_hit_wide_plain(bad, o, d, t_max)
-    for walk, any_hit in ((pt.WALK_THREAD, True), (pt.WALK_COOP, False)):
-        _, capped, _ = _cast(libs["packet_wide"], bad, o, d, t_max, any_hit,
-                             walk)
-        assert capped == int(cap_p) == 8
+    o = Vec3.from_stacked(torch.tensor([[275.0, 272.0, 278.0]]))
+    d = Vec3.from_stacked(torch.tensor([[0.6, -0.48, 0.64]]))
+    t_max = torch.full((1,), 1e4)
+    _, capped, _ = _cast(libs["packet_wide"], bad, o, d, t_max, False)
+    assert capped == 1
 
 
 def _sweep(lib, entry, tables, o, d, t_max, s_o, s_t, any_hit, galign):

@@ -1,5 +1,4 @@
-"""tpt_torch's CUDA kernels (K2 closest hit and K1 any hit in each walk,
-K3 dense scan, K4 demand sweep with its any-hit and group modes, K7 lane
+"""tpt_torch's CUDA kernels (K2 closest hit and K1 any hit, K3 dense scan, K4 demand sweep with its any-hit and group modes, K7 lane
 sweep, both on flat groups at coordinate 0, K5
 a-trous stencil, K6 temporal reprojection, K9 treelet scan, K10 treelet
 closest hit, K11 multi-slot scan, K8a/K8b binary closest and any hit) on
@@ -151,17 +150,13 @@ def test_render_on_card_matches_cpu(cornell, cuda):
 
 
 # ---------------------------------------------------------------------------
-# K2/K1's walks, each forced: one thread a ray and the cooperative walk (a
-# group of `arity` lanes a ray)
+# K2/K1's while-while walk on harder sets
 # ---------------------------------------------------------------------------
-
-WALKS = pt.WALKS
-
 
 def _walk_cases(data, cuda):
     """(label, o, d, t_max) sets on Cornell: random rays with dead lanes
-    (n not a multiple of a block or of a group of 8), short segments, NaN
-    and infinite rays and t_max."""
+    (n not a multiple of a block or a warp), short segments, NaN and
+    infinite rays and t_max."""
     o, d = _rays(8191, [0, 0, 0], [556, 548, 560], 51, cuda)
     t_max = torch.full((8191,), intersect.FLT_MAX, device=cuda)
     t_max[::9] = -1.0
@@ -180,26 +175,18 @@ def _wide_walks_equal_plain(pack, cases):
         want, cap_p = pt.closest_hit_wide_plain(pack, o, d, t_max)
         occ_p, cap_pa = pt.any_hit_wide_plain(pack, o, d, t_max)
         assert int(cap_p) == 0 and int(cap_pa) == 0
-        counts = []
-        for walk in WALKS:
-            sc = torch.zeros(3, dtype=torch.int64, device=o.x.device)
-            sa = torch.zeros(3, dtype=torch.int64, device=o.x.device)
-            got, cap = pt._closest_wide(pack, o, d, t_max, sc, walk=walk)
-            _bits_equal_hits(got, want)
-            occ, cap_a = pt._any_wide(pack, o, d, t_max, sa, walk=walk)
-            assert torch.equal(occ, occ_p), (label, walk)
-            assert int(cap) == 0 and int(cap_a) == 0, (label, walk)
-            counts.append((sc.tolist(), sa.tolist()))
-        # the same pops in the same order: the same counts in every walk
-        assert all(c == counts[0] for c in counts), (label, counts)
+        got, cap = pt.packet_closest_hit_wide(pack, o, d, t_max)
+        _bits_equal_hits(got, want)
+        occ, cap_a = pt.packet_any_hit_wide(pack, o, d, t_max)
+        assert torch.equal(occ, occ_p), label
+        assert int(cap) == 0 and int(cap_a) == 0, label
         assert bool((want.tri >= 0).any()) and bool(occ_p.any())
 
 
 @pytest.mark.parametrize("arity", [4, 8])
 def test_wide_walks_equal_plain(cuda, arity):
-    """Every walk of K2 and K1, bit for bit, on Cornell's wide pack of
-    arity 4 and 8, whose clusters (up to 16 triangles) are longer than a
-    group."""
+    """K2 and K1, bit for bit, on Cornell's wide pack of arity 4 and 8,
+    whose clusters hold up to 16 triangles."""
     host = procedural.cornell_box(resolution=(32, 32))
     data = host.build(with_bvh=True, packet_arity=arity, device=cuda)
     v = -(data.pack.node_child[:, :arity].long() + 1)
@@ -210,63 +197,28 @@ def test_wide_walks_equal_plain(cuda, arity):
 def test_wide_walks_on_equal_t_ties(cuda):
     """The two flat triangles of torch_flatgroup as one cluster of a wide
     pack, with rays at their shared edge: many hit both at the same t, and
-    every walk names the first, as the serial strict-< scan."""
+    K2 names the first, as the serial strict-< scan."""
     import torch_flatgroup as fg
 
     for arity in (4, 8):
         pack = fg.flat_pack(cuda, arity)
         o, d, t_max, _, _ = fg.edge_pool(4096, 3, cuda)
         want, _ = pt.closest_hit_wide_plain(pack, o, d, t_max)
-        for walk in WALKS:
-            got, cap = pt._closest_wide(pack, o, d, t_max, walk=walk)
-            _bits_equal_hits(got, want)
-            assert int(cap) == 0
+        got, cap = pt.packet_closest_hit_wide(pack, o, d, t_max)
+        _bits_equal_hits(got, want)
+        assert int(cap) == 0
         assert bool((want.tri == 0).any()) and bool((want.tri == 1).any())
 
 
-def test_wide_walk_picked_by_launch_size(cornell, cuda):
-    """The wrappers take the cooperative walk while n * arity lanes fit in
-    what the card keeps resident, the per-thread walk above; both give
-    the plain version's hits."""
-    _, data = cornell
-    props = torch.cuda.get_device_properties(cuda)
-    resident = props.multi_processor_count * props.max_threads_per_multi_processor
-    assert pt._walk_for(resident // 4, 4, cuda) == pt.WALK_COOP
-    assert pt._walk_for(resident // 4 + 1, 4, cuda) == pt.WALK_THREAD
-    for n in (resident // 4, resident // 4 + 1):
-        o, d = _rays(n, [0, 0, 0], [556, 548, 560], 54, cuda)
-        t_max = torch.full((n,), intersect.FLT_MAX, device=cuda)
-        got, cap = pt.packet_closest_hit_wide(data.pack, o, d, t_max)
-        want, _ = pt.closest_hit_wide_plain(data.pack, o, d, t_max)
-        _bits_equal_hits(got, want)
-        assert int(cap) == 0
-
-
-@pytest.mark.parametrize("walk", WALKS)
-def test_wide_walks_cap_a_cyclic_table(cornell, cuda, walk):
-    """A root that lists itself as its children caps every ray in every
-    walk (stack overflow and step cap), as the plain walk does."""
-    _, data = cornell
-    child = data.pack.node_child.clone()
-    child[0, :4] = 0
-    bad = replace(data.pack, node_child=child)
-    o, d = _rays(61, [270, 270, 270], [280, 280, 280], 55, cuda)
-    t_max = torch.full((61,), 1e4, device=cuda)
-    _, cap = pt._closest_wide(bad, o, d, t_max, walk=walk)
-    _, cap_a = pt._any_wide(bad, o, d, t_max, walk=walk)
-    assert int(cap) == int(cap_a) == 61
-
-
 def test_wide_walk_registers(cuda):
-    """Every walk is built; none spills its registers to local memory
-    beyond the per-thread stack."""
+    """K2 and K1 are built for both arities; neither spills its registers
+    to local memory beyond the per-thread stack."""
     for any_hit in (False, True):
-        for walk in WALKS:
-            for arity in (4, 8):
-                a = pt.kernel_attributes(any_hit, arity, walk)
-                assert 0 < a["regs"] <= 255 and a["max_threads"] >= 128
-                assert a["local_bytes"] <= 4 * (pt.STACK_DEPTH - 1) + 16, (
-                    walk, arity, a)
+        for arity in (4, 8):
+            a = pt.kernel_attributes(any_hit, arity)
+            assert 0 < a["regs"] <= 255 and a["max_threads"] >= 128
+            assert a["local_bytes"] <= 4 * (pt.STACK_DEPTH - 1) + 16, (
+                arity, a)
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,7 @@ On CUDA tensors each wrapper launches its hand-written kernel
 use and bound with ctypes); on CPU tensors it runs the plain PyTorch
 version below, which is the same per-ray stack walk written as a
 vectorised loop. There is no fallback between the two: a CUDA tensor
-launches the kernel or raises. K1 and K2 have two walks with the same
-result: one thread a ray for launches that fill the card, and a group of
-`arity` lanes a ray (the cooperative walk) for launches whose lanes fit
-in what the card keeps resident, such as the sweep's unresolved tail
-(`_walk_for`).
+launches the kernel or raises.
 
 Both versions walk each ray with its own stack over the same tables, in
 the same child order, with the same float32 arithmetic (the kernel is
@@ -64,12 +60,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 
-# K1/K2's walks (csrc/packet_wide.cu Walk): one thread a ray, or a group
-# of `arity` lanes a ray (the cooperative walk)
-WALK_THREAD, WALK_COOP = 0, 1
-WALKS = (WALK_THREAD, WALK_COOP)
-
-
 def max_steps(pack: PacketBVH) -> int:
     """Pops a ray may take: the TPU kernels' caps (pallas_traverse.py:567
     for the wide pack, :203 for the binary one)."""
@@ -87,15 +77,15 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_tpt_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         common = [p] * 7 + [i, p, i, p, i, p, i, i, i]
-        for suffix, walk in (("_wide", [i]), ("", [])):
+        for suffix in ("_wide", ""):
             closest = getattr(lib, "tpt_packet_closest_hit" + suffix)
             closest.restype = ctypes.c_int
-            closest.argtypes = common + walk + [p] * 7
+            closest.argtypes = common + [p] * 7
             any_hit = getattr(lib, "tpt_packet_any_hit" + suffix)
             any_hit.restype = ctypes.c_int
-            any_hit.argtypes = common + walk + [p] * 4
+            any_hit.argtypes = common + [p] * 4
         lib.tpt_packet_wide_attributes.restype = ctypes.c_int
-        lib.tpt_packet_wide_attributes.argtypes = [i, i, i, p]
+        lib.tpt_packet_wide_attributes.argtypes = [i, i, p]
         lib.tpt_stack_depth.restype = ctypes.c_int
         lib.tpt_stack_depth.argtypes = []
         if lib.tpt_stack_depth() != STACK_DEPTH:
@@ -110,26 +100,17 @@ def build_kernels() -> None:
     _lib()
 
 
-def kernel_attributes(any_hit: bool, arity: int, walk: int) -> dict:
+def kernel_attributes(any_hit: bool, arity: int) -> dict:
     """Registers a thread, local bytes a thread, static shared bytes a
     block and the most threads a block of the K2 (K1 with `any_hit`)
-    kernel of `walk`, as compiled (without stats)."""
+    kernel for `arity`, as compiled (without stats)."""
     out = (ctypes.c_int * 4)()
-    rc = _lib().tpt_packet_wide_attributes(int(any_hit), arity, walk,
+    rc = _lib().tpt_packet_wide_attributes(int(any_hit), arity,
                                            ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {rc}")
     return dict(regs=out[0], local_bytes=out[1], shared_bytes=out[2],
                 max_threads=out[3])
-
-
-def _walk_for(n: int, arity: int, dev: torch.device) -> int:
-    """K1/K2's walk for n rays: the cooperative one where its n * arity
-    lanes fit in what the card keeps resident (SMs x resident threads an
-    SM), else the per-thread one."""
-    props = torch.cuda.get_device_properties(dev)
-    resident = props.multi_processor_count * props.max_threads_per_multi_processor
-    return WALK_COOP if n * arity <= resident else WALK_THREAD
 
 
 def _check(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
@@ -174,12 +155,9 @@ def _check(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
 
 
 def _launch(name: str, pack: PacketBVH, ori: Vec3, d: Vec3,
-            t_max: torch.Tensor, outs, capped, stats,
-            walk: Optional[int] = None) -> None:
-    """Launch K1/K2 (with `walk`, one of WALKS, _walk_for's by default)
-    or K8a/K8b (`walk` None)."""
+            t_max: torch.Tensor, outs, capped, stats) -> None:
     n = ori.x.shape[0]
-    if n >= 2**31 // 8:
+    if n >= 2**31:
         raise ValueError(f"{n} rays exceed the kernels' int32 lane index")
     if stats is not None and (stats.device != ori.x.device
                               or stats.dtype != torch.int64
@@ -191,17 +169,12 @@ def _launch(name: str, pack: PacketBVH, ori: Vec3, d: Vec3,
              ptr(pack.node_child), pack.num_nodes, ptr(pack.tri_f32),
              pack.tri_f32.shape[0], pack.arity, pack.max_cluster]
     if name.endswith("_wide"):
-        # the walks read node rows and triangle rows as float4/int4
+        # K1/K2 read node rows and triangle rows as float4/int4
         if (pack.node_f32.shape[1] % 4 or any(
                 a.data_ptr() % 16 for a in (pack.node_f32, pack.node_child,
                                             pack.tri_f32))):
             raise ValueError("wide kernels need 16-byte aligned tables and "
                              "a node width that is a multiple of 4")
-        if walk is None:
-            walk = _walk_for(n, pack.arity, ori.x.device)
-        if walk not in WALKS:
-            raise ValueError(f"no K1/K2 walk {walk}; the library has {WALKS}")
-        args.append(walk)
     args += [ptr(o) for o in outs] + [ptr(capped)]
     args.append(ptr(stats) if stats is not None else ctypes.c_void_p(None))
     _build.launch(_lib, LAUNCHES, name, ori.x.device, *args)
@@ -215,21 +188,6 @@ def packet_closest_hit_wide(pack: PacketBVH, ori: Vec3, d: Vec3,
     (HitRecord, capped int32 count). `stats`, an int64 [3] CUDA tensor,
     collects (node visits, slab tests, triangle tests) for roofline
     accounting."""
-    return _closest_wide(pack, ori, d, t_max, stats)
-
-
-def packet_any_hit_wide(pack: PacketBVH, ori: Vec3, d: Vec3,
-                        t_max: torch.Tensor,
-                        stats: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: occlusion (bool [N]) by any hit with t < t_max - 1e-3. Returns
-    (occluded, capped int32 count); `stats` as for K2."""
-    return _any_wide(pack, ori, d, t_max, stats)
-
-
-def _closest_wide(pack, ori, d, t_max, stats=None, walk=None):
-    """K2 with `walk`, one of WALKS, forced (tests and chip_smoke.py hold
-    both walks against the plain version)."""
     n = _check(pack, ori, d, t_max)
     dev = ori.x.device
     if dev.type == "cpu":
@@ -242,12 +200,16 @@ def _closest_wide(pack, ori, d, t_max, stats=None, walk=None):
     v = torch.empty(n, dtype=torch.float32, device=dev)
     capped = torch.zeros((), dtype=torch.int32, device=dev)
     _launch("packet_closest_hit_wide", pack, ori, d, t_max,
-            (t, tri, u, v), capped, stats, walk)
+            (t, tri, u, v), capped, stats)
     return HitRecord(t=t, tri=tri, u=u, v=v), capped
 
 
-def _any_wide(pack, ori, d, t_max, stats=None, walk=None):
-    """K1 with `walk` forced, as _closest_wide."""
+def packet_any_hit_wide(pack: PacketBVH, ori: Vec3, d: Vec3,
+                        t_max: torch.Tensor,
+                        stats: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: occlusion (bool [N]) by any hit with t < t_max - 1e-3. Returns
+    (occluded, capped int32 count); `stats` as for K2."""
     n = _check(pack, ori, d, t_max)
     dev = ori.x.device
     if dev.type == "cpu":
@@ -256,8 +218,7 @@ def _any_wide(pack, ori, d, t_max, stats=None, walk=None):
         raise ValueError(f"no K1 kernel for device {dev}")
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     capped = torch.zeros((), dtype=torch.int32, device=dev)
-    _launch("packet_any_hit_wide", pack, ori, d, t_max, (occ,), capped, stats,
-            walk)
+    _launch("packet_any_hit_wide", pack, ori, d, t_max, (occ,), capped, stats)
     return occ, capped
 
 

@@ -16,8 +16,7 @@ pipeline. Counterpart of `tpt/bvh/sweepcast.py`.
    candidate can beat it) or thr is 3e38 (the slots held every
    candidate).
 5. TAIL: the unresolved lanes, exactly those, go through the wide-BVH K2
-   with t_max = min(best, t_max) and the winners are scattered back; a
-   tail is small, so K2 takes its cooperative walk there.
+   with t_max = min(best, t_max) and the winners are scattered back.
 
 The cascade (`cascade_phase1`, `cascade_sort`, `cascade_phase2`) sweeps
 only slots 0-1 first, the slots the bin key makes a block agree on; the

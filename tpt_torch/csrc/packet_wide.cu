@@ -61,43 +61,28 @@
 // ray reads 28 bytes and writes 16 (K1: 1); the tables (9 MB for the
 // 139k-triangle bench interior) sit in the 50 MB L2, and the work is slab
 // tests and triangle tests per ray, each step waiting on the load of the
-// node or the rows the step before chose. Two walks, the same pops in the
-// same order for every ray, so the same bits:
+// node or the rows the step before chose.
 //
-// Per-thread walk (wide_thread_kernel), for pools that fill the card.
-// One thread a ray. A node's row is read as 6A/4 float4 and its child
-// codes as A/4 int4 (one 16-byte load each), its slots are slab-tested
-// unrolled with static indices (no register array is indexed by data, so
-// nothing spills to local memory), and the hit ones are pushed in the
-// order word's order by selects over the static slots. A triangle row is
-// three float4 (cols 0-11; the id is col 9). The loop is while-while
-// (Aila & Laine 2009): the lanes of a warp pop and visit nodes until
-// every lane holds a cluster or is done (a warp vote), then test their
-// clusters, so lanes on nodes and lanes on clusters do not take turns on
-// every step. The stack keeps its top entry in a register (the nearest
-// child, pushed last, is popped next without a memory round trip) and the
-// rest in local memory, 128 threads a block: on an H100 a stack in shared
-// memory (entry k of thread x at k * 128 + x) and 256-thread blocks were
-// no faster (slower on the bench's shadow rays, within the noise of
-// repeated timings elsewhere; PERF.md), so the simplest stayed. The
-// counters of `stats` are compiled in only for launches that ask for
-// them.
-//
-// Cooperative walk (wide_coop_kernel), for launches too small to fill the
-// card (the sweep's unresolved tail: a few ten thousand rays, a few warps
-// an SM, where a per-thread launch lasts as long as its longest ray's
-// chain of dependent loads). A ray is carried by a group of A lanes, one
-// slot each: the lanes slab-test the node's slots at once and ballot the
-// hit mask, and every lane pushes the same codes onto its own copy of the
-// stack (the child codes come by shuffle), so the group's state stays
-// identical without a barrier. A cluster's triangles are spread over the
-// group's lanes in rounds of A; each lane tests its row against the best
-// t at the round's start, and the group reduces (t, row) to the smallest
-// t, then the smallest row, which is the serial strict-< scan's first
-// minimum, so t, tri, u and v stay bit-equal on equal-t ties. K1 ORs the
-// group's hits and stops. The loop is while-while over the warp as above.
-// The wrapper takes this walk when the launch's lanes fit in what the card
-// keeps resident (SMs x resident threads an SM).
+// K1/K2's walk (wide_thread_kernel): one thread a ray. A node's row is
+// read as 6A/4 float4 and its child codes as A/4 int4 (one 16-byte load
+// each), its slots are slab-tested unrolled with static indices (no
+// register array is indexed by data, so nothing spills to local memory),
+// and the hit ones are pushed in the order word's order by selects over
+// the static slots. A triangle row is three float4 (cols 0-11; the id is
+// col 9). The loop is while-while (Aila & Laine 2009): the lanes of a warp
+// pop and visit nodes until every lane holds a cluster or is done (a warp
+// vote), then test their clusters, so lanes on nodes and lanes on clusters
+// do not take turns on every step. A ray's pops are the plain walk's, in
+// the same order, so its bits are the same. The stack keeps its top entry
+// in a register (the nearest child, pushed last, is popped next without a
+// memory round trip) and the rest in local memory, 128 threads a block:
+// on an H100 a stack in shared memory (entry k of thread x at k * 128 + x)
+// and 256-thread blocks were no faster (slower on the bench's shadow rays,
+// within the noise of repeated timings elsewhere), and a walk that carried
+// a ray on a group of `arity` lanes, faster alone on the sweep's small
+// tail launches, showed no gain in the frame and was slower on full pools
+// (PERF.md), so the simplest stayed. The counters of `stats` are compiled
+// in only for launches that ask for them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,7 +90,7 @@
 #include "ray_common.cuh"
 
 #define STACK_DEPTH 64
-#define BLOCK 128        // threads a block, every walk
+#define BLOCK 128        // threads a block
 #define BIG 3.0e38f
 #define MISS_T 3.4e38f
 #define FULL_MASK 0xffffffffu
@@ -372,8 +357,8 @@ struct RayStack {
   }
 };
 
-// The state of one ray's wide walk, shared by both walks: the pop with
-// its step cap, the cluster decode, the result.
+// The state of one ray's wide walk: the pop with its step cap, the
+// cluster decode, the result.
 template <bool kAny>
 struct WideRay {
   Ray r;
@@ -456,8 +441,7 @@ struct WideRay {
 };
 
 // capped rays and the counters of `stats`, one atomic a warp; `lead`
-// marks the lanes whose numbers count (every lane of the per-thread walk,
-// one lane a group in the cooperative one)
+// marks the lanes that carry a ray
 template <bool kStats, class W>
 __device__ __forceinline__ void report(const W& w, bool lead, const Outs& o) {
   const int nc = __popc(__ballot_sync(FULL_MASK, lead && !w.exact));
@@ -475,7 +459,7 @@ __device__ __forceinline__ void report(const W& w, bool lead, const Outs& o) {
   }
 }
 
-// The per-thread walk: one thread a ray, while-while over the warp.
+// K1/K2: one thread a ray, while-while over the warp.
 template <bool kAny, int A, bool kStats>
 __global__ void __launch_bounds__(BLOCK) wide_thread_kernel(Rays ra,
                                                             Tables tb,
@@ -556,90 +540,6 @@ __global__ void __launch_bounds__(BLOCK) wide_thread_kernel(Rays ra,
   report<kStats>(w, in, o);
 }
 
-// The cooperative walk: a group of A lanes a ray, one slot a lane.
-// Every lane of a group keeps the same state (its own copy of the
-// stack); the slab tests, child codes and triangle tests are shared by
-// ballot and shuffle within the group.
-template <bool kAny, int A, bool kStats>
-__global__ void __launch_bounds__(BLOCK) wide_coop_kernel(Rays ra, Tables tb,
-                                                          Outs o) {
-  static_assert(BLOCK % 32 == 0 && 32 % A == 0, "groups must tile a warp");
-  const int g = threadIdx.x & (A - 1);           // this lane's slot
-  const int base = (threadIdx.x & 31) & ~(A - 1);  // the group's first lane
-  const unsigned all = (1u << A) - 1u;
-  const unsigned gmask = all << base;
-  const int i = (blockIdx.x * BLOCK + threadIdx.x) / A;
-  const bool in = i < ra.n;
-  int stack[STACK_DEPTH - 1];
-  WideRay<kAny> w;
-  w.start(ra, i, in, tb, stack);
-  const float4* tri4 = reinterpret_cast<const float4*>(tb.tri_f32);
-  while (__any_sync(FULL_MASK, !w.done)) {
-    while (__any_sync(FULL_MASK, w.on_node())) {
-      if (!w.on_node()) continue;
-      // slot g's box (cols [6g, 6g + 6), 8-byte aligned) and child code
-      const float2* box = reinterpret_cast<const float2*>(
-          tb.node_f32 + (size_t)w.held * tb.node_width + 6 * g);
-      const float2 b01 = __ldg(box), b23 = __ldg(box + 1),
-                   b45 = __ldg(box + 2);
-      const int cg = __ldg(tb.node_child + (size_t)w.held * 16 + g);
-      float tn;
-      const bool hit = cg != -1 && slab6(b01.x, b01.y, b23.x, b23.y, b45.x,
-                                         b45.y, w.r, w.slab_limit(), &tn);
-      const unsigned mask = (__ballot_sync(gmask, hit) >> base) & all;
-      if (kStats) {
-        w.slabs += __popc(__ballot_sync(gmask, cg != -1) & gmask);
-        ++w.nodes;
-      }
-      w.template push_hits<A>(tb, mask, [&](int s) {
-        return __shfl_sync(gmask, cg, s, A);
-      });
-      w.fetch();
-    }
-    while (__any_sync(FULL_MASK, w.on_cluster())) {
-      if (!w.on_cluster()) continue;
-      int start, count;
-      w.cluster(tb, start, count);
-      if (kStats && !kAny) w.tris += count;
-      for (int r0 = 0; r0 < count; r0 += A) {
-        const int j = r0 + g;
-        float t = 0.0f, u = 0.0f, v = 0.0f;
-        int id = 0;
-        bool hit = j < count && mt_row4(tri4, start + j, w.r, &t, &u, &v, &id);
-        if (kAny) {
-          const unsigned hits =
-              (__ballot_sync(gmask, hit && t < w.limit) >> base) & all;
-          if (kStats) w.tris += hits ? __ffs(hits) : min(A, count - r0);
-          if (hits) { w.occ = true; break; }
-          continue;
-        }
-        // the smallest (t, row) below the best t: the serial scan's first
-        // strict minimum
-        hit = hit && t < w.bt;
-        float mint = hit ? t : __int_as_float(0x7f800000);
-        int mj = hit ? j : 0x7fffffff;
-#pragma unroll
-        for (int off = A / 2; off > 0; off >>= 1) {
-          const float ot = __shfl_xor_sync(gmask, mint, off, A);
-          const int oj = __shfl_xor_sync(gmask, mj, off, A);
-          if (ot < mint || (ot == mint && oj < mj)) { mint = ot; mj = oj; }
-        }
-        if (mj != 0x7fffffff) {
-          const int src = mj - r0;
-          w.bt = mint;
-          w.bu = __shfl_sync(gmask, u, src, A);
-          w.bv = __shfl_sync(gmask, v, src, A);
-          w.btri = __shfl_sync(gmask, id, src, A);
-        }
-      }
-      if (kAny && w.occ) w.done = true;
-      else w.fetch();
-    }
-  }
-  if (in && g == 0) w.write(o, i);
-  report<kStats>(w, in && g == 0, o);
-}
-
 template <class L>
 int launch_closest(const float* ox, const float* oy, const float* oz,
                    const float* dx, const float* dy, const float* dz,
@@ -668,38 +568,24 @@ int launch_any(const float* ox, const float* oy, const float* oz,
   return (int)cudaGetLastError();
 }
 
-// the walks the wrapper can pick (packet_traverse.WALK_*)
-enum Walk { kThread = 0, kCoop = 1 };
-
 template <bool kAny, int A>
 int launch_wide_arity(const Rays& ra, const Tables& tb, const Outs& o,
-                      int walk, cudaStream_t s) {
-  if (walk == kThread) {
-    const int grid = (ra.n + BLOCK - 1) / BLOCK;
-    if (o.stats)
-      wide_thread_kernel<kAny, A, true><<<grid, BLOCK, 0, s>>>(ra, tb, o);
-    else
-      wide_thread_kernel<kAny, A, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
-  } else if (walk == kCoop) {
-    const long long lanes = (long long)ra.n * A;
-    const int grid = (int)((lanes + BLOCK - 1) / BLOCK);
-    if (o.stats)
-      wide_coop_kernel<kAny, A, true><<<grid, BLOCK, 0, s>>>(ra, tb, o);
-    else
-      wide_coop_kernel<kAny, A, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+                      cudaStream_t s) {
+  const int grid = (ra.n + BLOCK - 1) / BLOCK;
+  if (o.stats)
+    wide_thread_kernel<kAny, A, true><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+  else
+    wide_thread_kernel<kAny, A, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
   return (int)cudaGetLastError();
 }
 
 template <bool kAny>
-int launch_wide(const Rays& ra, const Tables& tb, const Outs& o, int walk,
+int launch_wide(const Rays& ra, const Tables& tb, const Outs& o,
                 void* stream) {
   if (ra.n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (tb.arity == 4) return launch_wide_arity<kAny, 4>(ra, tb, o, walk, s);
-  if (tb.arity == 8) return launch_wide_arity<kAny, 8>(ra, tb, o, walk, s);
+  if (tb.arity == 4) return launch_wide_arity<kAny, 4>(ra, tb, o, s);
+  if (tb.arity == 8) return launch_wide_arity<kAny, 8>(ra, tb, o, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -733,39 +619,38 @@ int tpt_stack_depth() { return STACK_DEPTH; }
   Tables { node_f32, node_width, node_child, num_nodes, tri_f32, tri_rows, \
            arity, max_cluster }
 
-// K2/K1: `walk` 0 per-thread, 1 cooperative. The node table's rows and
-// the triangle table must be 16-byte aligned and node_width a multiple of
-// 4. cudaErrorInvalidValue for another walk or arity.
-int tpt_packet_closest_hit_wide(TABLES_ARGS, int walk,
+// K2/K1: the node table's rows and the triangle table must be 16-byte
+// aligned and node_width a multiple of 4. cudaErrorInvalidValue for
+// another arity.
+int tpt_packet_closest_hit_wide(TABLES_ARGS,
                                 float* t_out, int* tri_out, float* u_out,
                                 float* v_out, int* capped,
                                 unsigned long long* stats, void* stream) {
   const Rays ra{ox, oy, oz, dx, dy, dz, tmax, n};
   const Outs o{t_out, tri_out, u_out, v_out, nullptr, capped, stats};
-  return launch_wide<false>(ra, TABLES, o, walk, stream);
+  return launch_wide<false>(ra, TABLES, o, stream);
 }
 
-int tpt_packet_any_hit_wide(TABLES_ARGS, int walk,
-                            unsigned char* occ_out, int* capped,
+int tpt_packet_any_hit_wide(TABLES_ARGS, unsigned char* occ_out,
+                            int* capped,
                             unsigned long long* stats, void* stream) {
   const Rays ra{ox, oy, oz, dx, dy, dz, tmax, n};
   const Outs o{nullptr, nullptr, nullptr, nullptr, occ_out, capped, stats};
-  return launch_wide<true>(ra, TABLES, o, walk, stream);
+  return launch_wide<true>(ra, TABLES, o, stream);
 }
 
 // registers a thread, local bytes a thread, static shared bytes a block
 // and the most threads a block of the stats-free K2 (any_hit 0) or K1
-// (any_hit 1) kernel of `walk` and `arity`, into out[0..3]
-int tpt_packet_wide_attributes(int any_hit, int arity, int walk, int* out) {
-#define ATTR(K, A)                                                       \
-  if (walk == kThread)                                                   \
-    return attributes(wide_thread_kernel<K, A, false>, out);             \
-  if (walk == kCoop) return attributes(wide_coop_kernel<K, A, false>, out);
-  if (arity == 4 && !any_hit) { ATTR(false, 4) }
-  if (arity == 4 && any_hit) { ATTR(true, 4) }
-  if (arity == 8 && !any_hit) { ATTR(false, 8) }
-  if (arity == 8 && any_hit) { ATTR(true, 8) }
-#undef ATTR
+// (any_hit 1) kernel of `arity`, into out[0..3]
+int tpt_packet_wide_attributes(int any_hit, int arity, int* out) {
+  if (arity == 4 && !any_hit)
+    return attributes(wide_thread_kernel<false, 4, false>, out);
+  if (arity == 4 && any_hit)
+    return attributes(wide_thread_kernel<true, 4, false>, out);
+  if (arity == 8 && !any_hit)
+    return attributes(wide_thread_kernel<false, 8, false>, out);
+  if (arity == 8 && any_hit)
+    return attributes(wide_thread_kernel<true, 8, false>, out);
   return (int)cudaErrorInvalidValue;
 }
 
