@@ -20,8 +20,12 @@ hybrid easy/hard split and one sort, K10 seeded on the easy rays and K2
 on the hard ones; and the BVH_SWEEP variants: the lane sweep K7 and K4's
 group and any-hit modes in two wavefront configurations, the megakernel
 and the wavefront without the pool sort on the unsorted sweep cast, and
-the multi-slot top-tree scan K11 feeding the sweep cast. One line per
-phase (name, seconds, key numbers):
+the multi-slot top-tree scan K11 feeding the sweep cast; and the hero
+scene, loaded from scenes/hero.json (JSON, OBJ/MTL, four PNG textures
+in one atlas, an HDR sky with its alias table) with textured,
+normal-mapped and env-lit shading and environment NEE, on BVH_PALLAS
+with and without the denoiser and on BVH_SWEEP. One line per phase
+(name, seconds, key numbers):
 
   device     nvidia-smi name and power limit, torch and CUDA versions
   build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu (K1, K2,
@@ -179,6 +183,26 @@ phase (name, seconds, key numbers):
              BVH_SWEEP render, at the golden-image tolerance with 0 capped
              rays; it refuses to start with less than twice its plain
              renders' time left on the watchdog
+  hero_render
+             scenes/hero.json with its textures written into a scratch
+             directory by tpt_torch.scene.hero_assets, loaded by
+             load_scene and built on the card, at its own 960x540, depth
+             8, env NEE on: K2 and K1 against their plain versions, bit for
+             bit, on every lane of bounces 0 and 1 (extension rays, light
+             and env NEE shadow rays) and timed back to back; the Renderer
+             without and with the denoiser, a warm-up frame and 3 timed
+             frames each, launch counters zeroed just before and read just
+             after (K2 8 and K1 16 a frame, and K6 1 and K5 5 denoised); one
+             frame split by CUDA events into the casts and the rest; one
+             BVH_SWEEP frame (K3, K4, the K2 tail, 0 capped) held against
+             the BVH_PALLAS render of the same iteration; the triangle
+             count, atlas and env map sizes, frame ms and Mpaths/s
+  hero_agreement
+             the hero at 240x135 through the kernels and through the plain
+             versions: a 2-sample wavefront render and the third denoised
+             Renderer frame, at the golden-image tolerance; with the
+             hero_render phase it refuses to start with less than twice
+             their allowance left on the watchdog
 
 Then one JSON line describing each of the twelve ported kernels, K4's
 and K7's modes under their own entries (with the lanes their times and
@@ -288,6 +312,13 @@ BINARY_FRAMES = 3
 MEGA_FRAMES = 3
 # tests/test_golden.py:63-76, held against its stored image on the card
 GOLDEN_PALLAS = ("tests", "golden_cornell_pallas_64.npz")
+# the hero scene (scenes/hero.json: its own 960x540 and depth 8): frames
+# of each timed Renderer run, the iteration of the BVH_SWEEP frame, and
+# both hero phases together, at most
+HERO_RES, HERO_DEPTH = (960, 540), 8
+HERO_FRAMES = 3
+HERO_SWEEP_ITER = 7
+HERO_PHASES_S = 60.0
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -654,6 +685,12 @@ def expect_launches(label: str, counts, want: dict,
                                f"frame over {frames} frames and no other "
                                "kernel")
     return got
+
+
+def nonzero(launches: dict) -> str:
+    """The counters that moved, as compact JSON."""
+    return json.dumps({k: v for k, v in launches.items() if v}
+                      ).replace(" ", "")
 
 
 def tests_done(stats) -> str:
@@ -2500,6 +2537,203 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     ]
 
 
+def hero_phases(dev) -> None:
+    """The hero_render and hero_agreement phases: scenes/hero.json (its
+    textures written by tpt_torch.scene.hero_assets into a scratch
+    directory) loaded by tpt_torch.scene.loader.load_scene and rendered
+    at the file's own 960x540, depth 8, env NEE on."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpt_torch import Renderer
+    from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.config import RayCastBackend, RenderConfig
+    from tpt_torch.core.camera import Camera
+    from tpt_torch.integrators import common, wavefront
+    from tpt_torch.scene import hero_assets, loader
+
+    t0 = time.perf_counter()
+    left = WATCHDOG_S - (t0 - T_START)
+    if left < 2 * HERO_PHASES_S:
+        raise RuntimeError(
+            f"hero phases: they take up to {HERO_PHASES_S:.0f} s and only "
+            f"{left:.0f} s of the {WATCHDOG_S} s watchdog are left, less "
+            f"than twice that: the earlier phases ran slow on this host")
+
+    # ---- hero_render ----------------------------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        tl = time.perf_counter()
+        host = loader.load_scene(hero_assets.write_hero_assets(d))
+        load_s = time.perf_counter() - tl
+    tb = time.perf_counter()
+    scene = host.build(with_bvh=True, sweep_chunk_align=SWEEP_ALIGN,
+                       device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - tb
+    cam = host.camera
+    if cam.resolution != HERO_RES or host.trace_depth != HERO_DEPTH:
+        raise RuntimeError(f"hero.json: {cam.resolution}, depth "
+                           f"{host.trace_depth}; expected {HERO_RES}, depth "
+                           f"{HERO_DEPTH}")
+    atlas, env = scene.atlas, scene.env
+    if not (env.enabled and atlas.num_textures == 4
+            and scene.materials.any_tex_normal):
+        raise RuntimeError("the hero scene lost its env map or textures")
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS,
+                       trace_depth=HERO_DEPTH, env_nee=True)
+    # K2 and K1 against plain on every lane of bounces 0 and 1: the
+    # extension casts, and the light and env NEE shadow rays
+    rec = Recorder(common.make_raycaster(scene, cfg))
+    vp = wavefront.camera_view_proj(cam)
+    carry = wavefront.batched_raygen(cam, cfg, 1, dev)
+    for depth in range(2):
+        carry = wavefront._bounce_body(scene, rec.raycaster, cam, cfg, vp, vp,
+                                       depth, carry)
+    del carry
+    if len(rec.ext) != 2 or len(rec.shadow) != 4:
+        raise RuntimeError(f"hero bounces cast {len(rec.ext)} extension and "
+                           f"{len(rec.shadow)} shadow sets, expected 2 and 4")
+    pack = scene.pack
+    for k, rays in enumerate(rec.ext):
+        check_closest_hit(f"hero bounce {k}", pt.packet_closest_hit_wide(
+            pack, *rays), pt.closest_hit_wide_plain(pack, *rays), "K2")
+    for k, rays in enumerate(rec.shadow):
+        check_any_hit(f"hero bounce {k // 2} {('light', 'env')[k % 2]} NEE",
+                      pt.packet_any_hit_wide(pack, *rays),
+                      pt.any_hit_wide_plain(pack, *rays), rays[2], "K1")
+    prim, env_shadow = rec.ext[0], rec.shadow[1]
+    del rec
+    k2_ms = kernel_ms(lambda: pt.packet_closest_hit_wide(pack, *prim),
+                      KERNEL_REPS)
+    k1_ms = kernel_ms(lambda: pt.packet_any_hit_wide(pack, *env_shadow),
+                      KERNEL_REPS)
+    print(f"  hero K2 primaries {k2_ms:.3f} ms, K1 bounce-0 env NEE shadow "
+          f"rays {k1_ms:.3f} ms ({cam.num_pixels} lanes, back-to-back "
+          f"launches)")
+    del prim, env_shadow
+
+    def frames(rcfg, want):
+        """HERO_FRAMES Renderer frames after a warm-up frame, launch
+        counters zeroed just before and read just after; returns (ms a
+        frame by the host clock, launches, last image, renderer)."""
+        r = Renderer(scene, cam, rcfg)
+        r.frame()
+        torch.cuda.synchronize()
+        counts = zero_launches()
+        tr = time.perf_counter()
+        for _ in range(HERO_FRAMES):
+            img = r.frame()
+        torch.cuda.synchronize()
+        f_ms = (time.perf_counter() - tr) * 1e3 / HERO_FRAMES
+        label = "hero" + (" denoised" if rcfg.denoiser_on else "")
+        launches = expect_launches(label, counts, want, HERO_FRAMES)
+        if int(r.raycaster.capped):
+            raise RuntimeError(f"{label}: {int(r.raycaster.capped)} capped")
+        if img.shape != (HERO_RES[1], HERO_RES[0], 3) or \
+                not np.isfinite(img).all() or not img.mean() > 0:
+            raise RuntimeError(f"bad {label} image: shape {img.shape}, "
+                               f"mean {float(np.nanmean(img))}")
+        return f_ms, launches, img, r
+
+    # a bounce: one K2 extension cast, K1 for the light and the env NEE
+    casts = dict(packet_closest_hit_wide=HERO_DEPTH,
+                 packet_any_hit_wide=2 * HERO_DEPTH)
+    frame_ms, launches, img, r = frames(cfg, casts)
+    # one more frame split by CUDA events: the casts against the rest
+    timer = CastTimer(r.raycaster)
+    r.raycaster = timer.raycaster
+    s_ev = torch.cuda.Event(enable_timing=True)
+    e_ev = torch.cuda.Event(enable_timing=True)
+    s_ev.record()
+    r.frame()
+    e_ev.record()
+    e_ev.synchronize()
+    f_ms = s_ev.elapsed_time(e_ev)
+    k2_f, k1_f = timer.ms("closest_hit"), timer.ms("any_hit")
+    rest_share = (f_ms - k2_f - k1_f) / f_ms
+    print(f"  one hero frame: {f_ms:.1f} ms by CUDA events; K2 casts "
+          f"{k2_f:.1f} ms ({len(timer.events['closest_hit'])}), K1 casts "
+          f"{k1_f:.1f} ms ({len(timer.events['any_hit'])}), outside the "
+          f"casts {f_ms - k2_f - k1_f:.1f} ms ({100 * rest_share:.1f}%)")
+    profiled_frame("hero", r.frame)
+    del r
+    dn_ms, dn_launches, dn_img, r = frames(
+        cfg.with_(denoiser_on=True), dict(casts, atrous=5, reproject=1))
+    del r
+    # one BVH_SWEEP frame (K2 primaries; K3, the bin sort, K4 and a K2
+    # tail on later bounces; K1 shadows): the floor's flat groups on the
+    # card. Its hits equal BVH_PALLAS's up to equal-t ties, so the image
+    # agrees with the BVH_PALLAS render of the same iteration
+    scfg = cfg.with_(backend=RayCastBackend.BVH_SWEEP)
+    rc = common.make_raycaster(scene, scfg)
+    counts = zero_launches()
+    tr = time.perf_counter()
+    sweep_img = wavefront.render(scene, cam, scfg, iterations=1,
+                                 start_iter=HERO_SWEEP_ITER, raycaster=rc)
+    sweep_ms = (time.perf_counter() - tr) * 1e3
+    sweep_launches = expect_launches(
+        "hero BVH_SWEEP", counts,
+        dict(dense_scan=HERO_DEPTH - 1, sweep8_closest_hit=HERO_DEPTH - 1,
+             packet_closest_hit_wide=(1, HERO_DEPTH),
+             packet_any_hit_wide=2 * HERO_DEPTH))
+    if int(rc.capped):
+        raise RuntimeError(f"hero BVH_SWEEP: {int(rc.capped)} capped")
+    pallas_img = wavefront.render(scene, cam, cfg, iterations=1,
+                                  start_iter=HERO_SWEEP_ITER)
+    sw_close, _, sw_abs = golden_agree("hero BVH_SWEEP vs BVH_PALLAS",
+                                       sweep_img, pallas_img)
+    mpaths = cam.num_pixels / (frame_ms * 1e-3) / 1e6
+    phase("hero_render", t0, triangles=host.mesh.num_triangles,
+          atlas=f"{atlas.r.shape[1]}x{atlas.r.shape[0]}x{atlas.num_textures}",
+          env=f"{env.shape[1]}x{env.shape[0]}", load_s=f"{load_s:.2f}",
+          build_s=f"{build_s:.2f}", frame_ms=f"{frame_ms:.1f}",
+          mpaths_s=f"{mpaths:.3f}",
+          outside_casts_pct=f"{100 * rest_share:.1f}",
+          denoised_ms=f"{dn_ms:.1f}", sweep_ms=f"{sweep_ms:.1f}",
+          sweep_close=f"{sw_close:.6f}", sweep_max_abs=f"{sw_abs:.3g}",
+          launches=nonzero(launches), denoised_launches=nonzero(dn_launches),
+          sweep_launches=nonzero(sweep_launches),
+          k2_ms=f"{k2_ms:.3f}", k1_env_ms=f"{k1_ms:.3f}",
+          image_mean=f"{float(img.mean()):.5f}",
+          denoised_mean=f"{float(dn_img.mean()):.5f}")
+
+    # ---- hero_agreement: kernels vs plain versions, whole renders -------
+    t0 = time.perf_counter()
+    small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
+                         cam.fovy_deg)
+    dcfg = cfg.with_(denoiser_on=True)
+
+    def run():
+        """The wavefront render, and the last of HERO_FRAMES denoised
+        Renderer frames."""
+        rc = common.make_raycaster(scene, cfg)
+        img = wavefront.render(scene, small, cfg, iterations=AGREE_ITERS,
+                               raycaster=rc)
+        r = Renderer(scene, small, dcfg)
+        for _ in range(HERO_FRAMES):
+            den = r.frame()
+        if int(rc.capped) or int(r.raycaster.capped):
+            raise RuntimeError("hero agreement renders had capped rays")
+        return img, den
+
+    img_k, den_k = run()
+    patch = plain_kernels()
+    try:
+        tp = time.perf_counter()
+        img_p, den_p = run()
+        plain_s = time.perf_counter() - tp
+    finally:
+        patch.restore()
+    out = {"plain_s": f"{plain_s:.1f}"}
+    for label, a, b in (("render", img_k, img_p), ("denoised", den_k, den_p)):
+        close, _, max_abs = golden_agree(f"hero {label} vs plain", a, b)
+        out[f"{label}_close"] = f"{close:.6f}"
+        out[f"{label}_max_abs"] = f"{max_abs:.3g}"
+    phase("hero_agreement", t0, **out)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2647,6 +2881,8 @@ def main() -> int:
     del bscene
     treelet_kernels = treelet_phases(scene, cam, dev, frame_ms)
     sweepvar_kernels = sweepvar_phases(scene, cam, dev, bench_frame_ms)
+    del scene, pack, rc, kernel_rc, plain_rc
+    hero_phases(dev)
 
     source = "tpt_torch/csrc/packet_wide.cu"
     kernels = [

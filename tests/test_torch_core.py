@@ -128,11 +128,15 @@ class TestDeviceRule:
 
 
 def test_port_imports_without_jax_or_tpt():
-    """Every tpt_torch module and chip_smoke import in a process where
-    `jax` and `tpt` cannot be imported."""
+    """Every tpt_torch module and chip_smoke import, and the hero scene
+    loads from its files (textures through the port's PNG reader, the
+    HDR sky, the OBJ through both parsers), in a process where `jax`,
+    `tpt`, `PIL` and `imageio` cannot be imported: none of them is on
+    the GPU machine."""
     code = r"""
-import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "tpt"):
+import importlib, os, pkgutil, sys, tempfile
+BLOCKED = ("jax", "jaxlib", "tpt", "PIL", "imageio")
+for name in BLOCKED:
     sys.modules[name] = None          # any import of them now fails
 import tpt_torch
 mods = ["tpt_torch"]
@@ -140,7 +144,16 @@ for info in pkgutil.walk_packages(tpt_torch.__path__, "tpt_torch."):
     importlib.import_module(info.name)
     mods.append(info.name)
 import chip_smoke
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpt")
+from tpt_torch.scene import hero_assets, loader, obj
+with tempfile.TemporaryDirectory() as d:
+    host = loader.load_scene(hero_assets.write_hero_assets(d))
+    py = obj.load_obj(os.path.join(d, "hero_studio.obj"), loader.HostScene(),
+                      use_native=False)
+assert host.mesh.num_triangles == py.num_triangles == 6630
+assert len(host.atlas.images) == 4 and host.env_map.enabled
+data = host.build(device="cpu")
+assert data.materials.any_tex_normal and data.env.enabled
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
           and sys.modules[m] is not None]
 assert not leaked, leaked
 print(len(mods))
@@ -148,4 +161,4 @@ print(len(mods))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 38
+    assert int(out.stdout.strip()) >= 45

@@ -184,13 +184,14 @@ def test_u8_pipeline_and_gui(cornell):
 
 def test_unported_modes_raise(cornell):
     host, data = cornell
-    # the megakernel mode renders now (tests/test_torch_megakernel.py);
-    # options it lacks still raise
+    # the megakernel mode renders now (tests/test_torch_megakernel.py),
+    # and so do debug_no_shadow and heavy_shading_iters
+    # (tests/test_torch_hero.py); options the port lacks still raise
     mega = CFG.with_(mode=RenderMode.MEGAKERNEL)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Renderer(data, host.camera, mega.with_(debug_no_shadow=True))
-    with pytest.raises(NotImplementedError, match="heavy_shading_iters"):
-        Renderer(data, host.camera, mega.with_(heavy_shading_iters=4))
+    for knobs in (dict(debug_no_shadow=True), dict(heavy_shading_iters=4)):
+        assert Renderer(data, host.camera, mega.with_(**knobs)).mega
+    with pytest.raises(NotImplementedError, match="trav_group"):
+        Renderer(data, host.camera, mega.with_(trav_group=8))
     with pytest.raises(NotImplementedError, match="item 6"):
         Renderer(data, host.camera, CFG.with_(backend=RayCastBackend.BVH_XLA))
     r = Renderer(data, host.camera,

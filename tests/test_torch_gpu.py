@@ -3,7 +3,9 @@ sweep, both on flat groups at coordinate 0, K5
 a-trous stencil, K6 temporal reprojection, K9 treelet scan, K10 treelet
 closest hit, K11 multi-slot scan, K8a/K8b binary closest and any hit) on
 the card, each against its plain PyTorch version, and the megakernel and
-the sweep variants on the card against the CPU.
+the sweep variants on the card against the CPU; the hero scene's
+textured, env-lit casts and renders through the kernels against the
+plain versions and against the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor tpt, so it also runs on a GPU machine without
@@ -1137,3 +1139,124 @@ def test_megakernel_on_card_matches_cpu(cuda, arity):
     r = Renderer(data, host.camera, cfg.with_(mode=RenderMode.MEGAKERNEL))
     np.testing.assert_array_equal(
         r.frame(), megakernel.render(data, host.camera, cfg, iterations=1))
+
+
+# ---------------------------------------------------------------------------
+# The hero scene: textured, normal-mapped, env-lit shading on the card
+# ---------------------------------------------------------------------------
+
+HERO_RES = (48, 27)
+
+
+@pytest.fixture(scope="module")
+def hero(cuda, tmp_path_factory):
+    """scenes/hero.json with its textures written by the port, loaded by
+    the port's loader, at 48x27 on the card."""
+    from tpt_torch.core.camera import Camera
+    from tpt_torch.scene import hero_assets, loader
+
+    d = tmp_path_factory.mktemp("hero")
+    host = loader.load_scene(hero_assets.write_hero_assets(str(d)))
+    c = host.camera
+    host.camera = Camera.build(HERO_RES, c.position, c.look_at, c.up,
+                               c.fovy_deg)
+    return host, host.build(with_bvh=True, device=cuda)
+
+
+def _hero_cfg(**kw):
+    return RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=4,
+                        env_nee=True).with_(**kw)
+
+
+def test_hero_casts_equal_plain(hero, cuda):
+    """K2 and K1 on every cast of the hero's bounces 0-2 (extension rays,
+    light and env NEE shadow rays) against their plain versions, bit for
+    bit, with no capped ray."""
+    host, data = hero
+    cfg = _hero_cfg()
+    ext, shadow = [], []
+    inner = common.make_raycaster(data, cfg)
+    rc = replace(inner,
+                 closest_hit=lambda o, d, t=None: (ext.append((o, d, t)),
+                                                   inner.closest_hit(o, d, t))[1],
+                 any_hit=lambda o, d, t: (shadow.append((o, d, t)),
+                                          inner.any_hit(o, d, t))[1])
+    vp = wavefront.camera_view_proj(host.camera)
+    carry = wavefront.batched_raygen(host.camera, cfg, 1, cuda)
+    for depth in range(3):
+        carry = wavefront._bounce_body(data, rc, host.camera, cfg, vp, vp,
+                                       depth, carry)
+    assert len(ext) == 3 and len(shadow) == 6
+    for rays in ext:
+        got, cap_k = pt.packet_closest_hit_wide(data.pack, *rays)
+        want, cap_p = pt.closest_hit_wide_plain(data.pack, *rays)
+        for f in ("t", "tri", "u", "v"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert int(cap_k) == int(cap_p) == 0
+    for rays in shadow:
+        got, cap_k = pt.packet_any_hit_wide(data.pack, *rays)
+        want, cap_p = pt.any_hit_wide_plain(data.pack, *rays)
+        assert torch.equal(got, want) and int(cap_k) == int(cap_p) == 0
+    assert int(inner.capped) == 0
+
+
+@pytest.mark.parametrize("integrator", ["wavefront", "megakernel",
+                                        "denoised"])
+def test_hero_render_kernels_equal_plain(hero, cuda, monkeypatch, integrator):
+    """The hero through the kernels (K2/K1, and K6/K5 denoised) and
+    through their plain versions on the card: bit-equal images."""
+    host, data = hero
+    cfg = _hero_cfg(denoiser_on=integrator == "denoised")
+
+    def run():
+        if integrator == "denoised":
+            r = Renderer(data, host.camera, cfg)
+            return [r.frame() for _ in range(3)]
+        engine = wavefront if integrator == "wavefront" else megakernel
+        return [engine.render(data, host.camera, cfg, iterations=2)]
+
+    before = dict(pt.LAUNCHES)
+    img_k = run()
+    assert pt.LAUNCHES["packet_closest_hit_wide"] > \
+        before["packet_closest_hit_wide"]
+    assert pt.LAUNCHES["packet_any_hit_wide"] > before["packet_any_hit_wide"]
+    monkeypatch.setattr(pt, "packet_closest_hit_wide",
+                        pt.closest_hit_wide_plain)
+    monkeypatch.setattr(pt, "packet_any_hit_wide", pt.any_hit_wide_plain)
+    monkeypatch.setattr(stencil, "atrous", stencil.atrous_plain)
+    monkeypatch.setattr(reproject, "reproject", svgf._reproject_taps)
+    img_p = run()
+    for a, b in zip(img_k, img_p):
+        assert np.isfinite(a).all() and a.mean() > 0.01
+        np.testing.assert_array_equal(a, b)
+
+
+def test_hero_on_card_matches_cpu(hero, cuda):
+    """The textured, env-lit hero render on the card against the same
+    render on the CPU, at the golden-image tolerance (texture and env
+    lookups go through the card's pow, acos and atan2)."""
+    host, data = hero
+    cfg = _hero_cfg()
+    gpu = wavefront.render(data, host.camera, cfg, iterations=2)
+    cpu = wavefront.render(host.build(with_bvh=True, device="cpu"),
+                           host.camera, cfg, iterations=2)
+    assert np.isclose(gpu, cpu, atol=5e-3, rtol=1e-3).mean() > 0.97
+    np.testing.assert_allclose(gpu.mean(), cpu.mean(), rtol=0.02)
+
+
+def test_hero_sweep_frame_on_card(hero, cuda):
+    """BVH_SWEEP on the hero (its floor is a flat group at y = 0): K3, K4
+    and the K2 tail launched, no capped ray, and the image of the
+    BVH_PALLAS render of the same iteration at the golden tolerance."""
+    host, data = hero
+    cfg = _hero_cfg(backend=RayCastBackend.BVH_SWEEP)
+    before = dict(sw.LAUNCHES)
+    rc = common.make_raycaster(data, cfg)
+    img = wavefront.render(data, host.camera, cfg, iterations=1, raycaster=rc)
+    assert sw.LAUNCHES["dense_scan"] == before["dense_scan"] + 3
+    assert sw.LAUNCHES["sweep8_closest_hit"] == \
+        before["sweep8_closest_hit"] + 3
+    assert int(rc.capped) == 0
+    ref = wavefront.render(data, host.camera, _hero_cfg(), iterations=1)
+    assert np.isclose(img, ref, atol=5e-3, rtol=1e-3).mean() > 0.97
+    np.testing.assert_allclose(img.mean(), ref.mean(), rtol=0.02)

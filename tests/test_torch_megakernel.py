@@ -29,7 +29,7 @@ from tpt_torch.core import rng
 from tpt_torch.integrators import common, megakernel
 from tpt_torch.materials import bsdf
 from tpt_torch.scene import procedural as tproc
-from tpt_torch.scene.structs import EnvMap, MaterialType
+from tpt_torch.scene.structs import MaterialType
 
 from torch_port_helpers import count_calls
 from torch_port_helpers import torch_threads  # noqa: F401  (autouse)
@@ -180,11 +180,10 @@ def test_scene_without_lights_keeps_the_stream(stored, monkeypatch):
 def test_unported_options_raise():
     s, data = _pallas_scene(2)
     cfg = _pallas_cfg()
-    with pytest.raises(NotImplementedError, match="environment"):
-        megakernel.render(replace(data, env=EnvMap(enabled=True)), s.camera,
-                          cfg, iterations=1)
-    with pytest.raises(NotImplementedError, match="heavy_shading_iters"):
-        megakernel.render(data, s.camera, cfg.with_(heavy_shading_iters=2),
+    # environment maps and heavy_shading_iters render now
+    # (tests/test_torch_hero.py); options the port lacks still raise
+    with pytest.raises(NotImplementedError, match="trav_group"):
+        megakernel.render(data, s.camera, cfg.with_(trav_group=8),
                           iterations=1)
     with pytest.raises(NotImplementedError, match="BVH_XLA"):
         megakernel.make_sample_fn(data, s.camera,

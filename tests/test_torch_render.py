@@ -170,14 +170,11 @@ def test_frame_output(small):
 def test_unported_options_raise(small):
     s, data = small
     sweep = RayCastBackend.BVH_SWEEP
-    for cfg in (RenderConfig(backend=sweep, debug_no_shadow=True),
-                RenderConfig(backend=sweep, heavy_shading_iters=2),
-                RenderConfig(backend=sweep, sweep_kernel="warp"),
+    # nearfield_frac, heavy_shading_iters and debug_no_shadow render now
+    # (tests/test_torch_hero.py)
+    for cfg in (RenderConfig(backend=sweep, sweep_kernel="warp"),
                 RenderConfig(backend=sweep, sweep_slots=9),
                 RenderConfig(backend=RayCastBackend.BVH_XLA),
-                RenderConfig(backend=sweep, nearfield_frac=0.5),
-                RenderConfig(backend=RayCastBackend.BVH_PALLAS,
-                             nearfield_frac=0.5),
                 RenderConfig(backend=RayCastBackend.BVH_PALLAS, trav_group=8),
                 RenderConfig(backend=RayCastBackend.BVH_PALLAS,
                              trav_cluster_pops=2),

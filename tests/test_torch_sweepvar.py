@@ -460,18 +460,20 @@ def test_megakernel_on_sweep_matches_tpt(port_cornell, golden):
 
 
 def test_sweep_variants_are_admitted():
-    """_unsupported admits the six sweep knobs and BVH_SWEEP without the
-    pool sort, and still refuses the options the port lacks."""
+    """_unsupported admits the six sweep knobs, BVH_SWEEP without the
+    pool sort and the three options ported since (nearfield_frac, which
+    tpt applies on BVH_PALLAS only, heavy_shading_iters, debug_no_shadow),
+    and still refuses the options the port lacks."""
     base = RenderConfig(backend=SWEEP)
     for knobs in (dict(sweep_kernel="lane"), dict(sweep_groups=True),
                   dict(sweep_shadow=True), dict(sweep_primary=True),
                   dict(sweep_cascade=True, sweep_cascade_frac=0.25),
-                  dict(sort_bounce_rays=False)):
+                  dict(sort_bounce_rays=False), dict(nearfield_frac=0.5),
+                  dict(heavy_shading_iters=2), dict(debug_no_shadow=True)):
         assert wavefront._unsupported(base.with_(**knobs)) is None, knobs
-    for knobs, what in ((dict(nearfield_frac=0.5), "nearfield_frac"),
-                        (dict(heavy_shading_iters=2), "heavy_shading_iters"),
-                        (dict(debug_no_shadow=True), "debug_no_shadow"),
-                        (dict(sweep_kernel="warp"), "sweep_kernel")):
+    for knobs, what in ((dict(sweep_kernel="warp"), "sweep_kernel"),
+                        (dict(sweep_slots=9), "sweep_slots"),
+                        (dict(trav_group=8), "trav_group")):
         assert what in wavefront._unsupported(base.with_(**knobs))
 
 

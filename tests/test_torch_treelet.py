@@ -425,8 +425,7 @@ def test_unported_treelet_options_raise(small):
                 RenderConfig(backend=TREELET, trav_group_primary=2),
                 RenderConfig(backend=TREELET, trav_node_pops=2),
                 RenderConfig(backend=TREELET, treelet_slots=9),
-                RenderConfig(backend=TREELET, treelet_max_rounds=0),
-                RenderConfig(backend=TREELET, nearfield_frac=0.5)):
+                RenderConfig(backend=TREELET, treelet_max_rounds=0)):
         with pytest.raises(NotImplementedError):
             wavefront.render(data, s.camera, cfg, iterations=1)
     bvh_free = s.build(device="cpu")

@@ -70,8 +70,14 @@ def scene_leaves(data) -> dict:
                      boxes=g(sw.boxes), group_boxes=g(sw.group_boxes),
                      num_treelets=sw.num_treelets, max_chunks=sw.max_chunks,
                      unroll=sw.unroll, chunk_align=sw.chunk_align)
+    at, ev = data.atlas, data.env
+    atlas = {k: g(getattr(at, k)) for k in ("r", "g", "b", "a", "x0", "y0",
+                                            "width", "height")}
+    env = {k: g(getattr(ev, k)) for k in ("r", "g", "b", "pdf", "alias",
+                                          "prob")}
+    env["enabled"] = ev.enabled
     return dict(mesh=mesh, material_rows=g(data.materials.packed),
-                lights=lights, pack=pack, sweep=sweep)
+                lights=lights, pack=pack, sweep=sweep, atlas=atlas, env=env)
 
 
 def random_rays(n, lo, hi, seed):

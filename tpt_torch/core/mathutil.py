@@ -1,6 +1,7 @@
 """Shared math: constants, reflection, MIS heuristic and the host-side
-projection matrix. Counterpart of `tpt/core/mathutil.py`; the constants
-are the reference's (EPSILON ray offset, PDF_DIRAC_DELTA sentinel)."""
+TRS and projection matrices. Counterpart of `tpt/core/mathutil.py`; the
+constants are the reference's (EPSILON ray offset, PDF_DIRAC_DELTA
+sentinel)."""
 
 from __future__ import annotations
 
@@ -29,6 +30,34 @@ def power_heuristic(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def reflect(d: Vec3, n: Vec3) -> Vec3:
     """Mirror direction; `d` points *into* the surface."""
     return d - n * (2.0 * d.dot(n))
+
+
+def build_trs_matrix(translation, rotation_deg, scale) -> np.ndarray:
+    """Host-side 4x4 TRS (T * Rx * Ry * Rz * S), row-major float32 numpy,
+    the reference scene convention."""
+    tx, ty, tz = translation
+    rx, ry, rz = (math.radians(r) for r in rotation_deg)
+    sx, sy, sz = scale
+
+    def rot_x(a):
+        c, s = math.cos(a), math.sin(a)
+        return np.array([[1, 0, 0, 0], [0, c, -s, 0], [0, s, c, 0],
+                         [0, 0, 0, 1]], np.float64)
+
+    def rot_y(a):
+        c, s = math.cos(a), math.sin(a)
+        return np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0],
+                         [0, 0, 0, 1]], np.float64)
+
+    def rot_z(a):
+        c, s = math.cos(a), math.sin(a)
+        return np.array([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0],
+                         [0, 0, 0, 1]], np.float64)
+
+    t = np.eye(4)
+    t[:3, 3] = [tx, ty, tz]
+    s = np.diag([sx, sy, sz, 1.0])
+    return (t @ rot_x(rx) @ rot_y(ry) @ rot_z(rz) @ s).astype(np.float32)
 
 
 def perspective_look_at(eye, center, up, fovy_deg, aspect, znear=0.1,

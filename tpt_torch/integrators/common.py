@@ -1,7 +1,8 @@
 """Shared integrator machinery: the ray-cast backend seam, the hit-surface
-fetch and Russian roulette. Counterpart of `tpt/integrators/common.py`
-for the ported slices: the BRUTE_FORCE, BVH_PALLAS, BVH_TREELET and
-BVH_SWEEP backends and untextured materials."""
+fetch (UV interpolation, normal mapping, texture application), the
+synthetic shading load, Russian roulette and environment NEE.
+Counterpart of `tpt/integrators/common.py` for the BRUTE_FORCE,
+BVH_PALLAS, BVH_TREELET and BVH_SWEEP backends."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch
 from ..config import RayCastBackend, RenderConfig
 from ..core.vec import Vec3, where as vwhere
 from ..materials.bsdf import MaterialLanes
-from ..scene.structs import MeshData, SceneData
+from ..scene.structs import MeshData, SceneData, TextureAtlas
+from ..scene.texture import sample_atlas
 from .intersect import HitRecord, brute_force_any_hit, brute_force_closest_hit
 
 
@@ -205,17 +207,61 @@ def interpolate_surface(mesh: MeshData, tri: torch.Tensor, bu: torch.Tensor,
     return n, tang, uu, vv
 
 
+def get_surface_properties(mesh: MeshData, atlas: TextureAtlas,
+                           mats: MaterialLanes, tri, bu, bv):
+    """Shading normal (normal-mapped when the material has a normal map)
+    and UV at the hits."""
+    n_shading, tang, uu, vv = interpolate_surface(mesh, tri, bu, bv)
+    return _normal_map(atlas, mats, n_shading, tang, uu, vv), uu, vv
+
+
+def _normal_map(atlas: TextureAtlas, mats: MaterialLanes, n_shading: Vec3,
+                tang: Vec3, uu, vv) -> Vec3:
+    """TBN normal mapping: B = normalize(N x T), T' = B x N, the map's
+    rgb * 2 - 1 in that frame, on the lanes whose material has a map."""
+    has_nm = mats.tex_normal >= 0
+    b = n_shading.cross(tang).normalize()
+    t = b.cross(n_shading)
+    nm_rgb, _ = sample_atlas(atlas, mats.tex_normal, uu, vv)
+    mapped = Vec3(nm_rgb.x * 2.0 - 1.0, nm_rgb.y * 2.0 - 1.0,
+                  nm_rgb.z * 2.0 - 1.0)
+    n_mapped = (t * mapped.x + b * mapped.y + n_shading * mapped.z).normalize()
+    return vwhere(has_nm, n_mapped, n_shading)
+
+
+def apply_material_textures(mats: MaterialLanes, atlas: TextureAtlas, uu, vv
+                            ) -> MaterialLanes:
+    """basecolor *= degamma(diffuse texture); roughness *= rm.g; metallic
+    *= rm.b. A lane without a texture samples (1, 1, 1, 1), which leaves
+    its values as they are, bit for bit."""
+    diff_rgb, _ = sample_atlas(atlas, mats.tex_diffuse, uu, vv)
+    degamma = Vec3(diff_rgb.x ** 2.2, diff_rgb.y ** 2.2, diff_rgb.z ** 2.2)
+    basecolor = vwhere(mats.tex_diffuse >= 0, mats.basecolor * degamma,
+                       mats.basecolor)
+    rm_rgb, _ = sample_atlas(atlas, mats.tex_metallic_roughness, uu, vv)
+    has_rm = mats.tex_metallic_roughness >= 0
+    return MaterialLanes(
+        basecolor=basecolor,
+        metallic=torch.where(has_rm, mats.metallic * rm_rgb.z, mats.metallic),
+        roughness=torch.where(has_rm, mats.roughness * rm_rgb.y,
+                              mats.roughness),
+        emittance=mats.emittance, ior=mats.ior, mtype=mats.mtype,
+        tex_diffuse=mats.tex_diffuse,
+        tex_metallic_roughness=mats.tex_metallic_roughness,
+        tex_normal=mats.tex_normal)
+
+
 def fetch_hit_surface(scene: SceneData, tri, bu, bv, wo: Vec3):
     """Hit-surface fetch through ONE row gather of the de-normalized
     `shade_hit [T, 40]` rows (mesh.shade_rows): material, geometric normal
-    and the three vertices' attributes.
+    and the three vertices' attributes; then normal mapping and the
+    material textures, only if some material carries such a texture
+    (MaterialTable.any_tex_*, tpt's static gates).
 
-    Returns (mats, n_shading, ng_raw, ng_oriented, mat_id, uu, vv), as
-    the JAX package's untextured path does."""
+    Returns (mats with textures applied, n_shading, ng_raw, ng_oriented,
+    mat_id, uu, vv), as tpt's."""
     mesh = scene.mesh
-    if (scene.materials.any_tex_diffuse or scene.materials.any_tex_mr
-            or scene.materials.any_tex_normal):
-        raise NotImplementedError("textured materials are not ported yet")
+    table = scene.materials
     if mesh.shade_hit is None:
         raise ValueError("fetch_hit_surface needs MeshData.shade_hit")
     tric = tri.clamp(0, mesh.num_triangles - 1).to(torch.int64)
@@ -241,7 +287,25 @@ def fetch_hit_surface(scene: SceneData, tri, bu, bv, wo: Vec3):
     n_shading = Vec3(lerp(0), lerp(1), lerp(2)).normalize()
     uu = lerp(6)
     vv = lerp(7)
+    if table.any_tex_normal:
+        tang = Vec3(lerp(3), lerp(4), lerp(5))
+        n_shading = _normal_map(scene.atlas, mats, n_shading, tang, uu, vv)
+    if table.any_tex_diffuse or table.any_tex_mr:
+        mats = apply_material_textures(mats, scene.atlas, uu, vv)
     return mats, n_shading, ng_raw, ng, mat_id, uu, vv
+
+
+def heavy_shading_factor(u: torch.Tensor, iters: int) -> torch.Tensor:
+    """Synthetic shading load: an `iters`-long sin^2 + cos^2 chain that
+    multiplies to ~1.0 (the reference's shading stress experiment)."""
+    m = torch.ones_like(u)
+    for i in range(iters):
+        # float32(i) * 1e-3 in float32, as tpt's i.astype(float32) * 1e-3
+        off = torch.full((), i, dtype=torch.float32, device=u.device) * 1e-3
+        s = torch.sin(m * 12.9898 + u + off)
+        c = torch.cos(m * 12.9898 + u + off)
+        m = m * (s * s + c * c)
+    return m
 
 
 def apply_russian_roulette(cfg: RenderConfig, depth: int, throughput: Vec3,
@@ -265,3 +329,36 @@ def oriented_geom_normal(mesh: MeshData, tri, wo: Vec3) -> Vec3:
     ng = mesh.geom_normals.take(tri.clamp_min(0).to(torch.int64))
     flip = ng.dot(wo) < 0.0
     return vwhere(flip, -1.0 * ng, ng)
+
+
+def compute_env_nee(scene: SceneData, cfg: RenderConfig, raycaster: Raycaster,
+                    state, point: Vec3, n_sh: Vec3, ng: Vec3, wo: Vec3,
+                    mats: MaterialLanes, throughput: Vec3, alive):
+    """Direct environment sampling through the alias table (cfg.env_nee):
+    two draws, one env direction a lane, MIS against the BSDF, and a
+    shadow ray of t_max 1e7 on the lanes that contribute. Returns
+    (state, contribution masked by visibility)."""
+    from ..core import rng as rng_mod
+    from ..core.mathutil import EPSILON, power_heuristic
+    from ..materials import bsdf as bsdf_mod
+    from ..scene import envmap as envmod
+
+    n = point.shape[0]
+    state, u1 = rng_mod.rand_float(state)
+    state, u2 = rng_mod.rand_float(state)
+    wi, radiance, pdf_env = envmod.sample_env(scene.env, u1, u2)
+    cos_surf = torch.clamp_min(n_sh.dot(wi), 0.0)
+    front = ng.dot(wi) > 0.0
+    f = bsdf_mod.eval_bsdf(wo, wi, n_sh, mats)
+    pdf_b = bsdf_mod.pdf_bsdf(wo, wi, n_sh, mats)
+    w_mis = power_heuristic(pdf_env, pdf_b)
+    contrib = throughput * radiance * f * (
+        cos_surf / torch.clamp_min(pdf_env, 1e-8) * w_mis)
+    is_delta = (mats.mtype == 2) | (mats.mtype == 3)
+    mask = (alive & front & ~is_delta & (cos_surf > 0.0)
+            & (pdf_env > 0.0) & (contrib.length_sq() > 0.0))
+    shadow_ori = point + ng * EPSILON
+    t_far = torch.where(mask, 1e7, -1.0)
+    occluded = raycaster.any_hit(shadow_ori, wi, t_far)
+    return state, vwhere(mask & ~occluded, contrib,
+                         Vec3.zeros((n,), point.device))

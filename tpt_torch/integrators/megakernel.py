@@ -20,6 +20,12 @@ port casts the shadow rays of the NEE lanes only (the others with
 t_max = -1), as its wavefront does; the occlusion of every NEE lane, and
 so the image, is the same.
 
+An enabled environment map lights escaping paths and, with cfg.env_nee,
+adds one alias-table light sample a bounce with its shadow ray, and
+`heavy_shading_iters` scales each BSDF sample by tpt's synthetic load,
+as in tpt's megakernel (which ignores `nearfield_frac` and
+`debug_no_shadow`, and so does the port's).
+
 tpt dispatches a frame in tiles of `cfg.megakernel_tile` paths so that
 no TPU program outlives the device watchdog. The port runs the frame in
 one pass: a pixel's path does not depend on the other lanes of its cast
@@ -36,14 +42,15 @@ import torch
 from ..config import RenderConfig
 from ..core import rng
 from ..core.camera import Camera, generate_camera_rays
-from ..core.mathutil import EPSILON, power_heuristic
+from ..core.mathutil import DELTA_THRESHOLD, EPSILON, power_heuristic
 from ..core.vec import Vec3, where as vwhere
 from ..materials import bsdf
+from ..scene import envmap as envmod
 from ..scene.lights import sample_light
 from ..scene.structs import SceneData
 from . import wavefront
-from .common import (Raycaster, apply_russian_roulette, fetch_hit_surface,
-                     make_raycaster)
+from .common import (Raycaster, apply_russian_roulette, compute_env_nee,
+                     fetch_hit_surface, heavy_shading_factor, make_raycaster)
 
 
 def trace_sample(scene: SceneData, raycaster: Raycaster, cam: Camera,
@@ -52,8 +59,6 @@ def trace_sample(scene: SceneData, raycaster: Raycaster, cam: Camera,
     """One sample per pixel (or per pixel of the int64 indices `pix`):
     the radiance Vec3 after cfg.trace_depth bounces, non-finite values
     zeroed."""
-    if scene.env.enabled:
-        raise NotImplementedError("environment maps are not ported yet")
     dev = scene.device
     ori, direction, state = generate_camera_rays(
         cam, iteration, cfg.jitter, pix=pix, device=dev)
@@ -71,6 +76,18 @@ def trace_sample(scene: SceneData, raycaster: Raycaster, cam: Camera,
                                     torch.where(alive, 3.4e38, -1.0))
         hit_mask = alive & hit.hit_mask
         first = depth == 0
+
+        # miss: environment (MIS weighted against env NEE when it runs)
+        if scene.env.enabled:
+            env_l = envmod.env_radiance(scene.env, direction)
+            if cfg.env_nee:
+                pdf_env = envmod.env_pdf(scene.env, direction)
+                w_mis = torch.where((last_pdf > DELTA_THRESHOLD) | first, 1.0,
+                                    power_heuristic(last_pdf, pdf_env))
+            else:
+                w_mis = 1.0
+            radiance = radiance + vwhere(alive & ~hit.hit_mask,
+                                         throughput * env_l * w_mis, zero3)
         alive = alive & hit.hit_mask
 
         wo = -1.0 * direction
@@ -128,8 +145,20 @@ def trace_sample(scene: SceneData, raycaster: Raycaster, cam: Camera,
             state, _ = rng.rand_float(state)
             state, _ = rng.rand_float(state)
 
+        if scene.env.enabled and cfg.env_nee:
+            state, env_contrib = compute_env_nee(scene, cfg, raycaster, state,
+                                                 point, n_sh, ng, wo, mats,
+                                                 throughput, alive)
+            radiance = radiance + env_contrib
+
         # BSDF sample and path update
         state, smp = bsdf.sample_bsdf(wo, n_sh, mats, state)
+        if cfg.heavy_shading_iters:
+            smp = bsdf.BSDFSample(
+                wi=smp.wi, pdf=smp.pdf,
+                attenuation=smp.attenuation * heavy_shading_factor(
+                    hit.u, cfg.heavy_shading_iters),
+                is_transmission=smp.is_transmission)
         valid = (smp.pdf > 0.0) & (smp.attenuation.length_sq() > 0.0)
         exiting = smp.wi.dot(ng) > 0.0
         valid = valid & (exiting | smp.is_transmission)

@@ -27,7 +27,16 @@ BVH_TREELET the camera rays go unsorted through K10 with the primary
 packets, and every later bounce runs the treelet scan K9 on the unsorted
 pool, splits easy from hard rays, and sorts once by (treelet key,
 coherence key), carrying K9's seed planes to the cast (tpt's split-mode
-seeding).
+seeding). With `nearfield_frac` on BVH_PALLAS the extension cast runs
+twice, as tpt's: a cast bounded at that fraction of the scene diagonal,
+then an unbounded cast of its misses.
+
+An enabled environment map adds its radiance to escaping paths (MIS
+weighted against env NEE when cfg.env_nee is on) and, with cfg.env_nee,
+one alias-table light sample a bounce with its own shadow ray, after the
+light NEE; `heavy_shading_iters` scales each BSDF sample by tpt's
+synthetic shading load, and `debug_no_shadow` skips the light NEE's
+shadow cast (every sample unoccluded), as tpt's timing diagnostic does.
 """
 
 from __future__ import annotations
@@ -43,14 +52,17 @@ from ..bvh.treelet_traverse import MAX_SLOTS as TREELET_MAX_SLOTS
 from ..config import RayCastBackend, RenderConfig
 from ..core import rng
 from ..core.camera import Camera, generate_camera_rays
-from ..core.mathutil import (EPSILON, PDF_DIRAC_DELTA, perspective_look_at,
-                             power_heuristic, project_to_screen_uv)
+from ..core.mathutil import (DELTA_THRESHOLD, EPSILON, PDF_DIRAC_DELTA,
+                             perspective_look_at, power_heuristic,
+                             project_to_screen_uv)
 from ..core.vec import Vec3, where as vwhere
 from ..materials import bsdf
+from ..scene import envmap as envmod
 from ..scene.lights import sample_light
 from ..scene.structs import SceneData
-from .common import (Raycaster, apply_russian_roulette, fetch_hit_surface,
-                     make_raycaster)
+from .common import (Raycaster, apply_russian_roulette, compute_env_nee,
+                     fetch_hit_surface, heavy_shading_factor, make_raycaster)
+from .intersect import HitRecord
 
 
 @dataclass(frozen=True)
@@ -79,7 +91,7 @@ class GBuffers:
 @dataclass(frozen=True)
 class FrameOutput:
     direct: Vec3     # [N] NEE radiance
-    indirect: Vec3   # [N] BSDF/emissive radiance
+    indirect: Vec3   # [N] BSDF/emissive/env radiance
     gbuf: GBuffers
     rays_traced: torch.Tensor  # 0-dim int64 (extension + shadow rays)
 
@@ -132,12 +144,6 @@ def _unsupported(cfg: RenderConfig) -> Optional[str]:
     for name, ok in list(_SWEEP_KNOBS.items()) + list(_TREELET_KNOBS.items()):
         if getattr(cfg, name) not in ok:
             return f"{name}={getattr(cfg, name)!r}"
-    if cfg.nearfield_frac > 0.0:
-        return "nearfield_frac"
-    if cfg.heavy_shading_iters:
-        return "heavy_shading_iters"
-    if cfg.debug_no_shadow:
-        return "debug_no_shadow"
     return None
 
 
@@ -253,8 +259,6 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
     number, 0 for camera rays)."""
     w, h = cam.resolution
     has_lights = scene.lights.num_lights > 0
-    if scene.env.enabled:
-        raise NotImplementedError("environment maps are not ported yet")
     do_sort = cfg.sort_bounce_rays and cfg.backend.is_packet
 
     (ori, direction, throughput, last_pdf, state, alive,
@@ -297,8 +301,11 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
             cast_kw["sweep_slots"] = (s_o, s_t, thr)
 
     # ---- TraceExtensionRay stage: dead lanes get t_max = -1 -------------
-    ext_tmax = torch.where(alive, 3.4e38, -1.0)
-    hit = raycaster.closest_hit(ori, direction, ext_tmax, **cast_kw)
+    if cfg.nearfield_frac > 0.0 and cfg.backend == RayCastBackend.BVH_PALLAS:
+        hit = _nearfield_cast(scene, raycaster, cfg, ori, direction, alive)
+    else:
+        ext_tmax = torch.where(alive, 3.4e38, -1.0)
+        hit = raycaster.closest_hit(ori, direction, ext_tmax, **cast_kw)
     rays = rays + alive.sum()
 
     # ---- Logic stage ------------------------------------------------------
@@ -308,6 +315,18 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
     point = ori + direction * hit.t
     miss = alive & ~hit.hit_mask
     zero3 = Vec3.zeros((n,), dev)
+
+    # miss -> environment into indirect; BSDF-sampled env hits are MIS
+    # weighted only when the env NEE estimator runs beside them
+    if scene.env.enabled:
+        env_l = envmod.env_radiance(scene.env, direction)
+        if cfg.env_nee:
+            pdf_env = envmod.env_pdf(scene.env, direction)
+            w_mis = torch.where((last_pdf > DELTA_THRESHOLD) | first, 1.0,
+                                power_heuristic(last_pdf, pdf_env))
+        else:
+            w_mis = 1.0
+        indirect = indirect + vwhere(miss, throughput * env_l * w_mis, zero3)
 
     if first:
         # G-buffers are per pixel: sample batch 0 is the raster-order
@@ -369,7 +388,11 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
         nee_mask = (alive & front & ~is_delta & (cos_surf > 0.0)
                     & (cos_l > 0.0) & (contrib.length_sq() > 0.0))
         shadow_t = torch.where(nee_mask, dist, -1.0)  # dead shadow lanes
-        occluded = raycaster.any_hit(shadow_ori, wi_l, shadow_t)
+        if cfg.debug_no_shadow:
+            # tpt's timing diagnostic: no shadow cast, nothing occluded
+            occluded = torch.zeros((n,), dtype=torch.bool, device=dev)
+        else:
+            occluded = raycaster.any_hit(shadow_ori, wi_l, shadow_t)
         rays = rays + nee_mask.sum()
         direct = direct + vwhere(nee_mask & ~occluded, contrib, zero3)
     else:
@@ -377,8 +400,22 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
         state, _ = rng.rand_float(state)
         state, _ = rng.rand_float(state)
 
+    # direct environment sampling through the alias table
+    if scene.env.enabled and cfg.env_nee:
+        state, env_contrib = compute_env_nee(scene, cfg, raycaster, state,
+                                             point, n_sh, ng, wo, mats,
+                                             throughput, alive)
+        direct = direct + env_contrib
+        rays = rays + alive.sum()
+
     # ---- BSDF sample + path update -----------------------------------------
     state, smp = bsdf.sample_bsdf(wo, n_sh, mats, state)
+    if cfg.heavy_shading_iters:
+        smp = bsdf.BSDFSample(
+            wi=smp.wi, pdf=smp.pdf,
+            attenuation=smp.attenuation * heavy_shading_factor(
+                hit.u, cfg.heavy_shading_iters),
+            is_transmission=smp.is_transmission)
     valid = (smp.pdf > 0.0) & (smp.attenuation.length_sq() > 0.0)
     exiting = smp.wi.dot(ng) > 0.0
     valid = valid & (exiting | smp.is_transmission)
@@ -396,6 +433,32 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
 
     return (ori, direction, throughput, last_pdf, state, alive,
             direct, indirect, pixel_idx, gbuf, rays)
+
+
+def _nearfield_cast(scene: SceneData, raycaster: Raycaster,
+                    cfg: RenderConfig, ori: Vec3, direction: Vec3,
+                    alive) -> HitRecord:
+    """tpt's two-pass BVH_PALLAS extension cast
+    (tpt/integrators/wavefront.py:376-395): a cast bounded at
+    cfg.nearfield_frac of the scene diagonal, then an unbounded cast of
+    the lanes it missed. A hit at exactly the bound falls through to the
+    second pass (the first accepts only t < its limit), so no hit is
+    lost."""
+    from . import raysort
+
+    _, inv = raysort.world_bounds(scene.mesh)
+    diag = torch.sqrt((1.0 / inv.x) ** 2 + (1.0 / inv.y) ** 2
+                      + (1.0 / inv.z) ** 2)
+    r1 = cfg.nearfield_frac * diag
+    hit1 = raycaster.closest_hit(ori, direction, torch.where(alive, r1, -1.0))
+    miss1 = alive & ~hit1.hit_mask
+    hit2 = raycaster.closest_hit(ori, direction,
+                                 torch.where(miss1, 3.4e38, -1.0))
+    near = hit1.hit_mask
+    return HitRecord(t=torch.where(near, hit1.t, hit2.t),
+                     tri=torch.where(near, hit1.tri, hit2.tri),
+                     u=torch.where(near, hit1.u, hit2.u),
+                     v=torch.where(near, hit1.v, hit2.v))
 
 
 def init_carry(cfg: RenderConfig, ori: Vec3, direction: Vec3, state,

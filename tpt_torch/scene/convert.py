@@ -2,9 +2,9 @@
 
 `from_numpy_scene` builds the port's `SceneData` from the numpy leaves of
 a scene the JAX package built (mesh, material rows, light table, the
-packet-BVH tables — wide with their treelet top tree, or binary — and
-the dense-sweep tables), so tests can hand both packages the very same
-tables. It takes plain arrays under the JAX package's field names, never
+texture atlas, the environment map, the packet-BVH tables — wide with
+their treelet top tree, or binary — and the dense-sweep tables), so
+tests can hand both packages the very same tables. It takes plain arrays under the JAX package's field names, never
 objects of that package, and imports nothing of it."""
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ import torch
 from ..bvh.pack import PacketBVH
 from ..device import DeviceLike, resolve_device
 from .mesh import mesh_from_arrays
+from .envmap import envmap_from_arrays
 from .structs import EnvMap, LightData, MaterialTable, SceneData, TextureAtlas
+from .texture import atlas_from_arrays
 
 MESH_KEYS = ("positions", "normals", "tangents", "uv_u", "uv_v", "i0", "i1",
              "i2", "material_ids", "geom_normals", "shade_tri", "shade_vtx",
@@ -28,6 +30,8 @@ PACK_KEYS = ("node_f32", "node_child", "tri_f32", "num_nodes",
 # optional: present when the pack carries the treelet cut
 TOP_KEYS = ("top_f32", "top_child", "top_tref", "top_tord", "num_top",
             "num_treelets", "treelet_max")
+ATLAS_KEYS = ("r", "g", "b", "a", "x0", "y0", "width", "height")
+ENV_KEYS = ("r", "g", "b", "pdf", "alias", "prob", "enabled")
 SWEEP_KEYS = ("tri_f32", "ranges", "boxes", "group_boxes", "num_treelets",
               "max_chunks", "unroll", "chunk_align")
 
@@ -43,6 +47,8 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
                      lights: Mapping[str, np.ndarray],
                      pack: Optional[Mapping] = None,
                      sweep: Optional[Mapping] = None,
+                     atlas: Optional[Mapping] = None,
+                     env: Optional[Mapping] = None,
                      device: DeviceLike = None) -> SceneData:
     """SceneData on `device` from numpy arrays.
 
@@ -53,7 +59,11 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
     node_child [Nt, 16]) plus TOP_KEYS when it carries the treelet cut
     (top_f32 None or absent: no cut), or the binary pack (arity 2,
     node_f32 [Nt, 16], node_child [Nt, 2]), which has no cut;
-    sweep: SWEEP_KEYS of the dense-sweep tables, or None."""
+    sweep: SWEEP_KEYS of the dense-sweep tables, or None;
+    atlas: ATLAS_KEYS of the texture atlas (planes [AH, AW], placements
+    [Ntex]), or None for the empty atlas;
+    env: ENV_KEYS of the environment map (planes [H, W], alias and prob
+    [H*W]), or None for no environment."""
     dev = resolve_device(device)
     _need(mesh, MESH_KEYS, "mesh")
     _need(lights, LIGHT_KEYS, "light")
@@ -114,6 +124,18 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
             num_treelets=int(sweep["num_treelets"]),
             max_chunks=int(sweep["max_chunks"]), unroll=int(sweep["unroll"]),
             chunk_align=int(sweep["chunk_align"]))
+    tex = TextureAtlas.empty(dev)
+    if atlas is not None:
+        _need(atlas, ATLAS_KEYS, "atlas")
+        tex = atlas_from_arrays(
+            np.stack([np.asarray(atlas[c]) for c in "rgba"], axis=-1),
+            atlas["x0"], atlas["y0"], atlas["width"], atlas["height"],
+            device=dev)
+    env_map = EnvMap.disabled(dev)
+    if env is not None:
+        _need(env, ENV_KEYS, "env")
+        env_map = envmap_from_arrays(
+            env["r"], env["g"], env["b"], env["pdf"], env["alias"],
+            env["prob"], device=dev, enabled=bool(env["enabled"]))
     return SceneData(mesh=mesh_data, materials=table, lights=light_data,
-                     atlas=TextureAtlas.empty(), env=EnvMap.disabled(),
-                     pack=packet, sweep=tables)
+                     atlas=tex, env=env_map, pack=packet, sweep=tables)

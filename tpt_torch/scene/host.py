@@ -1,10 +1,12 @@
 """Host-side scene container and the upload to the device `SceneData`.
 
-Counterpart of `tpt/scene/host.py` for this slice: materials, mesh,
-camera, and `build(with_bvh=True)` with the native binned-SAH builder,
-the arity-4 wide packet pack and, on a wide pack, the treelet cut and the
-dense-sweep tables of BVH_SWEEP. The port has no triangle streaming (the
-triangle table lives in GPU memory at any size) and no prep cache yet."""
+Counterpart of `tpt/scene/host.py`: materials, mesh, camera, the texture
+atlas and the environment map (the output of the JSON/OBJ loaders or the
+procedural builders), and `build(with_bvh=True)` with the native
+binned-SAH builder, the arity-4 wide packet pack and, on a wide pack,
+the treelet cut and the dense-sweep tables of BVH_SWEEP. The port has no
+triangle streaming (the triangle table lives in GPU memory at any size)
+and no prep cache yet."""
 
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ from ..core.camera import Camera
 from ..device import DeviceLike, resolve_device
 from .lights import build_light_cdf
 from .mesh import HostMesh, finalize_mesh
-from .structs import (EnvMap, LightData, MaterialTable, MaterialType,
-                      SceneData, TextureAtlas)
+from .structs import EnvMap, LightData, MaterialTable, MaterialType, SceneData
+from .texture import AtlasBuilder
 
 
 @dataclass
@@ -75,6 +77,8 @@ class HostScene:
     mesh: HostMesh = dfield(default_factory=HostMesh.empty)
     materials: List[HostMaterial] = dfield(default_factory=list)
     camera: Optional[Camera] = None
+    atlas: AtlasBuilder = dfield(default_factory=AtlasBuilder)
+    env_map: Optional[EnvMap] = None  # envmap.load_envmap, any device
     iterations: int = 120
     trace_depth: int = 8
     image_name: str = "render"
@@ -133,6 +137,8 @@ class HostScene:
             else:
                 pack = build_packet_bvh(self.mesh, bvh, max_cluster=max_cluster)
             pack = pack.to(dev)
+        env = (self.env_map.to(dev) if self.env_map is not None
+               else EnvMap.disabled(dev))
         return SceneData(mesh=mesh, materials=table, lights=lights,
-                         atlas=TextureAtlas.empty(), env=EnvMap.disabled(),
+                         atlas=self.atlas.build(dev), env=env,
                          pack=pack, sweep=sweep)

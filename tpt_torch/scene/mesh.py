@@ -1,8 +1,10 @@
 """Host-side (numpy) mesh assembly and the upload to `MeshData`.
 
-Counterpart of `tpt/scene/mesh.py` for the procedural scenes of this
-slice: the same numpy arithmetic (so the tables equal the JAX package's
-bit for bit), then tensors on the requested device."""
+Counterpart of `tpt/scene/mesh.py`: TRS transforms with
+inverse-transpose normals, per-vertex tangents from UVs, exact-bits
+vertex dedup and mesh merging, in the same numpy arithmetic (so the
+tables equal the JAX package's bit for bit), then tensors on the
+requested device."""
 
 from __future__ import annotations
 
@@ -43,6 +45,16 @@ class HostMesh:
         return int(self.indices.shape[0])
 
 
+def apply_transform(positions: np.ndarray, normals: np.ndarray, trs: np.ndarray):
+    """Apply 4x4 TRS to positions and inverse-transpose to normals."""
+    p = positions @ trs[:3, :3].T + trs[:3, 3]
+    inv_t = np.linalg.inv(trs[:3, :3]).T
+    n = normals @ inv_t.T
+    lens = np.linalg.norm(n, axis=-1, keepdims=True)
+    n = n / np.maximum(lens, 1e-20)
+    return p.astype(np.float32), n.astype(np.float32)
+
+
 def compute_geometric_normals(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
     v0 = positions[indices[:, 0]]
     v1 = positions[indices[:, 1]]
@@ -63,6 +75,47 @@ def compute_smooth_normals(positions: np.ndarray, indices: np.ndarray) -> np.nda
         np.add.at(normals, indices[:, k], fn)
     lens = np.linalg.norm(normals, axis=-1, keepdims=True)
     return (normals / np.maximum(lens, 1e-20)).astype(np.float32)
+
+
+def compute_tangents(positions, normals, uvs, indices) -> np.ndarray:
+    """Per-vertex tangents from UV derivatives, accumulated over faces and
+    Gram-Schmidt orthogonalized against the normal."""
+    if uvs.size == 0 or not np.any(uvs):
+        return np.zeros_like(positions)
+    v0, v1, v2 = (positions[indices[:, k]] for k in range(3))
+    w0, w1, w2 = (uvs[indices[:, k]] for k in range(3))
+    e1, e2 = v1 - v0, v2 - v0
+    du1, dv1 = w1[:, 0] - w0[:, 0], w1[:, 1] - w0[:, 1]
+    du2, dv2 = w2[:, 0] - w0[:, 0], w2[:, 1] - w0[:, 1]
+    det = du1 * dv2 - du2 * dv1
+    r = np.where(np.abs(det) > 1e-12, 1.0 / np.where(det == 0, 1.0, det), 0.0)
+    t = (e1 * dv2[:, None] - e2 * dv1[:, None]) * r[:, None]
+    tangents = np.zeros_like(positions)
+    for k in range(3):
+        np.add.at(tangents, indices[:, k], t)
+    # orthogonalize
+    d = np.sum(tangents * normals, axis=-1, keepdims=True)
+    tangents = tangents - normals * d
+    lens = np.linalg.norm(tangents, axis=-1, keepdims=True)
+    return np.where(lens > 1e-12, tangents / np.maximum(lens, 1e-20),
+                    0.0).astype(np.float32)
+
+
+def dedup_vertices(positions, normals, uvs, indices):
+    """Merge identical (position, normal, uv) vertices, compared as exact
+    bits, through one np.unique over the rows (vertices in the order of
+    their rows' bytes, as tpt's)."""
+    rows = np.concatenate([positions, normals, uvs], axis=-1)
+    view = np.ascontiguousarray(rows).view(
+        np.dtype((np.void, rows.dtype.itemsize * rows.shape[1]))
+    ).ravel()
+    _, first_idx, inverse = np.unique(view, return_index=True,
+                                      return_inverse=True)
+    new_positions = positions[first_idx]
+    new_normals = normals[first_idx]
+    new_uvs = uvs[first_idx]
+    new_indices = inverse[indices].astype(np.int32)
+    return new_positions, new_normals, new_uvs, new_indices
 
 
 def merge_meshes(meshes: List[HostMesh]) -> HostMesh:

@@ -1,5 +1,6 @@
-"""Procedural scenes of the port's slice: quads, boxes, UV spheres, the
-Cornell box and the benchmark interior `fireplace_like`.
+"""Procedural scenes: quads, boxes, UV spheres, the Cornell box, the Veach
+MIS scene, and the benchmark interiors `fireplace_like` and
+`stress_interior`.
 
 Counterpart of `tpt/scene/procedural.py`: the same numpy construction
 (same seeds, same float arithmetic), so a scene built here has the same
@@ -133,6 +134,76 @@ def cornell_box(resolution=(800, 800), spheres=True,
     s.iterations = 8
     s.trace_depth = 8
     s.image_name = "cornell"
+    return s
+
+
+def veach_mis(resolution=(512, 384)) -> HostScene:
+    """The classic Veach MIS demonstration scene (reference README §3.4 +
+    img/mis.png — the asset itself is a git-lfs pointer, so this is a
+    reconstruction of the canonical composition): four metallic plates of
+    increasing roughness, lit by a row of spherical emitters whose radii
+    span ~30x at equal power (radiance ~ 1/r^2). BSDF sampling alone fails
+    on the small bright sphere; light sampling alone fails on the large
+    dim sphere reflected in the smooth plate; the power-heuristic MIS
+    combination resolves all plate/light pairs."""
+    s = HostScene()
+    gray = s.add_material(HostMaterial("backdrop", (0.35, 0.35, 0.35)))
+    plate_rough = (0.012, 0.04, 0.1, 0.25)
+    plate_mats = [
+        s.add_material(HostMaterial(
+            f"plate{i}", (0.85, 0.82, 0.78),
+            mtype=MaterialType.MICROFACET_PBR, metallic=1.0, roughness=r))
+        for i, r in enumerate(plate_rough)]
+    radii = (0.035, 0.11, 0.33, 0.9)
+    # equal power: L = P / (4 pi^2 r^2); pick P so the big sphere reads ~1.2
+    light_mats = [
+        s.add_material(HostMaterial(
+            f"light{i}", (1.0, 0.95, 0.85), emittance=1.2 * (0.9 / r) ** 2))
+        for i, r in enumerate(radii)]
+
+    parts = [
+        make_quad((-14, 0, 14), (14, 0, 14), (14, 0, -6), (-14, 0, -6),
+                  gray),                                          # floor
+        make_quad((-14, 0, -6), (14, 0, -6), (14, 16, -6), (-14, 16, -6),
+                  gray),                                          # back wall
+    ]
+    # sphere lights in a row high on the back wall
+    light_y, light_z = 7.2, -3.4
+    light_x = (-5.0, -1.7, 1.7, 5.0)
+    for x, r, m in zip(light_x, radii, light_mats):
+        parts.append(make_uv_sphere((x, light_y, light_z), r, m,
+                                    n_theta=10, n_phi=20))
+    # plates: long thin quads tilted so each reflects the light row toward
+    # the camera (normal = half vector between to-lights and to-camera)
+    cam_pos = np.array([0.0, 5.0, 14.0])
+    l_cen = np.array([0.0, light_y, light_z])
+    plate_y = (3.7, 2.8, 2.0, 1.3)
+    plate_z = (-2.4, -0.9, 0.6, 2.1)
+    half_w, half_d = 6.0, 0.7
+    for (y, z, m) in zip(plate_y, plate_z, plate_mats):
+        c = np.array([0.0, y, z])
+        wl = (l_cen - c) / np.linalg.norm(l_cen - c)
+        wc = (cam_pos - c) / np.linalg.norm(cam_pos - c)
+        nrm = (wl + wc) / np.linalg.norm(wl + wc)
+        # plate axes: u along x, v = n x u (depth direction)
+        u = np.array([1.0, 0.0, 0.0])
+        v = np.cross(nrm, u)
+        v /= np.linalg.norm(v)
+        p = [c - u * half_w - v * half_d, c + u * half_w - v * half_d,
+             c + u * half_w + v * half_d, c - u * half_w + v * half_d]
+        parts.append(make_quad(*[tuple(q) for q in p], material_id=m))
+
+    s.mesh = merge_meshes(parts)
+    s.camera = Camera.build(
+        resolution=resolution,
+        position=tuple(cam_pos),
+        look_at=(0.0, 3.4, 0.0),
+        up=(0.0, 1.0, 0.0),
+        fovy_deg=42.0,
+    )
+    s.iterations = 64
+    s.trace_depth = 4
+    s.image_name = "veach_mis"
     return s
 
 
@@ -300,4 +371,71 @@ def fireplace_like(num_triangles: int = 143_000, resolution=(1920, 1080),
     s.iterations = 16
     s.trace_depth = 8
     s.image_name = "fireplace_like"
+    return s
+
+
+def stress_interior(num_triangles: int = 143_000, resolution=(1920, 1080),
+                    seed: int = 7) -> HostScene:
+    """Benchmark stand-in for Fireplace Room: an enclosed room densely
+    filled with random-material spheres and boxes totalling ~`num_triangles`
+    triangles, one area light, mixed PBR/diffuse/reflect/refract materials
+    in roughly the reference's proportions (README.md:34 — PBR 24421,
+    diffuse 107572, reflection 10, refraction 11170)."""
+    rng = np.random.default_rng(seed)
+    s = HostScene()
+    white = s.add_material(HostMaterial("walls", (0.7, 0.7, 0.7)))
+    light = s.add_material(HostMaterial("lamp", (1.0, 0.9, 0.7), emittance=25.0))
+
+    room = 1000.0
+    parts = [make_box((0, 0, 0), (room, room * 0.6, room), white, flip=True)]
+    # lamp normal must face down (-Y) toward the room
+    parts.append(make_quad(
+        (room * 0.4, room * 0.6 - 1, room * 0.4),
+        (room * 0.6, room * 0.6 - 1, room * 0.4),
+        (room * 0.6, room * 0.6 - 1, room * 0.6),
+        (room * 0.4, room * 0.6 - 1, room * 0.6),
+        light,
+    ))
+
+    # material pool with reference-like class mix
+    pool = []
+    for i in range(24):
+        col = tuple(rng.uniform(0.2, 0.95, 3))
+        r = float(rng.uniform(0.05, 0.9))
+        met = float(rng.uniform(0.0, 1.0))
+        pool.append(s.add_material(HostMaterial(
+            f"pbr{i}", col, metallic=met, roughness=r, mtype=MaterialType.MICROFACET_PBR)))
+    for i in range(96):
+        col = tuple(rng.uniform(0.1, 0.95, 3))
+        pool.append(s.add_material(HostMaterial(f"diff{i}", col)))
+    pool.append(s.add_material(HostMaterial(
+        "mirror", (0.95, 0.95, 0.95), mtype=MaterialType.SPECULAR_REFLECTION)))
+    for i in range(12):
+        pool.append(s.add_material(HostMaterial(
+            f"glass{i}", (0.98, 0.98, 0.98), ior=1.5, mtype=MaterialType.SPECULAR_REFRACTION)))
+    # class weights ~ reference proportions
+    weights = [0.17 / 24] * 24 + [0.75 / 96] * 96 + [0.0001] + [0.078 / 12] * 12
+    weights = np.array(weights) / np.sum(weights)
+
+    tris_per_sphere = make_uv_sphere((0, 0, 0), 1.0, 0, n_theta=12, n_phi=18).num_triangles
+    budget = num_triangles - sum(p.num_triangles for p in parts)
+    n_spheres = max(1, budget // tris_per_sphere)
+    for _ in range(n_spheres):
+        c = rng.uniform(80, room - 80, 3)
+        c[1] = rng.uniform(30, room * 0.6 - 60)
+        rad = rng.uniform(12, 42)
+        mat = int(rng.choice(pool, p=weights))
+        parts.append(make_uv_sphere(tuple(c), rad, mat, n_theta=12, n_phi=18))
+
+    s.mesh = merge_meshes(parts)
+    s.camera = Camera.build(
+        resolution=resolution,
+        position=(room * 0.5, room * 0.3, room * 0.04),
+        look_at=(room * 0.5, room * 0.26, room * 0.9),
+        up=(0.0, 1.0, 0.0),
+        fovy_deg=45.0,
+    )
+    s.iterations = 16
+    s.trace_depth = 8
+    s.image_name = "stress"
     return s

@@ -115,26 +115,60 @@ class LightData:
 
 @dataclass(frozen=True)
 class TextureAtlas:
-    """Texture atlas placeholder: this slice of the port renders
-    untextured scenes, so the atlas is always empty."""
+    """Every LDR texture packed into one (AH, AW) RGBA sheet, one plane a
+    channel, with each texture's placement indexed by texture id
+    (`scene.texture.AtlasBuilder` packs it; `sample_atlas` reads it)."""
 
-    num_textures: int = 0
+    r: torch.Tensor       # [AH, AW] f32, 0..1 as stored (not degammaed)
+    g: torch.Tensor
+    b: torch.Tensor
+    a: torch.Tensor
+    x0: torch.Tensor      # [Ntex] int64 top-left column
+    y0: torch.Tensor      # [Ntex] int64 top-left row
+    width: torch.Tensor   # [Ntex] int64
+    height: torch.Tensor  # [Ntex] int64
+
+    @property
+    def num_textures(self) -> int:
+        return int(self.x0.shape[0])
 
     @staticmethod
-    def empty() -> "TextureAtlas":
-        return TextureAtlas()
+    def empty(device) -> "TextureAtlas":
+        z = torch.zeros((8, 128), device=device)
+        zi = torch.zeros((1,), dtype=torch.int64, device=device)
+        one = torch.ones((1,), dtype=torch.int64, device=device)
+        return TextureAtlas(z, z, z, z, zi, zi, one, one)
 
 
 @dataclass(frozen=True)
 class EnvMap:
-    """Environment map placeholder: this slice renders scenes without an
-    environment (escaping paths carry no radiance)."""
+    """HDR environment: equirect radiance, the solid-angle pdf of
+    sampling each texel's direction, and the Vose alias table over the
+    texels for O(1) direction sampling (`scene.envmap`)."""
 
+    r: torch.Tensor       # [H, W] f32 radiance
+    g: torch.Tensor
+    b: torch.Tensor
+    pdf: torch.Tensor     # [H, W] f32
+    alias: torch.Tensor   # [H*W] int64 Vose alias index
+    prob: torch.Tensor    # [H*W] f32 Vose acceptance probability
     enabled: bool = False
 
+    @property
+    def shape(self):
+        return tuple(self.r.shape)
+
+    def to(self, device) -> "EnvMap":
+        t = lambda a: a.to(device)
+        return EnvMap(t(self.r), t(self.g), t(self.b), t(self.pdf),
+                      t(self.alias), t(self.prob), enabled=self.enabled)
+
     @staticmethod
-    def disabled() -> "EnvMap":
-        return EnvMap(enabled=False)
+    def disabled(device) -> "EnvMap":
+        z = torch.zeros((8, 128), device=device)
+        return EnvMap(z, z, z, z,
+                      torch.zeros((8 * 128,), dtype=torch.int64, device=device),
+                      torch.zeros((8 * 128,), device=device), enabled=False)
 
 
 @dataclass(frozen=True)
