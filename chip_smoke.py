@@ -24,7 +24,11 @@ the multi-slot top-tree scan K11 feeding the sweep cast; and the hero
 scene, loaded from scenes/hero.json (JSON, OBJ/MTL, four PNG textures
 in one atlas, an HDR sky with its alias table) with textured,
 normal-mapped and env-lit shading and environment NEE, on BVH_PALLAS
-with and without the denoiser and on BVH_SWEEP. One line per phase
+with and without the denoiser and on BVH_SWEEP; and last the LBVH
+builder on the card, the BVH_XLA backend (a plain-PyTorch walk, no
+kernel of its own) on the hero, the engine's BVH heatmap, and the
+command line, `tpt_torch.cli`, rendering the hero on BVH_XLA with SVGF
+(K6 and K5) against tests/golden_hero_120x68.npz. One line per phase
 (name, seconds, key numbers):
 
   device     nvidia-smi name and power limit, torch and CUDA versions
@@ -95,9 +99,9 @@ with and without the denoiser and on BVH_SWEEP. One line per phase
              device busy share of a profiled frame, the share of pixels
              with history, the median motion
   svgf_agreement
-             both sequences at 240x135 through the kernels and through the
-             plain versions: each denoised frame must agree to the
-             golden-image tolerance
+             both sequences at 240x135, depth 4, through the kernels and
+             through the plain versions: each denoised frame must agree to
+             the golden-image tolerance
   binary_kernels
              K8a/K8b against their plain versions, bit for bit with no
              capped ray, on 262,144 live rays (camera primaries and one
@@ -142,7 +146,7 @@ with and without the denoiser and on BVH_SWEEP. One line per phase
              split by CUDA events into K9 and the sort, K10, K2, K1 and
              the rest
   treelet_agreement
-             BVH_TREELET at 240x135, depth 8, both samples in one pool
+             BVH_TREELET at 240x135, depth 4, both samples in one pool
              (spp_batch 2), through the kernels, through the plain versions
              and against the BVH_PALLAS render; it refuses to start with
              less than twice its plain render's time left on the watchdog
@@ -203,6 +207,34 @@ with and without the denoiser and on BVH_SWEEP. One line per phase
              Renderer frame, at the golden-image tolerance; with the
              hero_render phase it refuses to start with less than twice
              their allowance left on the watchdog
+  lbvh_build
+             the fireplace's LBVH (tpt_torch/bvh/build.py) built on the
+             card, twice (the first with its warm-up), against the CPU
+             build of the same mesh, every array bit for bit; both trees
+             validated (tpt_torch/bvh/validate.py); depths, and the mean
+             traversal cost (steps of the escape-link walk) of the 1080p
+             primaries on the LBVH and on the SAH tree
+  xla_render
+             the hero at its own 960x540, depth 8, env NEE on BVH_XLA (the
+             plain-PyTorch walk of tpt_torch/bvh/traverse.py): one
+             wavefront frame with the launch counters zeroed just before
+             and read just after (no kernel), and one denoised Renderer
+             frame (K6 1, K5 5), each held against BVH_PALLAS's frame of
+             the same iteration at the golden-image tolerance, 0 capped
+             rays; frame ms, walks and loop iterations a walk
+  heatmap
+             Renderer in DisplayMode.BVH_HEATMAP on the fireplace at
+             1080p (a BVH_PALLAS frame, then the traversal-cost map of the
+             SAH tree); the map's ms and the cost percentiles
+  cli_hero
+             tpt_torch.cli.main on the hero at tests/test_hero.py's
+             settings (120x68, 3 iterations, depth 4, --backend bvh
+             --denoise --env-nee), launch counters zeroed just before and
+             read just after (K6 1, K5 5 a frame): its PNG against
+             tests/golden_hero_120x68.npz as tests/test_hero.py holds
+             tpt's (> 97% of values within 2/255, means within 2%); then
+             2 iterations at the file's own 960x540, depth 8, and their
+             ms a frame
 
 Then one JSON line describing each of the twelve ported kernels, K4's
 and K7's modes under their own entries (with the lanes their times and
@@ -267,6 +299,11 @@ TAIL_TRI_MISMATCH_MAX = 1e-4   # of live lanes: equal-t ties between treelets
 # per frame in pixels at the image centre (the viewer's navigation)
 SVGF_FRAMES = 8
 SVGF_PAN_PX = 3.0
+# svgf_agreement traces at depth 4, not 8: its 32 plain and kernel
+# sequence frames took 60.0-98.9 s at depth 8 (NVIDIA H100 80GB HBM3,
+# 700 W), and on the slower host of those runs the hero phases then
+# refused to start; the denoiser it checks sees the same planes
+SVGF_AGREE_DEPTH = 4
 # bytes a pixel moves (float32/int32 planes read once and written once)
 # and fp32 operations it needs (counted from tpt_torch/csrc/svgf.cu; exp,
 # pow and the divides counted as one each, so the bound stays a least
@@ -281,10 +318,13 @@ TREELET_SEEDED_PACKETS = 128
 TREELET_PRIMARY_PACKETS = 64
 TREELET_FRAMES = 2
 TREELET_REPS = 3
-# the plain 240x135 BVH_TREELET render of treelet_agreement, at most, on an
-# H100 80GB HBM3 at 700 W: 113-138 s; its sequential steps are set by the
-# slowest packet, so a slower host takes longer
-TREELET_PLAIN_RENDER_S = 140.0
+# treelet_agreement renders at depth 4, not 8: its plain 240x135 render
+# took 113-145 s at depth 8 (NVIDIA H100 80GB HBM3, 700 W), and with the
+# LBVH, BVH_XLA and CLI phases behind it a run reached 540 s of its
+# watchdog. Its sequential steps are set by the slowest packet, so a
+# slower host takes longer; at depth 4 it takes at most this long
+TREELET_AGREE_DEPTH = 4
+TREELET_PLAIN_RENDER_S = 80.0
 
 # the BVH_SWEEP variants on the bench configuration: frames of each timed
 # render, the two wavefront configurations, K11's lanes (a 1080p frame's
@@ -319,6 +359,14 @@ HERO_RES, HERO_DEPTH = (960, 540), 8
 HERO_FRAMES = 3
 HERO_SWEEP_ITER = 7
 HERO_PHASES_S = 60.0
+# this slice's phases: the hero's BVH_XLA frames, the CLI run at
+# tests/test_hero.py's settings (held to its golden) and its timed run
+# at the file's own size, and all four phases together, at most
+XLA_ITER = 7
+CLI_HERO = dict(res=[120, 68], iterations=3, depth=4)
+GOLDEN_HERO = ("tests", "golden_hero_120x68.npz")
+CLI_TIMED_ITERS = 2
+XLA_PHASES_S = 90.0
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -1724,11 +1772,12 @@ def svgf_phases(scene, cam, dev) -> list:
     t0 = time.perf_counter()
     small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
                          cam.fovy_deg)
+    acfg = cfg.with_(trace_depth=SVGF_AGREE_DEPTH)
     runs = {
-        "renderer": lambda: svgf_sequence(Renderer(scene, small, cfg), small,
+        "renderer": lambda: svgf_sequence(Renderer(scene, small, acfg), small,
                                           SVGF_FRAMES),
         "carried": lambda: [i.cpu().numpy() for i in carried_sequence(
-            scene, small, cfg, SVGF_FRAMES)],
+            scene, small, acfg, SVGF_FRAMES)],
     }
     worst_close, worst_abs = 1.0, 0.0
     for label, run in runs.items():
@@ -1743,7 +1792,7 @@ def svgf_phases(scene, cam, dev) -> list:
                                              a, b)
             worst_close = min(worst_close, close)
             worst_abs = max(worst_abs, max_abs)
-    phase("svgf_agreement", t0, frames=2 * SVGF_FRAMES,
+    phase("svgf_agreement", t0, depth=SVGF_AGREE_DEPTH, frames=2 * SVGF_FRAMES,
           min_close=f"{worst_close:.6f}", max_abs=f"{worst_abs:.3g}")
 
     return [
@@ -2066,7 +2115,7 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
     # both samples in one pool: the plain K10 takes as many sequential
     # steps as the slowest packet of a cast needs, so one cast of twice
     # the packets costs about as much as one of one sample
-    acfg = cfg.with_(spp_batch=AGREE_ITERS)
+    acfg = cfg.with_(spp_batch=AGREE_ITERS, trace_depth=TREELET_AGREE_DEPTH)
     rc_k = common.make_raycaster(scene, acfg)
     img_k = wavefront.render(scene, small, acfg, iterations=AGREE_ITERS,
                              raycaster=rc_k)
@@ -2079,7 +2128,8 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
         plain_s = time.perf_counter() - tp
     finally:
         patch.restore()
-    pcfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH,
+    pcfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS,
+                        trace_depth=TREELET_AGREE_DEPTH,
                         spp_batch=AGREE_ITERS)
     rc_w = common.make_raycaster(scene, pcfg)
     img_w = wavefront.render(scene, small, pcfg, iterations=AGREE_ITERS,
@@ -2092,7 +2142,7 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
                                          ref)
         out[f"{label}_close"] = f"{close:.6f}"
         out[f"{label}_max_abs"] = f"{max_abs:.3g}"
-    phase("treelet_agreement", t0, **out)
+    phase("treelet_agreement", t0, depth=TREELET_AGREE_DEPTH, **out)
 
     return [
         dict(name="treelet_scan", route="cuda",
@@ -2537,11 +2587,12 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     ]
 
 
-def hero_phases(dev) -> None:
+def hero_phases(dev) -> tuple:
     """The hero_render and hero_agreement phases: scenes/hero.json (its
     textures written by tpt_torch.scene.hero_assets into a scratch
     directory) loaded by tpt_torch.scene.loader.load_scene and rendered
-    at the file's own 960x540, depth 8, env NEE on."""
+    at the file's own 960x540, depth 8, env NEE on. Returns the host
+    scene and its tables on the card."""
     import tempfile
 
     import numpy as np
@@ -2732,6 +2783,209 @@ def hero_phases(dev) -> None:
         out[f"{label}_close"] = f"{close:.6f}"
         out[f"{label}_max_abs"] = f"{max_abs:.3g}"
     phase("hero_agreement", t0, **out)
+    return host, scene
+
+
+def cli_run(argv: list) -> tuple:
+    """tpt_torch.cli.main(argv) with its output captured: (exit code,
+    the ms a frame of its last progress line, its output)."""
+    import contextlib
+    import io
+
+    from tpt_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    iters = [ln for ln in text.splitlines() if ln.startswith("[tpt] iter ")]
+    frame_ms = float(iters[-1].split()[3]) if iters else float("nan")
+    return rc, frame_ms, text
+
+
+def xla_phases(fire_host, fire, hero_host, hero, dev) -> None:
+    """The lbvh_build, xla_render, heatmap and cli_hero phases: the LBVH
+    builder on the card, the BVH_XLA backend (the plain-PyTorch walk of
+    tpt_torch/bvh/traverse.py), the engine's BVH heatmap, and
+    `python -m tpt_torch.cli` rendering the hero through BVH_XLA and SVGF
+    (K6 and K5)."""
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from tpt_torch import Renderer
+    from tpt_torch.bvh import traverse
+    from tpt_torch.bvh.build import build_lbvh
+    from tpt_torch.bvh.validate import validate_lbvh
+    from tpt_torch.config import DisplayMode, RayCastBackend, RenderConfig
+    from tpt_torch.core.camera import generate_camera_rays
+    from tpt_torch.integrators import common, wavefront
+    from tpt_torch.io.image import read_png
+    from tpt_torch.scene import hero_assets
+
+    t0 = time.perf_counter()
+    left = WATCHDOG_S - (t0 - T_START)
+    if left < XLA_PHASES_S:
+        raise RuntimeError(
+            f"xla phases: they take up to {XLA_PHASES_S:.0f} s and only "
+            f"{left:.0f} s of the {WATCHDOG_S} s watchdog are left")
+
+    # ---- lbvh_build: the fireplace's LBVH on the card, against the CPU --
+    def timed_build(mesh):
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        bvh = build_lbvh(mesh)
+        torch.cuda.synchronize()
+        return bvh, time.perf_counter() - tb
+
+    _, first_s = timed_build(fire.mesh)
+    lbvh, build_s = timed_build(fire.mesh)
+    cpu = lambda a: a.cpu()
+    m = fire.mesh
+    cpu_mesh = replace(m, positions=m.positions.map(cpu), i0=cpu(m.i0),
+                       i1=cpu(m.i1), i2=cpu(m.i2))
+    ref, cpu_s = timed_build(cpu_mesh)
+    got, want = lbvh.numpy(), ref.numpy()
+    differ = [k for k in want if not torch.equal(
+        *(bit_patterns(torch.as_tensor(h[k])) for h in (got, want)))]
+    if differ:
+        raise RuntimeError(f"LBVH on the card differs from the CPU build in "
+                           f"{differ}")
+    rep, sah_rep = validate_lbvh(lbvh), validate_lbvh(fire.bvh)
+    if not (rep.ok and sah_rep.ok):
+        raise RuntimeError(f"BVH validation: LBVH {rep.errors[:3]}, SAH "
+                           f"{sah_rep.errors[:3]}")
+    cam = fire_host.camera
+    ori, d, _ = generate_camera_rays(cam, 1, jitter=False, device=dev)
+    torch.cuda.synchronize()
+    tc = time.perf_counter()
+    cost_l = traverse.traversal_cost(fire.mesh, lbvh, ori, d).cpu().numpy()
+    lbvh_cost_s = time.perf_counter() - tc
+    tc = time.perf_counter()
+    cost_s = traverse.traversal_cost(fire.mesh, fire.bvh, ori, d).cpu().numpy()
+    sah_cost_s = time.perf_counter() - tc
+    del ori, d, lbvh, ref, cpu_mesh
+    phase("lbvh_build", t0, triangles=fire_host.mesh.num_triangles,
+          build_s=f"{build_s:.3f}", first_build_s=f"{first_s:.3f}",
+          cpu_build_s=f"{cpu_s:.3f}", bit_equal_arrays=len(want),
+          depth=rep.max_depth, sah_depth=sah_rep.max_depth,
+          lbvh_cost_mean=f"{cost_l.mean():.2f}",
+          sah_cost_mean=f"{cost_s.mean():.2f}",
+          lbvh_cost_s=f"{lbvh_cost_s:.2f}", sah_cost_s=f"{sah_cost_s:.2f}")
+
+    # ---- xla_render: the hero on BVH_XLA, against BVH_PALLAS ------------
+    t0 = time.perf_counter()
+    hcam = hero_host.camera
+    xcfg = RenderConfig(backend=RayCastBackend.BVH_XLA, trace_depth=HERO_DEPTH,
+                        env_nee=True)
+    pcfg = xcfg.with_(backend=RayCastBackend.BVH_PALLAS)
+    rc = common.make_raycaster(hero, xcfg)
+    traverse.STATS.update(walks=0, steps=0)
+    counts = zero_launches()
+    tr = time.perf_counter()
+    img_x = wavefront.render(hero, hcam, xcfg, iterations=1,
+                             start_iter=XLA_ITER, raycaster=rc)
+    frame_ms = (time.perf_counter() - tr) * 1e3
+    launches = expect_launches("hero BVH_XLA", counts, {})
+    walks, steps = traverse.STATS["walks"], traverse.STATS["steps"]
+    img_p = wavefront.render(hero, hcam, pcfg, iterations=1,
+                             start_iter=XLA_ITER)
+    close, _, max_abs = golden_agree("hero BVH_XLA vs BVH_PALLAS", img_x,
+                                     img_p)
+    counts = zero_launches()
+    r = Renderer(hero, hcam, xcfg.with_(denoiser_on=True))
+    tr = time.perf_counter()
+    den_x = r.frame()
+    dn_ms = (time.perf_counter() - tr) * 1e3
+    dn_launches = expect_launches("hero BVH_XLA denoised", counts,
+                                  dict(atrous=5, reproject=1))
+    den_p = Renderer(hero, hcam, pcfg.with_(denoiser_on=True)).frame()
+    dn_close, _, dn_abs = golden_agree("hero BVH_XLA denoised vs BVH_PALLAS",
+                                       den_x, den_p)
+    if int(rc.capped) or int(r.raycaster.capped):
+        raise RuntimeError(f"hero BVH_XLA: {int(rc.capped)} and "
+                           f"{int(r.raycaster.capped)} capped rays")
+    phase("xla_render", t0, frame_ms=f"{frame_ms:.1f}",
+          mpaths_s=f"{hcam.num_pixels / (frame_ms * 1e-3) / 1e6:.3f}",
+          denoised_ms=f"{dn_ms:.1f}", walks=walks,
+          steps_per_walk=f"{steps / max(walks, 1):.1f}",
+          capped=int(rc.capped) + int(r.raycaster.capped),
+          pallas_close=f"{close:.6f}", pallas_max_abs=f"{max_abs:.3g}",
+          denoised_close=f"{dn_close:.6f}", denoised_max_abs=f"{dn_abs:.3g}",
+          launches=nonzero(launches), denoised_launches=nonzero(dn_launches))
+    del r, img_x, img_p, den_x, den_p
+
+    # ---- heatmap: DisplayMode.BVH_HEATMAP on the fireplace at 1080p -----
+    t0 = time.perf_counter()
+    r = Renderer(fire, cam, RenderConfig(backend=RayCastBackend.BVH_PALLAS,
+                                         trace_depth=DEPTH,
+                                         display=DisplayMode.BVH_HEATMAP))
+    th = time.perf_counter()
+    heat = r.bvh_heatmap()
+    heat_ms = (time.perf_counter() - th) * 1e3
+    tf = time.perf_counter()
+    img = r.frame()
+    hframe_ms = (time.perf_counter() - tf) * 1e3
+    if not (img.shape == (RES[1], RES[0], 3) and np.array_equal(img, heat)
+            and np.isfinite(img).all()):
+        raise RuntimeError(f"heatmap frame: shape {img.shape}, equal to "
+                           f"bvh_heatmap {np.array_equal(img, heat)}")
+    pct = np.percentile(cost_s, [50, 90, 98])
+    phase("heatmap", t0, heatmap_ms=f"{heat_ms:.1f}",
+          frame_ms=f"{hframe_ms:.1f}", cost_p50=f"{pct[0]:.0f}",
+          cost_p90=f"{pct[1]:.0f}", cost_p98=f"{pct[2]:.0f}",
+          cost_max=int(cost_s.max()))
+    del r, img, heat
+
+    # ---- cli_hero: python -m tpt_torch.cli on the hero ------------------
+    t0 = time.perf_counter()
+    flags = ["-wave", "--backend", "bvh", "--denoise", "--env-nee"]
+    with tempfile.TemporaryDirectory() as tmp:
+        full = hero_assets.write_hero_assets(tmp)
+        with open(full) as f:
+            doc = json.load(f)
+        cam_doc = doc["Camera"]
+        cam_doc.update(RES=CLI_HERO["res"], ITERATIONS=CLI_HERO["iterations"],
+                       DEPTH=CLI_HERO["depth"])
+        small = os.path.join(tmp, "hero_small.json")
+        with open(small, "w") as f:
+            json.dump(doc, f)
+        out_small = os.path.join(tmp, "small")
+        counts = zero_launches()
+        ts = time.perf_counter()
+        rc_s, _, _ = cli_run([small] + flags + ["--out-dir", out_small])
+        small_s = time.perf_counter() - ts
+        cli_launches = expect_launches("cli hero", counts,
+                                       dict(atrous=5, reproject=1),
+                                       CLI_HERO["iterations"])
+        pngs = [f for f in os.listdir(out_small) if f.endswith(".png")]
+        if rc_s != 0 or len(pngs) != 1 or not pngs[0].startswith("hero."):
+            raise RuntimeError(f"cli hero: exit {rc_s}, images {pngs}")
+        img = read_png(os.path.join(out_small, pngs[0]))[..., :3]
+        img = img.astype(np.float32) / 255.0
+        golden = np.load(os.path.join(REPO, *GOLDEN_HERO))["image"]
+        g_close = float(np.isclose(img, golden, atol=2 / 255.0).mean())
+        g_mean = abs(float(img.mean()) / float(golden.mean()) - 1.0)
+        if not (img.shape == golden.shape and g_close > 0.97
+                and g_mean <= 0.02):
+            raise RuntimeError(f"cli hero vs {GOLDEN_HERO[1]}: close "
+                               f"{g_close}, mean rel {g_mean}")
+        out_full = os.path.join(tmp, "full")
+        tt = time.perf_counter()
+        rc_f, full_ms, text = cli_run(
+            [full] + flags + ["--iterations", str(CLI_TIMED_ITERS),
+                              "--out-dir", out_full])
+        full_s = time.perf_counter() - tt
+        if rc_f != 0 or not [f for f in os.listdir(out_full)
+                             if f.endswith(".png")]:
+            raise RuntimeError(f"cli hero at 960x540: exit {rc_f}\n{text}")
+    phase("cli_hero", t0, golden_close=f"{g_close:.6f}",
+          golden_mean_rel=f"{g_mean:.3g}", small_s=f"{small_s:.1f}",
+          launches=nonzero(cli_launches), full_ms_per_frame=f"{full_ms:.1f}",
+          full_s=f"{full_s:.1f}")
+
 
 
 def main() -> int:
@@ -2881,8 +3135,10 @@ def main() -> int:
     del bscene
     treelet_kernels = treelet_phases(scene, cam, dev, frame_ms)
     sweepvar_kernels = sweepvar_phases(scene, cam, dev, bench_frame_ms)
-    del scene, pack, rc, kernel_rc, plain_rc
-    hero_phases(dev)
+    del pack, rc, kernel_rc, plain_rc
+    hero_host, hero = hero_phases(dev)
+    xla_phases(host, scene, hero_host, hero, dev)
+    del scene, hero
 
     source = "tpt_torch/csrc/packet_wide.cu"
     kernels = [

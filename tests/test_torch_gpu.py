@@ -1260,3 +1260,83 @@ def test_hero_sweep_frame_on_card(hero, cuda):
     ref = wavefront.render(data, host.camera, _hero_cfg(), iterations=1)
     assert np.isclose(img, ref, atol=5e-3, rtol=1e-3).mean() > 0.97
     np.testing.assert_allclose(img.mean(), ref.mean(), rtol=0.02)
+
+
+# ---- the LBVH builder, BVH_XLA and the CLI on the card -----------------
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
+def test_lbvh_on_card_equals_cpu_build(cuda):
+    """The LBVH built on the card equals the CPU build of the same mesh,
+    every array bit for bit, and validates."""
+    from tpt_torch.bvh.build import build_lbvh
+    from tpt_torch.bvh.validate import validate_lbvh
+
+    host = procedural.fireplace_like(num_triangles=20_000, resolution=(16, 16))
+    got = build_lbvh(host.build(device=cuda).mesh)
+    want = build_lbvh(host.build(device="cpu").mesh)
+    assert got.device.type == "cuda"
+    g, w = got.numpy(), want.numpy()
+    assert g.pop("num_triangles") == w.pop("num_triangles") == \
+        host.mesh.num_triangles
+    for k in w:
+        np.testing.assert_array_equal(_bits(g[k]), _bits(w[k]), err_msg=k)
+    assert validate_lbvh(got).ok
+
+
+@pytest.mark.parametrize("builder", ["sah", "lbvh"])
+def test_bvh_xla_on_card_equals_cpu(cuda, builder):
+    """BVH_XLA's closest hit, any hit and traversal cost on the card
+    against the port's CPU walk on the same rays and tree, bit for bit:
+    the walk is separate float32 operations, each exactly rounded."""
+    from tpt_torch.bvh import traverse
+
+    host = procedural.cornell_box(resolution=(16, 16))
+    gpu = host.build(with_bvh=True, bvh_builder=builder, device=cuda)
+    cpu = host.build(with_bvh=True, bvh_builder=builder, device="cpu")
+    rays = [_rays(8192, [0, 0, 0], [556, 548, 560], 21, dev)
+            for dev in (cuda, "cpu")]
+    t_max = torch.rand(8192, generator=torch.Generator().manual_seed(3)) * 600
+    out = []
+    for data, (o, d) in zip((gpu, cpu), rays):
+        hit, cap = traverse.bvh_closest_hit(data.mesh, data.bvh, o, d)
+        occ, _ = traverse.bvh_any_hit(data.mesh, data.bvh, o, d,
+                                      t_max.to(o.device))
+        cost = traverse.traversal_cost(data.mesh, data.bvh, o, d)
+        out.append([x.cpu().numpy() for x in (hit.t, hit.tri, hit.u, hit.v,
+                                             occ, cost)] + [int(cap)])
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(_bits(np.asarray(a)),
+                                      _bits(np.asarray(b)))
+    assert out[0][-1] == 0
+
+
+def test_cli_hero_on_card_matches_golden(cuda, tmp_path):
+    """tpt_torch.cli on the card at tests/test_hero.py's settings against
+    tests/golden_hero_120x68.npz, at that test's tolerance."""
+    import json
+    import os
+
+    from tpt_torch.cli import main
+    from tpt_torch.io.image import read_png
+    from tpt_torch.scene import hero_assets
+
+    path = hero_assets.write_hero_assets(str(tmp_path))
+    with open(path) as f:
+        doc = json.load(f)
+    doc["Camera"].update(RES=[120, 68], ITERATIONS=3, DEPTH=4)
+    small = tmp_path / "hero_small.json"
+    small.write_text(json.dumps(doc))
+    before = dict(stencil.LAUNCHES)
+    rc = main([str(small), "-wave", "--backend", "bvh", "--denoise",
+               "--env-nee", "--out-dir", str(tmp_path / "out")])
+    assert rc == 0
+    assert stencil.LAUNCHES["atrous"] == before["atrous"] + 15
+    (png,) = [f for f in os.listdir(tmp_path / "out") if f.endswith(".png")]
+    img = read_png(str(tmp_path / "out" / png))[..., :3] / np.float32(255.0)
+    golden = np.load(os.path.join(os.path.dirname(__file__),
+                                  "golden_hero_120x68.npz"))["image"]
+    assert np.isclose(img, golden, atol=2 / 255.0).mean() > 0.97
+    np.testing.assert_allclose(img.mean(), golden.mean(), rtol=0.02)

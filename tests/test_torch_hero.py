@@ -336,15 +336,15 @@ def test_nearfield_matches_tpt(stored, monkeypatch):
 
 def test_former_refusals_are_admitted():
     """_unsupported no longer refuses the three options (they render
-    above); the options the port lacks still raise."""
+    above), nor BVH_XLA (tests/test_torch_bvhxla.py)."""
     for backend in (RayCastBackend.BVH_PALLAS, RayCastBackend.BVH_SWEEP,
                     RayCastBackend.BVH_TREELET):
         base = RenderConfig(backend=backend)
         for knobs in (dict(nearfield_frac=0.5), dict(heavy_shading_iters=2),
                       dict(debug_no_shadow=True)):
             assert wavefront._unsupported(base.with_(**knobs)) is None
-    assert "BVH_XLA" in wavefront._unsupported(
-        RenderConfig(backend=RayCastBackend.BVH_XLA))
+    assert wavefront._unsupported(
+        RenderConfig(backend=RayCastBackend.BVH_XLA)) is None
 
 
 def tpt_outputs() -> dict:

@@ -171,10 +171,10 @@ def test_unported_options_raise(small):
     s, data = small
     sweep = RayCastBackend.BVH_SWEEP
     # nearfield_frac, heavy_shading_iters and debug_no_shadow render now
-    # (tests/test_torch_hero.py)
+    # (tests/test_torch_hero.py), and so does BVH_XLA
+    # (tests/test_torch_bvhxla.py)
     for cfg in (RenderConfig(backend=sweep, sweep_kernel="warp"),
                 RenderConfig(backend=sweep, sweep_slots=9),
-                RenderConfig(backend=RayCastBackend.BVH_XLA),
                 RenderConfig(backend=RayCastBackend.BVH_PALLAS, trav_group=8),
                 RenderConfig(backend=RayCastBackend.BVH_PALLAS,
                              trav_cluster_pops=2),

@@ -76,8 +76,16 @@ def scene_leaves(data) -> dict:
     env = {k: g(getattr(ev, k)) for k in ("r", "g", "b", "pdf", "alias",
                                           "prob")}
     env["enabled"] = ev.enabled
+    bvh = None
+    if getattr(data, "bvh", None) is not None:
+        b = data.bvh
+        bvh = {k: g(getattr(b, k)) for k in ("left", "right", "parent",
+                                             "escape", "prim_index")}
+        bvh.update(aabb_min=np3(b.aabb_min), aabb_max=np3(b.aabb_max),
+                   num_triangles=b.num_triangles)
     return dict(mesh=mesh, material_rows=g(data.materials.packed),
-                lights=lights, pack=pack, sweep=sweep, atlas=atlas, env=env)
+                lights=lights, pack=pack, sweep=sweep, atlas=atlas, env=env,
+                bvh=bvh)
 
 
 def random_rays(n, lo, hi, seed):

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..scene.mesh import HostMesh
-from .sah import BinaryBVH
+from ..scene.structs import LBVHData
 
 
 @dataclass(frozen=True)
@@ -69,13 +69,15 @@ def decode_cluster(code):
     return v // 256, v % 256
 
 
-def _binary_tables(mesh: HostMesh, bvh: BinaryBVH, k: int):
-    """numpy (node_f32 [Nt,16], node_child [Nt,2], tri_f32, n leaves)."""
-    left = bvh.left
-    right = bvh.right
-    prim = bvh.prim_index
-    amin = bvh.aabb_min
-    amax = bvh.aabb_max
+def _binary_tables(mesh: HostMesh, bvh: LBVHData, k: int):
+    """numpy (node_f32 [Nt,16], node_child [Nt,2], tri_f32, n leaves),
+    from the host copies of the BVH's arrays."""
+    h = bvh.numpy()
+    left = h["left"]
+    right = h["right"]
+    prim = h["prim_index"]
+    amin = h["aabb_min"]
+    amax = h["aabb_max"]
     total = left.shape[0]
     n = (total + 1) // 2          # leaves
     num_internal = n - 1
@@ -161,7 +163,7 @@ def _binary_tables(mesh: HostMesh, bvh: BinaryBVH, k: int):
     return nodes_f32, node_child, tri_f32, n
 
 
-def build_packet_bvh(mesh: HostMesh, bvh: BinaryBVH, max_cluster: int = 8
+def build_packet_bvh(mesh: HostMesh, bvh: LBVHData, max_cluster: int = 8
                      ) -> PacketBVH:
     """Binary (arity-2) packet pack, CPU tensors."""
     nodes_f32, node_child, tri_f32, n = _binary_tables(mesh, bvh, max_cluster)
@@ -176,7 +178,7 @@ def build_packet_bvh(mesh: HostMesh, bvh: BinaryBVH, max_cluster: int = 8
     )
 
 
-def build_packet_bvh_wide(mesh: HostMesh, bvh: BinaryBVH,
+def build_packet_bvh_wide(mesh: HostMesh, bvh: LBVHData,
                           max_cluster: int = 16, arity: int = 4
                           ) -> PacketBVH:
     """Collapse the binary top tree into an `arity`-wide pack with

@@ -10,10 +10,12 @@ real-time mode: one wavefront frame from zeroed accumulators, then
 `svgf.run_svgf` (K6 reprojection and 5 K5 a-trous passes on the card).
 In RenderMode.MEGAKERNEL a frame adds one megakernel sample of every
 pixel to `acc_mega` and shows its mean, as tpt's engine does (which
-neither denoises nor selects a display channel in that mode). Not ported
-yet, each raising NotImplementedError: DisplayMode.BVH_HEATMAP, which
-needs BVH_XLA's traversal_cost (ROADMAP queue 1 item 6), and the options
-`wavefront._unsupported` refuses (item 6), in either mode.
+neither denoises nor selects a display channel in that mode).
+DisplayMode.BVH_HEATMAP shows `bvh_heatmap`, the traversal cost of the
+camera rays on the scene's binary BVH (BVH_XLA's `traversal_cost`),
+computed on the device and colored on the host, as tpt's. The options
+`wavefront._unsupported` refuses raise NotImplementedError in either
+mode.
 """
 
 from __future__ import annotations
@@ -30,10 +32,6 @@ from .core.vec import Vec3
 from .denoise import svgf
 from .integrators import common, megakernel, wavefront
 from .scene.structs import SceneData
-
-_HEATMAP = ("DisplayMode.BVH_HEATMAP needs traversal_cost of the BVH_XLA "
-            "backend, not ported yet (ROADMAP queue 1 item 6)")
-
 
 @dataclass
 class GuiData:
@@ -148,9 +146,6 @@ class Renderer:
         # counts samples, so seeds never overlap across frames and the
         # accumulator normalization is exact
         step = 1 if self.mega else max(1, self.cfg.spp_batch)
-        if not self.mega and not self.gui.denoiser_on \
-                and self.gui.display_mode == DisplayMode.BVH_HEATMAP:
-            raise NotImplementedError(_HEATMAP)
         self._ensure_state()
         it = self.iteration + 1
         self.iteration += step
@@ -163,7 +158,9 @@ class Renderer:
             rays = self.cam.num_pixels * self.cfg.trace_depth
         else:
             img_dev, rays = self._wavefront_frame(it)
-        if self.display_u8 and img_dev.dtype != torch.uint8:
+        # the heatmap comes back as host numpy and stays float
+        if (self.display_u8 and isinstance(img_dev, torch.Tensor)
+                and img_dev.dtype != torch.uint8):
             img_dev = self._u8(img_dev)
 
         if self.pipeline:
@@ -173,7 +170,8 @@ class Renderer:
             self._pending = (img_dev, rays, (h, w))
             if prev is not None:
                 img_dev, rays, (h, w) = prev
-        img = img_dev.cpu().numpy()
+        img = (img_dev if isinstance(img_dev, np.ndarray)
+               else img_dev.cpu().numpy())
         if not self.pipeline and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -205,7 +203,26 @@ class Renderer:
         return self._display_device(out), rays
 
     def bvh_heatmap(self) -> np.ndarray:
-        raise NotImplementedError(_HEATMAP)
+        """Traversal-cost temperature map of the camera rays (the
+        reference's BVH debug view): each pixel's escape-link walk steps
+        on the scene's BVH, scaled by the 98th percentile and put on a
+        blue-green-red ramp, [H, W, 3] float32. Needs a scene built with
+        a BVH."""
+        from .bvh.traverse import traversal_cost
+        from .core.camera import generate_camera_rays
+
+        if self.scene.bvh is None:
+            raise ValueError("bvh_heatmap requires a scene built with_bvh=True")
+        h, w = self._shape
+        ori, d, _ = generate_camera_rays(self.cam, 1, jitter=False,
+                                         device=self.device)
+        cost = traversal_cost(self.scene.mesh, self.scene.bvh, ori, d)
+        cost = cost.cpu().numpy().reshape(h, w)
+        t = np.clip(cost / max(1.0, float(np.percentile(cost, 98))), 0.0, 1.0)
+        r = np.clip(2.0 * t - 1.0, 0, 1)
+        g = 1.0 - np.abs(2.0 * t - 1.0)
+        b = np.clip(1.0 - 2.0 * t, 0, 1)
+        return np.stack([r, g, b], axis=-1).astype(np.float32)
 
     def save_checkpoint(self, path: str):
         """Snapshot the render state (accumulators, SVGF history,
@@ -251,9 +268,11 @@ class Renderer:
 
     def _display_device(self, out: wavefront.FrameOutput) -> torch.Tensor:
         """Display-channel selection (the reference's
-        pathtrace_wavefront.cu:82-109), on the device; frame() refuses
-        BVH_HEATMAP before tracing."""
+        pathtrace_wavefront.cu:82-109), on the device; the heatmap is
+        colored on the host and comes back as numpy."""
         mode = self.gui.display_mode
+        if mode == DisplayMode.BVH_HEATMAP:
+            return self.bvh_heatmap()
         g = out.gbuf
         if mode == DisplayMode.NORMAL:
             return (g.normal * 0.5 + 0.5).stacked()

@@ -1,8 +1,8 @@
 """Shared integrator machinery: the ray-cast backend seam, the hit-surface
 fetch (UV interpolation, normal mapping, texture application), the
 synthetic shading load, Russian roulette and environment NEE.
-Counterpart of `tpt/integrators/common.py` for the BRUTE_FORCE,
-BVH_PALLAS, BVH_TREELET and BVH_SWEEP backends."""
+Counterpart of `tpt/integrators/common.py` for every backend:
+BRUTE_FORCE, BVH_XLA, BVH_PALLAS, BVH_TREELET and BVH_SWEEP."""
 
 from __future__ import annotations
 
@@ -42,10 +42,12 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
     that both count into one `capped`. Under BVH_SWEEP a primary cast is
     K2 (unless cfg.sweep_primary) and any other cast without
     `sweep_slots` is the unsorted sweep_cast; under BVH_TREELET
-    `primary` picks the camera rays' packets."""
+    `primary` picks the camera rays' packets. BVH_XLA on a scene built
+    without a BVH casts by brute force, as tpt's make_raycaster does."""
     dev = scene.device
     capped = torch.zeros((), dtype=torch.int32, device=dev)
-    if cfg.backend == RayCastBackend.BRUTE_FORCE:
+    if cfg.backend == RayCastBackend.BRUTE_FORCE or (
+            cfg.backend == RayCastBackend.BVH_XLA and scene.bvh is None):
         return Raycaster(
             closest_hit=lambda o, d, t_max=None: brute_force_closest_hit(
                 scene.mesh, o, d, t_max),
@@ -186,9 +188,26 @@ def make_raycaster(scene: SceneData, cfg: RenderConfig) -> Raycaster:
 
         return Raycaster(closest_hit=closest, any_hit=any_hit,
                          name="bvh_sweep", capped=capped)
-    raise NotImplementedError(
-        f"backend {cfg.backend.name} is not ported yet "
-        "(BRUTE_FORCE, BVH_PALLAS, BVH_TREELET, BVH_SWEEP)")
+    if cfg.backend == RayCastBackend.BVH_XLA:
+        from ..bvh import traverse
+
+        tables = traverse.walk_tables(scene.mesh, scene.bvh)
+
+        def closest(o, d, t_max=None):
+            hit, c = traverse.bvh_closest_hit(
+                scene.mesh, scene.bvh, o, d, t_max,
+                stack_depth=cfg.bvh_stack_depth, tables=tables)
+            capped.add_(c)
+            return hit
+
+        def any_hit(o, d, t_max):
+            occ, _ = traverse.bvh_any_hit(scene.mesh, scene.bvh, o, d, t_max,
+                                          tables=tables)
+            return occ
+
+        return Raycaster(closest_hit=closest, any_hit=any_hit,
+                         name="bvh_xla", capped=capped)
+    raise ValueError(f"unknown backend {cfg.backend!r}")
 
 
 def interpolate_surface(mesh: MeshData, tri: torch.Tensor, bu: torch.Tensor,

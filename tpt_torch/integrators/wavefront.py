@@ -133,10 +133,6 @@ _TPU_KNOBS = tuple(f.name for f in fields(RenderConfig)
 
 def _unsupported(cfg: RenderConfig) -> Optional[str]:
     """The RenderConfig options the port does not implement."""
-    if cfg.backend not in (RayCastBackend.BRUTE_FORCE, RayCastBackend.BVH_PALLAS,
-                           RayCastBackend.BVH_TREELET,
-                           RayCastBackend.BVH_SWEEP):
-        return f"backend {cfg.backend.name}"
     default = RenderConfig()
     for name in _TPU_KNOBS:
         if getattr(cfg, name) != getattr(default, name):

@@ -2,8 +2,9 @@
 
 `from_numpy_scene` builds the port's `SceneData` from the numpy leaves of
 a scene the JAX package built (mesh, material rows, light table, the
-texture atlas, the environment map, the packet-BVH tables — wide with
-their treelet top tree, or binary — and the dense-sweep tables), so
+texture atlas, the environment map, the binary BVH of BVH_XLA, the
+packet-BVH tables — wide with their treelet top tree, or binary — and
+the dense-sweep tables), so
 tests can hand both packages the very same tables. It takes plain arrays under the JAX package's field names, never
 objects of that package, and imports nothing of it."""
 
@@ -18,7 +19,9 @@ from ..bvh.pack import PacketBVH
 from ..device import DeviceLike, resolve_device
 from .mesh import mesh_from_arrays
 from .envmap import envmap_from_arrays
-from .structs import EnvMap, LightData, MaterialTable, SceneData, TextureAtlas
+from ..core.vec import Vec3
+from .structs import (EnvMap, LBVHData, LightData, MaterialTable, SceneData,
+                      TextureAtlas)
 from .texture import atlas_from_arrays
 
 MESH_KEYS = ("positions", "normals", "tangents", "uv_u", "uv_v", "i0", "i1",
@@ -32,6 +35,8 @@ TOP_KEYS = ("top_f32", "top_child", "top_tref", "top_tord", "num_top",
             "num_treelets", "treelet_max")
 ATLAS_KEYS = ("r", "g", "b", "a", "x0", "y0", "width", "height")
 ENV_KEYS = ("r", "g", "b", "pdf", "alias", "prob", "enabled")
+BVH_KEYS = ("aabb_min", "aabb_max", "left", "right", "parent", "escape",
+            "prim_index", "num_triangles")
 SWEEP_KEYS = ("tri_f32", "ranges", "boxes", "group_boxes", "num_treelets",
               "max_chunks", "unroll", "chunk_align")
 
@@ -49,6 +54,7 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
                      sweep: Optional[Mapping] = None,
                      atlas: Optional[Mapping] = None,
                      env: Optional[Mapping] = None,
+                     bvh: Optional[Mapping] = None,
                      device: DeviceLike = None) -> SceneData:
     """SceneData on `device` from numpy arrays.
 
@@ -63,7 +69,9 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
     atlas: ATLAS_KEYS of the texture atlas (planes [AH, AW], placements
     [Ntex]), or None for the empty atlas;
     env: ENV_KEYS of the environment map (planes [H, W], alias and prob
-    [H*W]), or None for no environment."""
+    [H*W]), or None for no environment;
+    bvh: BVH_KEYS of the binary BVH (bounds [2T-1, 3], the int arrays
+    [2T-1]), or None for none."""
     dev = resolve_device(device)
     _need(mesh, MESH_KEYS, "mesh")
     _need(lights, LIGHT_KEYS, "light")
@@ -137,5 +145,16 @@ def from_numpy_scene(mesh: Mapping[str, np.ndarray],
         env_map = envmap_from_arrays(
             env["r"], env["g"], env["b"], env["pdf"], env["alias"],
             env["prob"], device=dev, enabled=bool(env["enabled"]))
+    tree = None
+    if bvh is not None:
+        _need(bvh, BVH_KEYS, "bvh")
+        tree = LBVHData(
+            aabb_min=Vec3.from_stacked(f32(bvh["aabb_min"])),
+            aabb_max=Vec3.from_stacked(f32(bvh["aabb_max"])),
+            left=i32(bvh["left"]), right=i32(bvh["right"]),
+            parent=i32(bvh["parent"]), escape=i32(bvh["escape"]),
+            prim_index=i32(bvh["prim_index"]),
+            num_triangles=int(bvh["num_triangles"]))
     return SceneData(mesh=mesh_data, materials=table, lights=light_data,
-                     atlas=tex, env=env_map, pack=packet, sweep=tables)
+                     atlas=tex, env=env_map, bvh=tree, pack=packet,
+                     sweep=tables)

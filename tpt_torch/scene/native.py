@@ -63,6 +63,15 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the native library builds and loads here."""
+    try:
+        _load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def build_sah_native(v012: np.ndarray):
     """Binned-SAH BVH build. v012: [T, 9] float32 triangle corners.
     Returns (left, right, parent, prim_index, aabb_min [N,3], aabb_max)

@@ -172,6 +172,38 @@ class EnvMap:
 
 
 @dataclass(frozen=True)
+class LBVHData:
+    """Binary BVH arrays (the LBVH builder's, `bvh.build`, or the native
+    SAH builder's, `bvh.sah`), as tpt's: internal nodes [0, T-2] with the
+    root at 0, single-triangle leaves [T-1, 2T-2]; every array has 2T-1
+    entries."""
+
+    aabb_min: Vec3            # [2T-1] node bounds
+    aabb_max: Vec3
+    left: torch.Tensor        # [2T-1] int32 child node id (-1 for a leaf)
+    right: torch.Tensor
+    parent: torch.Tensor      # -1 for the root
+    escape: torch.Tensor      # stackless escape link (-1 = done)
+    prim_index: torch.Tensor  # leaf -> triangle id; -1 on internal nodes
+    num_triangles: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.left.device
+
+    def numpy(self) -> dict:
+        """Host copies: the int arrays as int32, the bounds as [2T-1, 3]
+        float32 (what the packet pack and the validator read)."""
+        n = lambda a: a.cpu().numpy()
+        return dict(left=n(self.left), right=n(self.right),
+                    parent=n(self.parent), escape=n(self.escape),
+                    prim_index=n(self.prim_index),
+                    aabb_min=n(self.aabb_min.stacked()),
+                    aabb_max=n(self.aabb_max.stacked()),
+                    num_triangles=self.num_triangles)
+
+
+@dataclass(frozen=True)
 class SceneData:
     """Everything the integrators need."""
 
@@ -180,6 +212,7 @@ class SceneData:
     lights: LightData
     atlas: TextureAtlas
     env: EnvMap
+    bvh: Optional[LBVHData] = None   # BVH_XLA, the heatmap
     pack: Optional["object"] = None  # bvh.pack.PacketBVH, BVH_PALLAS
     sweep: Optional["object"] = None  # bvh.treelet.SweepTables, BVH_SWEEP
 
