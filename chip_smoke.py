@@ -2006,6 +2006,34 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
     k10_b, k10_by, need10 = k10_bound(ori, d, easy_tmax, True)
     k10s_b, k10s_by, _ = k10_bound(sub_o, sub_d, sub_t, True)
     k10p_b, k10p_by, need0 = k10_bound(cam_o, cam_d, t_all, False)
+    # the packet-semantics need: the tests tpt's packets make (each lane
+    # tests every cluster its packet drains), the kernel's own counts
+    sts = torch.zeros(6, dtype=torch.int64, device=dev)
+    tlt.treelet_closest_hit(pack, sub_o, sub_d, sub_t, group=cfg.trav_group,
+                            seed=s_seed, stats=sts, **knobs)
+
+    def packet_bound(n_, st_, seeded: bool) -> tuple:
+        return sweep_bound(n_, 28 + (12 if seeded else 0), 16,
+                           wide_bytes + top_bytes,
+                           OPS_PER_SLAB * int(st_[1])
+                           + OPS_PER_TRI * int(st_[2]))
+
+    k10_pb, _ = packet_bound(n, st10, True)
+    k10s_pb, _ = packet_bound(idx.numel(), sts, True)
+    k10p_pb, _ = packet_bound(cam_o.x.shape[0], st0, False)
+    npk_s = TREELET_SEEDED_PACKETS
+    attrs = {"K9": tlt.kernel_attributes(9, cfg.trav_group),
+             "K10": tlt.kernel_attributes(10, cfg.trav_group,
+                                          cfg.treelet_slots),
+             "K10 camera": tlt.kernel_attributes(10, cfg.trav_group_primary,
+                                                 cfg.treelet_slots),
+             "K11": tlt.kernel_attributes(11, cfg.trav_group,
+                                          cfg.treelet_slots)}
+    for k, a in attrs.items():
+        print(f"  {k}: {a['regs']} registers a thread, {a['local_bytes']} "
+              f"local bytes, {a['shared_bytes']} static + "
+              f"{a['dynamic_shared_bytes']} dynamic shared bytes, "
+              f"{a['threads']} threads a block at most")
     npk = -(-n // lanes)
     npk0 = -(-cam_o.x.shape[0] // lanes0)
     hard_share = float(hard.sum()) / max(1, n_live)
@@ -2016,27 +2044,36 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
     print(f"  K10 seeded bounce 1: {k10_ms:.3f} ms "
           f"({mr(k10_ms, n_live):.2f} M live rays/s), bound {k10_b:.3f} ms "
           f"({k10_by}) from the per-ray walk's {int(need10[1])} slab and "
-          f"{int(need10[2])} tri tests; work done: drains {int(st10[3])} "
-          f"over {npk} packets (mean {int(st10[3]) / npk:.2f}, max "
-          f"{int(st10[5])}), scan rounds {int(st10[4])}, node pops "
+          f"{int(need10[2])} tri tests, packet-semantics bound "
+          f"{k10_pb:.3f} ms from its own tests; work done: drains "
+          f"{int(st10[3])} over {npk} packets (mean {int(st10[3]) / npk:.2f}, "
+          f"max {int(st10[5])}), scan rounds {int(st10[4])}, node pops "
           f"{int(st10[0])}, slab tests {int(st10[1])}, tri tests "
           f"{int(st10[2])} ({int(st10[2]) / max(1, int(need10[2])):.1f}x "
           f"the per-ray walk's); on the {TREELET_SEEDED_PACKETS} packets "
           f"held against plain ({idx.numel()} lanes): kernel "
           f"{k10s_ms:.3f} ms, plain {k10_plain_ms:.1f} ms, bound "
-          f"{k10s_b:.3f} ms ({k10s_by})")
+          f"{k10s_b:.3f} ms ({k10s_by}), packet-semantics bound "
+          f"{k10s_pb:.3f} ms; drains {int(sts[3])} (mean "
+          f"{int(sts[3]) / npk_s:.2f}, max {int(sts[5])}), slab tests "
+          f"{int(sts[1])}, tri tests {int(sts[2])}")
     print(f"  K10 unseeded camera rays: {k10p_ms:.3f} ms "
           f"({mr(k10p_ms, cam_o.x.shape[0]):.2f} Mrays/s), bound "
           f"{k10p_b:.3f} ms ({k10p_by}) from the per-ray walk's "
-          f"{int(need0[2])} tri tests; work done: drains {int(st0[3])} over "
+          f"{int(need0[2])} tri tests, packet-semantics bound "
+          f"{k10p_pb:.3f} ms; work done: drains {int(st0[3])} over "
           f"{npk0} packets (mean {int(st0[3]) / npk0:.2f}, max "
-          f"{int(st0[5])}), tri tests {int(st0[2])}")
+          f"{int(st0[5])}), slab tests {int(st0[1])}, tri tests "
+          f"{int(st0[2])}")
     print(f"  bounce 1: {n_live} live lanes, hard {100 * hard_share:.2f}% "
           f"(K2 on them: {k2h_ms:.3f} ms; K2 on every live lane: "
           f"{k2f_ms:.3f} ms), with a K9 seed {100 * seeded_share:.2f}%")
     phase("treelet_kernels", t0, lanes=n, k9_ms=f"{k9_ms:.3f}",
           k10_ms=f"{k10_ms:.3f}", k10_bound_ms=f"{k10_b:.3f}",
-          k10_primary_ms=f"{k10p_ms:.3f}",
+          k10_packet_bound_ms=f"{k10_pb:.3f}",
+          k10_128_ms=f"{k10s_ms:.3f}", k10_primary_ms=f"{k10p_ms:.3f}",
+          k10_primary_packet_bound_ms=f"{k10p_pb:.3f}",
+          k10_regs=attrs["K10"]["regs"], k9_regs=attrs["K9"]["regs"],
           mean_drains=f"{int(st10[3]) / npk:.2f}", max_drains=int(st10[5]),
           hard_pct=f"{100 * hard_share:.2f}",
           seeded_pct=f"{100 * seeded_share:.2f}")
@@ -2150,13 +2187,21 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
              replaces="tpt/bvh/pallas_treelet.py:522",
              launches=launches["treelet_scan"], max_abs_err=k9_err,
              ms=k9_ms, plain_ms=k9_plain_ms, bound_ms=k9_bound,
-             bound_by=k9_by, library_ms=None, lanes=n),
+             bound_by=k9_by, library_ms=None, lanes=n,
+             regs=attrs["K9"]["regs"],
+             shared_bytes=attrs["K9"]["shared_bytes"]),
         dict(name="treelet_closest_hit", route="cuda",
              source="tpt_torch/csrc/treelet.cu",
              replaces="tpt/bvh/pallas_treelet.py:570",
              launches=launches["treelet_closest_hit"], max_abs_err=k10_err,
              ms=k10s_ms, plain_ms=k10_plain_ms, bound_ms=k10s_b,
-             bound_by=k10s_by, library_ms=None, lanes=int(idx.numel())),
+             bound_by=k10s_by, library_ms=None, lanes=int(idx.numel()),
+             packet_bound_ms=k10s_pb, whole_pool_ms=k10_ms,
+             whole_pool_bound_ms=k10_b, whole_pool_packet_bound_ms=k10_pb,
+             mean_drains=int(sts[3]) / npk_s, max_drains=int(sts[5]),
+             regs=attrs["K10"]["regs"],
+             shared_bytes=attrs["K10"]["shared_bytes"]
+             + attrs["K10"]["dynamic_shared_bytes"]),
     ]
 
 

@@ -1,16 +1,21 @@
 // A stand-in for <cuda_runtime.h> that lets the port's CUDA sources
 // (tpt_torch/csrc/*.cu) compile with a host C++20 compiler and run on the
 // CPU, so a test can hold a kernel's own source against the plain PyTorch
-// version without a card (tests/test_torch_csrc_emu.py).
+// version without a card (tests/test_torch_csrc_emu.py,
+// tests/test_torch_csrc_emu_treelet.py).
 //
 // A launch runs its blocks one after another. The threads of a block are
-// fibers (ucontext) on the calling thread, run one at a time: a thread
-// runs until it waits on a barrier, then the next runnable one runs, so
-// no OS thread is created and a loaded machine does not slow the
-// barriers down. __shared__ variables become function-local statics,
-// which the threads of the running block share. __syncthreads is a
-// barrier over the block. The warp intrinsics (shuffles, votes,
-// reductions) exchange values through a per-block array between two
+// fibers on the calling thread (started with ucontext, then switched with
+// _setjmp/_longjmp, which skip swapcontext's signal-mask system calls),
+// run one at a time: a thread runs until it waits on a barrier, then the
+// next runnable one runs, so no OS thread is created and a loaded machine
+// does not slow the barriers down. __shared__ variables become
+// function-local statics, which the threads of the running block share.
+// __syncthreads is a barrier over the block, and __syncthreads_or/_count
+// block-wide votes through the same per-thread exchange words. Dynamic
+// shared memory (DYNAMIC_SHARED, which a source uses in place of its
+// extern __shared__ array) is one static buffer of a block's largest
+// size. The warp intrinsics (shuffles, votes, reductions) exchange values through a per-block array between two
 // waits on a barrier of the threads named in the mask (one barrier per
 // warp and mask), so every thread of the mask must call them, as CUDA
 // requires. __ldg is a plain load. Inline PTX sits under __CUDA_ARCH__ in
@@ -28,6 +33,7 @@
 #include <stdlib.h>
 #include <string.h>
 
+#include <setjmp.h>
 #include <ucontext.h>
 
 #include <algorithm>
@@ -44,10 +50,13 @@
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
+#define DYNAMIC_SHARED (emu::dynamic_shared())
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
@@ -67,6 +76,10 @@ inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T) {
   *a = cudaFuncAttributes{};
   return cudaSuccess;
 }
+template <class T>
+inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
@@ -81,6 +94,11 @@ inline float __int_as_float(int v) {
   memcpy(&f, &v, 4);
   return f;
 }
+inline int __float_as_int(float v) {
+  int i;
+  memcpy(&i, &v, 4);
+  return i;
+}
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 
@@ -92,9 +110,10 @@ struct Barrier {
 };
 
 struct Fiber {
-  ucontext_t ctx;
+  ucontext_t ctx;   // the fiber's first entry
+  jmp_buf jb;       // where it waits
   std::unique_ptr<char[]> stack;
-  bool done = false;
+  bool started = false, done = false;
   const Barrier* wait = nullptr;  // the barrier it waits on, if any
   unsigned long long wait_gen = 0;
 };
@@ -107,11 +126,18 @@ struct Block {
   std::map<std::pair<int, unsigned>, Barrier> masks;
   std::vector<unsigned long long> slot;  // one exchange word a thread
   ucontext_t sched;
+  jmp_buf sched_jb;  // the scheduler, between two fibers' turns
   int cur = 0;
   std::function<void()> body;
 };
 
 inline Block* current = nullptr;  // the block that runs now
+
+// a block's dynamic shared memory (CUDA's most: 227 KB)
+inline unsigned char* dynamic_shared() {
+  alignas(16) static unsigned char buf[232448];
+  return buf;
+}
 
 inline int lane() { return (int)(threadIdx.x & 31); }
 
@@ -126,7 +152,8 @@ inline void wait(Barrier& b) {
   Fiber& f = current->fibers[current->cur];
   f.wait = &b;
   f.wait_gen = g;
-  swapcontext(&f.ctx, &current->sched);
+  // _setjmp/_longjmp switch without swapcontext's signal-mask syscalls
+  if (!_setjmp(f.jb)) _longjmp(current->sched_jb, 1);
   f.wait = nullptr;
 }
 
@@ -176,6 +203,7 @@ inline T gather(unsigned mask, T v, F f) {
 inline void fiber_main() {
   current->body();
   current->fibers[current->cur].done = true;
+  _longjmp(current->sched_jb, 1);
 }
 
 }  // namespace emu
@@ -201,10 +229,30 @@ inline unsigned __reduce_or_sync(unsigned mask, unsigned v) {
     return a | b;
   });
 }
+inline unsigned __reduce_min_sync(unsigned mask, unsigned v) {
+  return emu::gather(mask, v, [](unsigned a, unsigned b, int) {
+    return a < b ? a : b;
+  });
+}
 inline int __reduce_add_sync(unsigned mask, int v) {
   return emu::gather(mask, v, [](int a, int b, int) { return a + b; });
 }
 inline void __syncthreads() { emu::wait(emu::current->all); }
+
+namespace emu {
+// every thread of the block posts `p`; returns the count of non-zero ones
+inline int block_count(int p) {
+  current->slot[threadIdx.x] = p != 0;
+  wait(current->all);
+  int n = 0;
+  for (unsigned long long w : current->slot) n += (int)w;
+  wait(current->all);
+  return n;
+}
+}  // namespace emu
+
+inline int __syncthreads_count(int p) { return emu::block_count(p); }
+inline int __syncthreads_or(int p) { return emu::block_count(p) != 0; }
 
 // one thread runs at a time, so atomics are plain read-modify-writes
 inline int atomicAdd(int* p, int v) {
@@ -216,6 +264,23 @@ inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   const unsigned long long old = *p;
   *p += v;
+  return old;
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p |= v;
+  return old;
+}
+template <class T>
+inline T atomicMin(T* p, T v) {
+  const T old = *p;
+  *p = v < old ? v : old;
+  return old;
+}
+template <class T>
+inline T atomicMax(T* p, T v) {
+  const T old = *p;
+  *p = v > old ? v : old;
   return old;
 }
 
@@ -253,7 +318,14 @@ inline void emu_launch(dim3 grid, dim3 block, F f) {
         if (fb.wait && fb.wait->gen == fb.wait_gen) continue;
         blk.cur = t;
         threadIdx = dim3((unsigned)t);
-        swapcontext(&blk.sched, &fb.ctx);
+        if (!_setjmp(blk.sched_jb)) {
+          if (fb.started) {
+            _longjmp(fb.jb, 1);
+          } else {
+            fb.started = true;
+            swapcontext(&blk.sched, &fb.ctx);
+          }
+        }
         ran = true;
       }
       if (left && !ran) {

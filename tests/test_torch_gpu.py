@@ -31,6 +31,7 @@ from tpt_torch.core.vec import Vec3
 from tpt_torch.denoise import reproject, stencil, svgf
 from tpt_torch.integrators import common, intersect, megakernel, wavefront
 from tpt_torch.scene import procedural
+from torch_treelet_pools import tie_pool
 
 pytestmark = pytest.mark.gpu
 
@@ -998,6 +999,114 @@ def test_treelet_max_rounds_is_capped(treelet_scenes, cuda):
     for f in ("t", "tri", "u", "v"):
         _bits_equal(getattr(got, f), getattr(want, f))
     assert int(cap_k) == int(cap_p) == int((tm > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_treelet_equal_t_ties_across_treelets(treelet_scenes, cuda, seeded):
+    """Rays at edges that two triangles of different treelets share: where
+    both hit at the same t, the packet's first-drained treelet wins, bit
+    for bit as the plain walk; some lanes' triangle differs from brute
+    force's first minimum."""
+    data = treelet_scenes[16]
+    pack = data.pack
+    o, d, tm, ties = tie_pool(data, 6000, 5, cuda)
+    assert ties > 50
+    seed = None
+    if seeded:
+        st, sc, so, ovf, _, _ = tlt.treelet_scan(pack, o, d, tm)
+        key = torch.where(sc != tlt.NONE_CODE, so.long(), 1 << 30)
+        perm = torch.sort(key, stable=True).indices
+        g = lambda a: a[perm].contiguous()
+        o, d = Vec3(g(o.x), g(o.y), g(o.z)), Vec3(g(d.x), g(d.y), g(d.z))
+        tm, seed = g(tm), (g(st), g(sc), g(ovf))
+    got, cap_k = tlt.treelet_closest_hit(pack, o, d, tm, seed=seed)
+    want, cap_p = tlt.treelet_closest_hit_plain(pack, o, d, tm, seed=seed)
+    for f in ("t", "tri", "u", "v"):
+        _bits_equal(getattr(got, f), getattr(want, f))
+    assert int(cap_k) == 0 and int(cap_p) == 0
+    ref = intersect.brute_force_closest_hit(data.mesh, o, d, tm)
+    assert torch.equal(got.t, ref.t)
+    assert int((got.tri != ref.tri).sum()) > 0
+
+
+@pytest.mark.parametrize("mt", [16, 64])
+def test_treelet_4096_lane_packets_at_8_slots(treelet_scenes, cuda, mt):
+    """The largest lane layout the port takes: 4096-lane packets (the hot
+    planes fill the block's shared memory) with 8 slots a lane (in the
+    global scratch), unseeded and seeded."""
+    data = treelet_scenes[mt]
+    pack = data.pack
+    o, d, tm = _treelet_rays(data, 9000, 61, cuda)
+    attrs = tlt.kernel_attributes(10, 4, 8)
+    assert attrs["dynamic_shared_bytes"] == 13 * 4 * 4096
+    assert attrs["threads"] == tlt.THREADS
+    st, sc, so, ovf, _, _ = tlt.treelet_scan(pack, o, d, tm, group=4)
+    for seed in (None, (st, sc, ovf)):
+        got, cap_k = tlt.treelet_closest_hit(pack, o, d, tm, group=4,
+                                             slots=8, seed=seed)
+        want, cap_p = tlt.treelet_closest_hit_plain(pack, o, d, tm, group=4,
+                                                    slots=8, seed=seed)
+        for f in ("t", "tri", "u", "v"):
+            _bits_equal(getattr(got, f), getattr(want, f))
+        assert int(cap_k) == 0 and int(cap_p) == 0
+
+
+def test_treelet_short_packets_beside_a_long_one(treelet_scenes, cuda):
+    """Four packets of a few short segments (a few drains each) and one
+    of whole rays (many): bit for bit as plain, and the long packet's
+    lanes equal the same packet launched alone."""
+    data = treelet_scenes[16]
+    pack = data.pack
+    L = 2048
+    o, d, tm = _treelet_rays(data, 5 * L, 71, cuda)
+    short = torch.arange(4 * L, device=cuda)
+    tm[:4 * L] = torch.where((short % 512 == 3) & (tm[:4 * L] > 0), 5.0,
+                             -1.0)
+    stats = torch.zeros(6, dtype=torch.int64, device=cuda)
+    got, cap_k = tlt.treelet_closest_hit(pack, o, d, tm, stats=stats)
+    want, cap_p = tlt.treelet_closest_hit_plain(pack, o, d, tm)
+    for f in ("t", "tri", "u", "v"):
+        _bits_equal(getattr(got, f), getattr(want, f))
+    assert int(cap_k) == 0 and int(cap_p) == 0
+    sl = slice(4 * L, 5 * L)
+    one = lambda v: Vec3(v.x[sl].contiguous(), v.y[sl].contiguous(),
+                         v.z[sl].contiguous())
+    st1 = torch.zeros(6, dtype=torch.int64, device=cuda)
+    alone, _ = tlt.treelet_closest_hit(pack, one(o), one(d),
+                                       tm[sl].contiguous(), stats=st1)
+    for f in ("t", "tri", "u", "v"):
+        _bits_equal(getattr(alone, f), getattr(got, f)[sl])
+    # the long packet has the most drain rounds, more than the four short
+    # ones together
+    assert int(stats[5]) == int(st1[5]) > int(stats[3]) - int(st1[3]) > 0
+
+
+def test_treelet_large_clusters_stage_in_chunks(cuda):
+    """Clusters of up to 64 triangles: a drain step's rows can exceed one
+    staging chunk of 64, seeded and not, bit for bit as plain."""
+    host = procedural.cornell_box(resolution=(32, 32))
+    data = host.build(with_bvh=True, max_cluster=64, treelet_max_tris=256,
+                      device=cuda)
+    pack = data.pack
+    o, d, tm = _treelet_rays(data, 6000, 81, cuda)
+    st, sc, so, ovf, _, _ = tlt.treelet_scan(pack, o, d, tm)
+    for seed in (None, (st, sc, ovf)):
+        got, cap_k = tlt.treelet_closest_hit(pack, o, d, tm, seed=seed)
+        want, cap_p = tlt.treelet_closest_hit_plain(pack, o, d, tm, seed=seed)
+        for f in ("t", "tri", "u", "v"):
+            _bits_equal(getattr(got, f), getattr(want, f))
+        assert int(cap_k) == 0 and int(cap_p) == 0
+
+
+def test_treelet_kernel_attributes(cuda):
+    """K9/K10 run THREADS threads a packet, K11 256; K10's lane planes fit
+    in shared memory as the layout says."""
+    for k in (9, 10):
+        assert tlt.kernel_attributes(k, 2)["threads"] == tlt.THREADS
+    assert tlt.kernel_attributes(11, 2)["threads"] >= 256
+    assert tlt.kernel_attributes(10, 2, 4)["dynamic_shared_bytes"] == \
+        (13 + 3 + 2 * 4) * 4 * 2048
+    assert tlt.kernel_attributes(10, 8, 4)["dynamic_shared_bytes"] == 0
 
 
 def test_treelet_render_kernels_equal_plain(cuda, monkeypatch):

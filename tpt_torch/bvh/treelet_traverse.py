@@ -12,11 +12,13 @@ below. There is no fallback between the two: a CUDA tensor launches the
 kernel or raises.
 
 All three walk tpt's super-packets of `group * 1024` consecutive lanes
-with one stack per packet, as the TPU kernels do, because what they
-return depends on the packet: K9's overflow flag and candidate count (the
-hybrid easy/hard split) count every child the packet visits, K11's thr is
-lowered by every child its slot window excludes, and K10's packet
-decides which treelet it drains next, which decides equal-t ties.
+with one stack per packet, as the TPU kernels do (on the card K9 and K10
+run a packet as one block of THREADS threads with its lanes' state on
+chip; K11 as one block of 256), because what they return depends on the
+packet: K9's overflow flag and candidate count (the hybrid easy/hard
+split) count every child the packet visits, K11's thr is lowered by
+every child its slot window excludes, and K10's packet decides which
+treelet it drains next, which decides equal-t ties.
 K9 gives each lane its lexicographically nearest (entry t, treelet code)
 candidate past the top tree, the candidate's ordinal, an overflow flag
 (another candidate existed or may exist) and a candidate count. K10 runs
@@ -62,7 +64,7 @@ CLUSTER_POPS = 4         # RenderConfig.trav_cluster_pops
 MAX_SLOTS = 8            # slot counts the library instantiates
 SLOTS = 4                # tpt's defaults (pallas_treelet.py:563-564)
 MAX_ROUNDS = 4096
-THREADS = 256            # threads a packet (csrc/treelet.cu THREADS)
+THREADS = 1024           # K9/K10's threads a packet (csrc/treelet.cu)
 SCAN_WAVE = 16           # plain K10: iterations between batched scans
 
 # launches of each CUDA kernel in this process (chip_smoke.py resets and
@@ -86,11 +88,15 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tpt_treelet_scan.restype = ctypes.c_int
         lib.tpt_treelet_scan.argtypes = ([p] * 7 + [i, i, p, i, p, p, p, i, i]
-                                         + [p] * 9)
+                                         + [p] * 8)
         lib.tpt_treelet_closest_hit.restype = ctypes.c_int
         lib.tpt_treelet_closest_hit.argtypes = (
             [p] * 7 + [i, i, i, i] + [p] * 3 + [p, i, p, i, p, i, i]
-            + [p, i, p, p, i, i] + [p] * 9)
+            + [p, i, p, p, i, i] + [p] * 8)
+        lib.tpt_treelet_closest_scratch.restype = ctypes.c_int
+        lib.tpt_treelet_closest_scratch.argtypes = [i, i]
+        lib.tpt_treelet_attributes.restype = ctypes.c_int
+        lib.tpt_treelet_attributes.argtypes = [i, i, i, p]
         lib.tpt_treelet_scan_multi.restype = ctypes.c_int
         lib.tpt_treelet_scan_multi.argtypes = ([p] * 7 + [i, i, i, i, p, i, p,
                                                 p, i, i] + [p] * 7)
@@ -108,6 +114,20 @@ def _lib() -> ctypes.CDLL:
 def build_kernels() -> None:
     """Compile and load the CUDA library now (otherwise at first launch)."""
     _lib()
+
+
+def kernel_attributes(kernel: int, group: int = 2, slots: int = SLOTS) -> dict:
+    """Registers a thread, local (spill) bytes a thread, static and
+    dynamic shared bytes a block (at `group` * 1024 lanes a packet) and
+    the most threads a block of K9, K10 or K11 (`kernel` 9, 10 or 11) for
+    `slots` slots, as compiled."""
+    out = (ctypes.c_int * 5)()
+    rc = _lib().tpt_treelet_attributes(kernel, group, slots,
+                                       ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {rc}")
+    return dict(regs=out[0], local_bytes=out[1], shared_bytes=out[2],
+                dynamic_shared_bytes=out[3], threads=out[4])
 
 
 def _packet(group: int) -> int:
@@ -176,11 +196,10 @@ def treelet_scan(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
                         for _ in range(4))
     capped = torch.zeros((), dtype=torch.int32, device=dev)
     if n:
-        inv = torch.empty((3, n), dtype=torch.float32, device=dev)
         _run("treelet_scan", dev, *_rays(ori, d, t_max), n, L, *_top(pack),
-             _ptr(pack.top_tord), pack.num_top, pack.arity, _ptr(inv),
-             _ptr(st), _ptr(sc), _ptr(so), _ptr(ovf), _ptr(cnt),
-             _ptr(capped), _ptr(stats))
+             _ptr(pack.top_tord), pack.num_top, pack.arity, _ptr(st),
+             _ptr(sc), _ptr(so), _ptr(ovf), _ptr(cnt), _ptr(capped),
+             _ptr(stats))
     return st, sc, so, ovf, cnt, capped
 
 
@@ -260,15 +279,16 @@ def treelet_closest_hit(pack: PacketBVH, ori: Vec3, d: Vec3,
     v = torch.empty(n, dtype=torch.float32, device=dev)
     capped = torch.zeros((), dtype=torch.int32, device=dev)
     if n:
-        np_ = -(-n // L) * L
-        fs = torch.empty((7 + S, np_), dtype=torch.float32, device=dev)
-        is_ = torch.empty((4 + S, np_), dtype=torch.int32, device=dev)
+        # the lane planes that do not fit in a block's shared memory
+        planes = _lib().tpt_treelet_closest_scratch(L, S)
+        scratch = torch.empty(max(1, planes * -(-n // L) * L),
+                              dtype=torch.float32, device=dev)
         sd = [_ptr(a) for a in seed] if seed is not None else [_ptr(None)] * 3
         _run("treelet_closest_hit", dev, *_rays(ori, d, t_max), n, L, S,
              max_rounds, *sd, _ptr(pack.node_f32), pack.node_f32.shape[1],
              _ptr(pack.node_child), pack.num_nodes, _ptr(pack.tri_f32),
              pack.tri_f32.shape[0], pack.max_cluster, *_top(pack),
-             pack.num_top, pack.arity, _ptr(fs), _ptr(is_), _ptr(t),
+             pack.num_top, pack.arity, _ptr(scratch), _ptr(t),
              _ptr(tri), _ptr(u), _ptr(v), _ptr(capped), _ptr(stats))
     return HitRecord(t=t, tri=tri, u=u, v=v), capped
 
