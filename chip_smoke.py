@@ -757,16 +757,6 @@ def check_image(label: str, img) -> None:
                            f"mean {float(np.nanmean(img))}")
 
 
-def wide_registers(arity: int) -> str:
-    """K2's and K1's registers a thread and local bytes
-    (cudaFuncGetAttributes), as built."""
-    from tpt_torch.bvh import packet_traverse as pt
-
-    return "; ".join(
-        f"{k} " + "{regs} regs, {local_bytes} B local".format(
-            **pt.kernel_attributes(a, arity)) for k, a in (("K2", 0), ("K1", 1)))
-
-
 def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
                closest_plain, any_plain) -> dict:
     """The cast kernels of `scene`'s pack, closest(pack, o, d, t_max) and
@@ -775,12 +765,14 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
     primaries and one real diffuse bounce, and the NEE shadow rays of both
     bounces), then on every lane of each of those casts as the render
     launches them, dead lanes included (check_closest_hit,
-    check_any_hit: bit for bit). Then CUDA-event timings on all lanes (the
-    closest hit on the primaries and the bounce-1 pool, the any hit on the
-    bounce-0 shadow rays) and bounds from the tests the kernels count.
-    `names` are the two kernels' labels.
-    Returns the lane count, the primaries, and each kernel's numbers for
-    the kernels line."""
+    check_any_hit: bit for bit). Then each cast's device time on all
+    lanes, by back-to-back launches (kernel_ms) and, beside it, one launch
+    between two events (which also catches the host's launch path): the
+    closest hit on the primaries and the bounce-1 pool, the any hit on
+    the shadow rays of bounces 0 and 1; bounds from the tests the kernels
+    count. `names` are the two kernels' labels.
+    Returns the lane count, the four casts, and each kernel's numbers for
+    the kernels line (the primaries, the bounce-0 shadow rays)."""
     import torch
 
     from tpt_torch.config import RayCastBackend, RenderConfig
@@ -818,29 +810,31 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
     a_err = max(a_err, err, check_a("bounce-1 shadow, all lanes", shd1)[0])
 
     n = prim[2].shape[0]
-    stats_c = torch.zeros(3, dtype=torch.int64, device=dev)
-    stats_a = torch.zeros(3, dtype=torch.int64, device=dev)
-    closest(pack, *prim, stats=stats_c)
-    any_hit(pack, *shd0, stats=stats_a)
-    c_ms = cuda_time_ms(lambda: closest(pack, *prim), TIMING_REPS)
-    pool_ms = cuda_time_ms(lambda: closest(pack, *pool), TIMING_REPS)
-    a_ms = cuda_time_ms(lambda: any_hit(pack, *shd0), TIMING_REPS)
-    c_bound, c_by = bound(pack, n, 16, stats_c.cpu())
-    a_bound, a_by = bound(pack, n, 1, stats_a.cpu())
-    mr = lambda ms: n / (ms * 1e-3) / 1e6
-    print(f"  {kc} primaries: {c_ms:.3f} ms ({mr(c_ms):.1f} Mrays/s), "
-          f"bounce-1 pool: {pool_ms:.3f} ms ({mr(pool_ms):.1f} Mrays/s), "
-          f"plain {c_plain_ms:.1f} ms, bound {c_bound:.3f} ms ({c_by}); "
-          f"{tests_done(stats_c.cpu())}")
-    print(f"  {ka} bounce-0 shadow: {a_ms:.3f} ms ({mr(a_ms):.1f} Mrays/s), "
-          f"plain {a_plain_ms:.1f} ms, bound {a_bound:.3f} ms ({a_by}); "
-          f"{tests_done(stats_a.cpu())}")
-    return dict(
-        lanes=n, primaries=prim,
-        closest=dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms,
-                     bound_ms=c_bound, bound_by=c_by),
-        any_hit=dict(max_abs_err=a_err, ms=a_ms, plain_ms=a_plain_ms,
-                     bound_ms=a_bound, bound_by=a_by))
+    out = {}
+    for label, kernel, fn, rays, out_bytes in (
+            ("primaries", kc, closest, prim, 16),
+            ("bounce-1 pool", kc, closest, pool, 16),
+            ("bounce-0 shadow", ka, any_hit, shd0, 1),
+            ("bounce-1 shadow", ka, any_hit, shd1, 1)):
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+        fn(pack, *rays, stats=stats)
+        launch = lambda: fn(pack, *rays)
+        ms, ev_ms = kernel_ms(launch, KERNEL_REPS), cuda_time_ms(
+            launch, TIMING_REPS)
+        b_ms, b_by = bound(pack, rays[2].numel(), out_bytes, stats.cpu())
+        out[label] = (ms, b_ms, b_by)
+        print(f"  {kernel} {label}: {ms:.3f} ms back to back "
+              f"({rays[2].numel() / (ms * 1e-3) / 1e6:.1f} Mrays/s), one "
+              f"launch between events {ev_ms:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}); {tests_done(stats.cpu())}")
+    print(f"  plain: {kc} primaries {c_plain_ms:.1f} ms, {ka} bounce-0 "
+          f"shadow {a_plain_ms:.1f} ms")
+    entry = lambda label, err, plain_ms: dict(
+        max_abs_err=err, ms=out[label][0], plain_ms=plain_ms,
+        bound_ms=out[label][1], bound_by=out[label][2])
+    return dict(lanes=n, casts=(prim, pool, shd0, shd1),
+                closest=entry("primaries", c_err, c_plain_ms),
+                any_hit=entry("bounce-0 shadow", a_err, a_plain_ms))
 
 
 def render_phase(label: str, scene, cam, cfg, frames: int, want: dict,
@@ -873,10 +867,27 @@ def render_phase(label: str, scene, cam, cfg, frames: int, want: dict,
     return frame_ms, launches, img, rc
 
 
-def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float) -> tuple:
+def walk_registers(arity: int) -> str:
+    """The closest-hit and any-hit walks' registers a thread and local
+    bytes (cudaFuncGetAttributes), as built: K2/K1 for arity 4 or 8,
+    K8a/K8b for arity 2."""
+    from tpt_torch.bvh import packet_traverse as pt
+
+    names = ("K8a", "K8b") if arity == 2 else ("K2", "K1")
+    return "; ".join(
+        f"{k} " + "{regs} regs, {local_bytes} B local, {shared_bytes} B "
+        "shared".format(**pt.kernel_attributes(a, arity))
+        for k, a in zip(names, (0, 1)))
+
+
+def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
+                  refill: bool = True) -> tuple:
     """The binary_kernels and binary_render phases on the binary pack
-    `bscene` (the wide `scene` times K2 beside K8a); returns the K8a and
-    K8b entries of the kernels line and the binary frame's ms."""
+    `bscene` (the wide `scene` times K2 and K1 on the same primaries and
+    shadow rays); with `refill`, each K8a/K8b cast is also timed with lane
+    refill and with one thread a ray, in turns, and K8a/K8b's registers
+    are printed (a tree without lane refill has neither). Returns the K8a
+    and K8b entries of the kernels line and the binary frame's ms."""
     import torch
 
     from tpt_torch.bvh import packet_traverse as pt
@@ -887,18 +898,48 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float) -> tuple:
     res = cast_phase(bscene, cam, dev, ("K8a", "K8b"), pt.packet_closest_hit,
                      pt.packet_any_hit, pt.closest_hit_plain,
                      pt.any_hit_plain)
-    prim = res.pop("primaries")
-    stats_2 = torch.zeros(3, dtype=torch.int64, device=dev)
-    pt.packet_closest_hit_wide(scene.pack, *prim, stats=stats_2)
-    k2_ms = cuda_time_ms(lambda: pt.packet_closest_hit_wide(scene.pack, *prim),
-                         TIMING_REPS)
+    prim, pool, shd0, shd1 = res.pop("casts")
+    if refill:
+        print(f"  {walk_registers(2)}")
+        for label, fn, rays in (("K8a primaries", pt.packet_closest_hit, prim),
+                                ("K8a bounce-1 pool", pt.packet_closest_hit,
+                                 pool),
+                                ("K8b bounce-0 shadow", pt.packet_any_hit,
+                                 shd0),
+                                ("K8b bounce-1 shadow", pt.packet_any_hit,
+                                 shd1)):
+            ms = {1: [], 2: [], 3: [], 0: []}
+            for on in (1, 2, 3, 0, 0, 3, 2, 1):
+                pt.set_refill(on)
+                ms[on].append(kernel_ms(lambda: fn(bscene.pack, *rays),
+                                        KERNEL_REPS))
+            pt.set_refill(1)
+            print(f"  {label}: below 16 {ms[1][0]:.3f}, "
+                  f"{ms[1][1]:.3f} ms; below 8 {ms[2][0]:.3f}, {ms[2][1]:.3f};"
+                  f" below 16 capped {ms[3][0]:.3f}, {ms[3][1]:.3f};"
+                  f" one thread a ray {ms[0][0]:.3f},"
+                  f" {ms[0][1]:.3f} ms (back to back, in turns)")
+        for m in (1, 2, 3, 0):
+            pt.set_refill(m)
+            print(f"  refill mode {m}: {walk_registers(2)}")
+        pt.set_refill(1)
+    wide = {}
+    for k, fn, rays in (("K2", pt.packet_closest_hit_wide, prim),
+                        ("K1", pt.packet_any_hit_wide, shd0)):
+        launch = lambda: fn(scene.pack, *rays)
+        wide[k] = kernel_ms(launch, KERNEL_REPS)
+        print(f"  {k} on the same {'primaries' if k == 'K2' else 'bounce-0 shadow rays'}"
+              f" (wide pack): {wide[k]:.3f} ms back to back, one launch "
+              f"between events {cuda_time_ms(launch, TIMING_REPS):.3f} ms")
+    print(f"  {walk_registers(scene.pack.arity)}")
     k8a_ms, k8b_ms = res["closest"]["ms"], res["any_hit"]["ms"]
-    print(f"  K2 on the same primaries (wide pack): {k2_ms:.3f} ms, "
-          f"K8a/K2 {k8a_ms / k2_ms:.2f}x; {tests_done(stats_2.cpu())}")
+    print(f"  K8a/K2 {k8a_ms / wide['K2']:.2f}x, K8b/K1 "
+          f"{k8b_ms / wide['K1']:.2f}x")
     phase("binary_kernels", t0, n_compare=N_COMPARE, lanes=res["lanes"],
           nodes=bscene.pack.num_nodes, k8a_ms=f"{k8a_ms:.3f}",
-          k8b_ms=f"{k8b_ms:.3f}", k2_ms=f"{k2_ms:.3f}")
-    del prim
+          k8b_ms=f"{k8b_ms:.3f}", k2_ms=f"{wide['K2']:.3f}",
+          k1_ms=f"{wide['K1']:.3f}")
+    del prim, pool, shd0, shd1
 
     # ---- binary_render: BVH_PALLAS on the binary pack -----------------------
     t0 = time.perf_counter()
@@ -930,9 +971,10 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float) -> tuple:
 
 
 def mega_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
-                binary_frame_ms: float) -> None:
-    """The mega_render and mega_agreement phases: the megakernel through
-    the engine on the binary pack (K8a/K8b) and on the wide one (K2/K1)."""
+                binary_frame_ms: float, agreement: bool = True) -> None:
+    """The mega_render and mega_agreement (unless not `agreement`) phases:
+    the megakernel through the engine on the binary pack (K8a/K8b) and on
+    the wide one (K2/K1)."""
     import numpy as np
     import torch
 
@@ -1000,6 +1042,8 @@ def mega_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
                                    ).replace(" ", ""),
           image_mean=f"{float(img.mean()):.5f}")
     del r, wide
+    if not agreement:
+        return
 
     # ---- mega_agreement: kernels vs plain, vs the wavefront, the golden -----
     t0 = time.perf_counter()
@@ -1174,7 +1218,7 @@ def bench_wide_casts(pack, tail, shadow) -> dict:
           f"({int((shadow[2] - 1e-3 <= 0).sum())} dead), {s_ms:.3f} ms "
           f"(one launch between events {s_ev:.3f}), plain {a_plain_ms:.1f} "
           f"ms, bound {s_bound:.4f} ms ({s_by}); {tests_done(st_s.cpu())}")
-    print(f"  {wide_registers(pack.arity)}")
+    print(f"  {walk_registers(pack.arity)}")
     return t_ms, s_ms
 
 
@@ -3101,8 +3145,8 @@ def main() -> int:
     res = cast_phase(scene, cam, dev, ("K2", "K1"), pt.packet_closest_hit_wide,
                      pt.packet_any_hit_wide, pt.closest_hit_wide_plain,
                      pt.any_hit_wide_plain)
-    del res["primaries"]
-    print(f"  {wide_registers(pack.arity)}")
+    del res["casts"]
+    print(f"  {walk_registers(pack.arity)}")
     print("  kernels: K2 packet_closest_hit_wide, K1 packet_any_hit_wide, "
           "K3 dense_scan, K4 sweep8_closest_hit, K5 atrous, K6 reproject, "
           "K7 sweep_closest_hit, K8a packet_closest_hit, K8b packet_any_hit, "

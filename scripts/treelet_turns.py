@@ -1,56 +1,94 @@
-"""Times the BVH_TREELET kernels (K9, K10) and frame of several checkouts
-of this repository in turns on one card, so that two versions of
-`tpt_torch/csrc/treelet.cu` are compared within one machine session.
-Each run is a fresh process, started in the checkout, that builds that
-checkout's K2 and treelet kernels and runs its own `chip_smoke.py`'s
-`treelet_kernels` and `treelet_render` phases on the 1080p fireplace
-(`treelet_agreement`, a plain render of a minute or more, is skipped);
-their lines hold the times (K9 on the unsorted bounce-1 pool; K10 on the
-whole sorted bounce-1 pool, on 128 of its packets and on the camera rays;
-the frame). Parent, change, change, parent:
+"""Times the kernels and frames of several checkouts of this repository
+in turns on one card, so that two versions of a kernel source are
+compared within one machine session. Each run is a fresh process,
+started in the checkout, that imports that checkout's `tpt_torch`
+(building its kernels) and runs this checkout's `chip_smoke.py` phases
+on the 1080p fireplace:
+
+- `--phases treelet` (the default): `treelet_kernels` and
+  `treelet_render` (`treelet_agreement`, a plain render of a minute or
+  more, is skipped); their lines hold the times (K9 on the unsorted
+  bounce-1 pool; K10 on the whole sorted bounce-1 pool, on 128 of its
+  packets and on the camera rays; the frame);
+- `--phases binary`: `binary_kernels`, `binary_render` and
+  `mega_render` (`mega_agreement` is skipped); their lines hold K8a on
+  the primaries and the bounce-1 pool, K8b on the shadow rays of bounces
+  0 and 1 (back to back and one launch between events), K2/K1 on the
+  same primaries and shadow rays, the binary wavefront frame and the
+  megakernel frames. A checkout whose K8a/K8b have no lane refill
+  (`packet_traverse.set_refill`) skips the refill timings and the
+  K8a/K8b registers.
+
+Parent, change, change, parent:
 
     mkdir -p _archive_check/parent
     git archive PARENT | tar -x -C _archive_check/parent \\
         --exclude=benchmarks/prebuilt
-    python scripts/treelet_turns.py _archive_check/parent . . \\
-        _archive_check/parent
+    python scripts/treelet_turns.py --phases binary _archive_check/parent \\
+        . . _archive_check/parent
 """
 
+import argparse
+import os
 import subprocess
 import sys
 
+SMOKE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 CHILD = r'''
+import importlib.util
+import os
 import sys
 sys.path.insert(0, ".")
 import torch
-import chip_smoke as cs
+# this checkout's chip_smoke.py, whatever the tree holds
+spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(SMOKE_DIR, "chip_smoke.py"))
+cs = importlib.util.module_from_spec(spec)
+sys.modules["chip_smoke"] = cs
+spec.loader.exec_module(cs)
 from tpt_torch.bvh import packet_traverse as pt
 from tpt_torch.bvh import treelet_traverse as tlt
 from tpt_torch.scene import procedural
 
-cs.TREELET_PLAIN_RENDER_S = float("inf")   # treelet_agreement refuses
 dev = torch.device("cuda")
 pt.build_kernels()
-tlt.build_kernels()
 host = procedural.fireplace_like(resolution=cs.RES)
 scene = host.build(with_bvh=True, sweep_chunk_align=cs.SWEEP_ALIGN,
                    device=dev)
-try:
-    cs.treelet_phases(scene, host.camera, dev, 1.0)
-except RuntimeError as e:
-    if "treelet_agreement" not in str(e):
-        raise
+if PHASES == "treelet":
+    cs.TREELET_PLAIN_RENDER_S = float("inf")   # treelet_agreement refuses
+    tlt.build_kernels()
+    try:
+        cs.treelet_phases(scene, host.camera, dev, 1.0)
+    except RuntimeError as e:
+        if "treelet_agreement" not in str(e):
+            raise
+else:
+    bscene = host.build(with_bvh=True, packet_arity=2, device=dev)
+    _, binary_ms = cs.binary_phases(scene, bscene, host.camera, dev, 1.0,
+                                    refill=hasattr(pt, "set_refill"))
+    cs.mega_phases(scene, bscene, host.camera, dev, 1.0, binary_ms,
+                   agreement=False)
 '''
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", choices=("treelet", "binary"),
+                    default="treelet")
+    ap.add_argument("trees", nargs="+", help="checkouts, run in this order")
+    args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}", flush=True)
-    for k, tree in enumerate(sys.argv[1:]):
+    child = (f"SMOKE_DIR = {SMOKE_DIR!r}\nPHASES = {args.phases!r}\n"
+             + CHILD)
+    for k, tree in enumerate(args.trees):
         print(f"=== run {k + 1}: {tree}", flush=True)
-        rc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree).returncode
+        rc = subprocess.run([sys.executable, "-c", child],
+                            cwd=tree).returncode
         if rc:
             print(f"=== run {k + 1} failed: rc {rc}", flush=True)
             return rc

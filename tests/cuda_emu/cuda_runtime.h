@@ -18,8 +18,9 @@
 // size. The warp intrinsics (shuffles, votes, reductions) exchange values through a per-block array between two
 // waits on a barrier of the threads named in the mask (one barrier per
 // warp and mask), so every thread of the mask must call them, as CUDA
-// requires. __ldg is a plain load. Inline PTX sits under __CUDA_ARCH__ in
-// the sources and is not compiled here. The sources are compiled with
+// requires. __ldg is a plain load. The emulated card has 2 SMs of one
+// resident block each (the occupancy queries). Inline PTX sits under
+// __CUDA_ARCH__ in the sources and is not compiled here. The sources are compiled with
 // -ffp-contract=off, so float arithmetic rounds as the card's does with
 // -fmad=false; launches are rewritten from k<<<grid, block, smem,
 // stream>>>(args) to emu_launch(grid, block, [&] { k(args); }) by the
@@ -57,9 +58,11 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -81,6 +84,23 @@ inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// the emulated card: 2 SMs that hold one block each, so a launch sized
+// to one wave of resident blocks is smaller than most test pools
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class T>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, T, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 
@@ -209,6 +229,13 @@ inline void fiber_main() {
 }  // namespace emu
 
 template <class T>
+inline T __shfl_sync(unsigned mask, T v, int src) {
+  const unsigned long long w = emu::exchange(mask, v, src & 31);
+  T r;
+  memcpy(&r, &w, sizeof(T));
+  return r;
+}
+template <class T>
 inline T __shfl_xor_sync(unsigned mask, T v, int off) {
   const unsigned long long w = emu::exchange(mask, v, (emu::lane() ^ off) & 31);
   T r;
@@ -255,6 +282,8 @@ inline int __syncthreads_count(int p) { return emu::block_count(p); }
 inline int __syncthreads_or(int p) { return emu::block_count(p) != 0; }
 
 // one thread runs at a time, so atomics are plain read-modify-writes
+// and a fence orders nothing
+inline void __threadfence() {}
 inline int atomicAdd(int* p, int v) {
   const int old = *p;
   *p += v;

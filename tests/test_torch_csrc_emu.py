@@ -1,11 +1,13 @@
-"""The port's CUDA sources run on the CPU: `csrc/packet_wide.cu` (K2/K1)
-and `csrc/sweep.cu` (K4 and K7) compiled with g++ against the
-stand-in `tests/cuda_emu/cuda_runtime.h` (a block's threads as fibers,
-barriers for the warp intrinsics) with -ffp-contract=off, and
-held bit for bit against their plain PyTorch versions: K2/K1 on Cornell
-rays (dead lanes, NaN rays, arity 4 and 8, equal-t ties, a cyclic table
-that caps a ray), the sweeps on the flat-group warp and edge pool of
-`torch_flatgroup`. This checks a kernel's control flow and arithmetic
+"""The port's CUDA sources run on the CPU: `csrc/packet_wide.cu`
+(K2/K1, K8a/K8b) and `csrc/sweep.cu` (K4 and K7) compiled with g++
+against the stand-in `tests/cuda_emu/cuda_runtime.h` (a block's threads
+as fibers, barriers for the warp intrinsics, a card of 2 SMs that hold
+one block each) with -ffp-contract=off, and held bit for bit against
+their plain PyTorch versions: K2/K1 on Cornell rays (dead lanes, NaN
+rays, arity 4 and 8, equal-t ties, a cyclic table that caps a ray),
+K8a/K8b on the same rays, on equal-t ties across two clusters and on a
+cyclic table, with and without lane refill, the sweeps on the
+flat-group warp and edge pool of `torch_flatgroup`. This checks a kernel's control flow and arithmetic
 before a card runs it; it says nothing of its speed.
 
 Skips where no g++ is found.
@@ -117,6 +119,12 @@ def cornell():
 
 
 @pytest.fixture(scope="module")
+def cornell2():
+    host = procedural.cornell_box(resolution=(32, 32))
+    return host.build(with_bvh=True, packet_arity=2, device="cpu")
+
+
+@pytest.fixture(scope="module")
 def cornell8():
     host = procedural.cornell_box(resolution=(32, 32))
     return host.build(with_bvh=True, packet_arity=8, device="cpu")
@@ -127,8 +135,8 @@ def _p(a):
 
 
 def _cast(lib, pack, o, d, t_max, any_hit):
-    """K2 (K1 with `any_hit`) of the emulated library: (result, capped,
-    stats)."""
+    """K2 (K1 with `any_hit`) of the emulated library, or K8a (K8b) for a
+    binary pack: (result, capped, stats)."""
     n = t_max.numel()
     capped = torch.zeros(1, dtype=torch.int32)
     stats = torch.zeros(3, dtype=torch.int64)
@@ -138,12 +146,14 @@ def _cast(lib, pack, o, d, t_max, any_hit):
              pack.arity, pack.max_cluster]
     if any_hit:
         occ = torch.zeros(n, dtype=torch.uint8)
-        fn = lib.tpt_packet_any_hit_wide
+        fn = lib.tpt_packet_any_hit_wide if pack.arity > 2 else \
+            lib.tpt_packet_any_hit
         args += [_p(occ)]
     else:
         res = [torch.zeros(n), torch.zeros(n, dtype=torch.int32),
                torch.zeros(n), torch.zeros(n)]
-        fn = lib.tpt_packet_closest_hit_wide
+        fn = lib.tpt_packet_closest_hit_wide if pack.arity > 2 else \
+            lib.tpt_packet_closest_hit
         args += [_p(a) for a in res]
     args += [_p(capped), _p(stats), ctypes.c_void_p(None)]
     fn.restype = ctypes.c_int
@@ -215,6 +225,71 @@ def test_wide_cyclic_table_caps_every_ray(libs, cornell):
     t_max = torch.full((1,), 1e4)
     _, capped, _ = _cast(libs["packet_wide"], bad, o, d, t_max, False)
     assert capped == 1
+
+
+def _flat_binary_pack():
+    """A binary pack (K8a/K8b) of torch_flatgroup's A and B: a root whose
+    children are a cluster of A and a cluster of B, each in its own box;
+    rays at their shared edge enter both boxes at the same t."""
+    from tpt_torch.bvh.pack import encode_cluster
+
+    wide = fg.flat_pack("cpu")
+    rows = wide.tri_f32[:2].numpy()
+    node_f32 = np.zeros((1, 16), np.float32)
+    for k in range(2):
+        v = np.stack([rows[k, 0:3], rows[k, 0:3] + rows[k, 3:6],
+                      rows[k, 0:3] + rows[k, 6:9]])
+        node_f32[0, 6 * k:6 * k + 3] = v.min(0)
+        node_f32[0, 6 * k + 3:6 * k + 6] = v.max(0)
+    child = torch.tensor([[encode_cluster(0, 1), encode_cluster(1, 1)]],
+                         dtype=torch.int32)
+    return replace(wide, node_f32=torch.from_numpy(node_f32),
+                   node_child=child, arity=2, max_cluster=2)
+
+
+@pytest.mark.parametrize("case", ["cornell", "ties", "cyclic", "refill"])
+def test_binary_walks_equal_plain(libs, cornell2, case):
+    """K8a and K8b, bit for bit with the plain walk: on 300 Cornell rays
+    (dead lanes, NaN and infinite rays, short segments; n not a multiple
+    of a block) launched one thread a ray and with lane refill; on
+    equal-t ties at the shared edge of two clusters (K8a keeps the left
+    one, as the plain walk's strict swap and strict t < best do); on a
+    cyclic root that caps every ray once; and on 1000 rays refilled into
+    a launch of 256 lanes (the stand-in's one wave)."""
+    lib = libs["packet_wide"]
+    pack = cornell2.pack
+    if case == "cyclic":
+        child = pack.node_child.clone()
+        child[0, :] = 0
+        o = Vec3.from_stacked(torch.tensor([[275.0, 272.0, 278.0]] * 32))
+        d = Vec3.from_stacked(torch.tensor([[0.6, -0.48, 0.64]] * 32))
+        t_max = torch.full((32,), 1e4)
+        for any_hit in (False, True):
+            _, capped, _ = _cast(lib, replace(pack, node_child=child), o, d,
+                                 t_max, any_hit)
+            assert capped == 32
+        return
+    if case == "ties":
+        pack = _flat_binary_pack()
+        o, d, t_max, _, _ = fg.edge_pool(512, 3, "cpu")
+    else:
+        o, d, t_max = _rays(300 if case == "cornell" else 1000, 41)
+    want, cap = pt.closest_hit_plain(pack, o, d, t_max)
+    occ_want, cap_a = pt.any_hit_plain(pack, o, d, t_max)
+    assert int(cap) == 0 and int(cap_a) == 0
+    for refill in ((0, 1) if case == "cornell" else (1,)):
+        lib.tpt_packet_set_refill(ctypes.c_int(refill))
+        got, capped, stats = _cast(lib, pack, o, d, t_max, False)
+        for a, b in zip(got, (want.t, want.tri, want.u, want.v)):
+            assert torch.equal(_bits(a), _bits(b)), refill
+        occ, capped_a, _ = _cast(lib, pack, o, d, t_max, True)
+        assert torch.equal(occ, occ_want), refill
+        assert capped == 0 and capped_a == 0
+        assert int(stats[1]) == 2 * int(stats[0]) > 0
+    if case == "ties":
+        assert bool((want.tri == 0).any()) and bool((want.tri == 1).any())
+    else:
+        assert bool((want.tri >= 0).any()) and bool(occ_want.any())
 
 
 def _sweep(lib, entry, tables, o, d, t_max, s_o, s_t, any_hit, galign):

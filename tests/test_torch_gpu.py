@@ -1,9 +1,10 @@
-"""tpt_torch's CUDA kernels (K2 closest hit and K1 any hit, K3 dense scan, K4 demand sweep with its any-hit and group modes, K7 lane
-sweep, both on flat groups at coordinate 0, K5
-a-trous stencil, K6 temporal reprojection, K9 treelet scan, K10 treelet
-closest hit, K11 multi-slot scan, K8a/K8b binary closest and any hit) on
-the card, each against its plain PyTorch version, and the megakernel and
-the sweep variants on the card against the CPU; the hero scene's
+"""tpt_torch's CUDA kernels (K2 closest hit and K1 any hit, K3 dense
+scan, K4 demand sweep with its any-hit and group modes, K7 lane sweep,
+both on flat groups at coordinate 0, K5 a-trous stencil, K6 temporal
+reprojection, K9 treelet scan, K10 treelet closest hit, K11 multi-slot
+scan, K8a/K8b binary closest and any hit, with lane refill and without)
+on the card, each against its plain PyTorch version, and the megakernel
+and the sweep variants on the card against the CPU; the hero scene's
 textured, env-lit casts and renders through the kernels against the
 plain versions and against the CPU.
 
@@ -1221,6 +1222,77 @@ def test_binary_cyclic_table_is_capped_not_hung(binary_scenes, cuda, kind):
     _, cap = fn(bad, o, d, t_max)
     torch.cuda.synchronize()
     assert int(cap) == 256
+
+
+@pytest.mark.parametrize("n", [1, 31, 4097, 300_000])
+def test_binary_kernels_on_pool_sizes(binary_scenes, cuda, n):
+    """K8a and K8b bit-equal to the plain walk on pools of 1 to 300,000
+    random rays in the fireplace (dead, NaN and short lanes), launched
+    with lane refill (300,000 rays outnumber one wave of resident
+    blocks) and with one thread a ray (a ragged last block)."""
+    _, data = binary_scenes["fireplace"]
+    o, d = _rays(n, [0, 0, 0], [1200, 400, 900], 34, cuda)
+    gen = torch.Generator().manual_seed(5)
+    t_max = torch.where(torch.rand(n, generator=gen) < 0.5,
+                        torch.rand(n, generator=gen) * 900.0,
+                        torch.full((n,), intersect.FLT_MAX)).to(cuda)
+    t_max[1::9] = -1.0
+    o.x[2::97] = float("nan")
+    want, cap_p = pt.closest_hit_plain(data.pack, o, d, t_max)
+    occ_p, cap_pa = pt.any_hit_plain(data.pack, o, d, t_max)
+    assert int(cap_p) == 0 and int(cap_pa) == 0
+    try:
+        for refill in (True, False):
+            pt.set_refill(refill)
+            got, cap = pt.packet_closest_hit(data.pack, o, d, t_max)
+            for f in ("t", "tri", "u", "v"):
+                _bits_equal(getattr(got, f), getattr(want, f))
+            occ, cap_a = pt.packet_any_hit(data.pack, o, d, t_max)
+            assert torch.equal(occ, occ_p), refill
+            assert int(cap) == 0 and int(cap_a) == 0, refill
+    finally:
+        pt.set_refill(True)
+    if n > 1:
+        assert bool((want.tri >= 0).any()) and bool(occ_p.any())
+
+
+def test_binary_walk_registers(cuda):
+    """K8a and K8b spill nothing to local memory beyond the per-thread
+    stack, with lane refill and without."""
+    try:
+        for refill in (True, False):
+            pt.set_refill(refill)
+            for any_hit in (False, True):
+                a = pt.kernel_attributes(any_hit, 2)
+                assert 0 < a["regs"] <= 255 and a["max_threads"] >= 128
+                assert a["local_bytes"] <= 4 * (pt.STACK_DEPTH - 1) + 16, (
+                    refill, any_hit, a)
+    finally:
+        pt.set_refill(True)
+
+
+def test_binary_launch_refuses_misaligned_tables(binary_scenes, cuda):
+    """K8a/K8b read nodes and triangle rows as float4 and child codes as
+    int2: a table off its alignment raises before any launch."""
+    _, data = binary_scenes["cornell"]
+    o, d = _rays(64, [0, 0, 0], [556, 548, 560], 35, cuda)
+    t_max = torch.full((64,), intersect.FLT_MAX, device=cuda)
+
+    def shifted(a, by):
+        buf = torch.empty(a.numel() + by, dtype=a.dtype, device=cuda)
+        out = buf[by:].view(a.shape)
+        out.copy_(a)
+        return out
+
+    pack = data.pack
+    for bad in (replace(pack, node_f32=shifted(pack.node_f32, 1)),
+                replace(pack, tri_f32=shifted(pack.tri_f32, 2)),
+                replace(pack, node_child=shifted(pack.node_child, 1))):
+        before = dict(pt.LAUNCHES)
+        for fn in (pt.packet_closest_hit, pt.packet_any_hit):
+            with pytest.raises(ValueError, match="aligned"):
+                fn(bad, o, d, t_max)
+        assert pt.LAUNCHES == before
 
 
 @pytest.mark.parametrize("arity", [2, 4])

@@ -27,6 +27,12 @@ lanes' smallest: the closest t is the same, but an equal-t tie on a
 shared edge may name the other triangle. The binary any hit pushes them
 in slot order, as tpt does.
 
+The four kernels share one walk (`csrc/packet_wide.cu`); the binary ones
+also refill lanes: a launch of one wave of resident blocks whose lanes
+take the next ray once theirs is done (`set_refill` turns it off, to
+time the two launches against each other). Either way every ray walks
+alone, so the bits do not change.
+
 Result conventions are `tpt`'s: closest-hit t = FLT_MAX where tri < 0;
 any-hit reports lanes with t_max - 1e-3 <= 0 as occluded (dead lanes).
 """
@@ -86,6 +92,8 @@ def _lib() -> ctypes.CDLL:
             any_hit.argtypes = common + [p] * 4
         lib.tpt_packet_wide_attributes.restype = ctypes.c_int
         lib.tpt_packet_wide_attributes.argtypes = [i, i, p]
+        lib.tpt_packet_set_refill.restype = None
+        lib.tpt_packet_set_refill.argtypes = [i]
         lib.tpt_stack_depth.restype = ctypes.c_int
         lib.tpt_stack_depth.argtypes = []
         if lib.tpt_stack_depth() != STACK_DEPTH:
@@ -100,10 +108,17 @@ def build_kernels() -> None:
     _lib()
 
 
+def set_refill(on: bool) -> None:
+    """Launch K8a/K8b with lane refill (the default) or with one thread a
+    ray over the whole pool; the results are the same bits."""
+    _lib().tpt_packet_set_refill(int(on))
+
+
 def kernel_attributes(any_hit: bool, arity: int) -> dict:
     """Registers a thread, local bytes a thread, static shared bytes a
     block and the most threads a block of the K2 (K1 with `any_hit`)
-    kernel for `arity`, as compiled (without stats)."""
+    kernel for `arity` 4 or 8, or of K8a (K8b) for arity 2 as
+    `set_refill` launches it, as compiled (without stats)."""
     out = (ctypes.c_int * 4)()
     rc = _lib().tpt_packet_wide_attributes(int(any_hit), arity,
                                            ctypes.cast(out, ctypes.c_void_p))
@@ -165,16 +180,18 @@ def _launch(name: str, pack: PacketBVH, ori: Vec3, d: Vec3,
         raise ValueError("stats must be an int64 [3] tensor on the rays' device")
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())
     args = [ptr(a) for a in (ori.x, ori.y, ori.z, d.x, d.y, d.z, t_max)]
-    args += [n, ptr(pack.node_f32), pack.node_f32.shape[1],
-             ptr(pack.node_child), pack.num_nodes, ptr(pack.tri_f32),
-             pack.tri_f32.shape[0], pack.arity, pack.max_cluster]
+    # node rows and triangle rows are read as float4; child codes as int4
+    # (K1/K2) or int2 (K8a/K8b)
+    nf, nc, tf = pack.node_f32, pack.node_child, pack.tri_f32
     if name.endswith("_wide"):
-        # K1/K2 read node rows and triangle rows as float4/int4
-        if (pack.node_f32.shape[1] % 4 or any(
-                a.data_ptr() % 16 for a in (pack.node_f32, pack.node_child,
-                                            pack.tri_f32))):
+        if nf.shape[1] % 4 or any(a.data_ptr() % 16 for a in (nf, nc, tf)):
             raise ValueError("wide kernels need 16-byte aligned tables and "
                              "a node width that is a multiple of 4")
+    elif nf.data_ptr() % 16 or tf.data_ptr() % 16 or nc.data_ptr() % 8:
+        raise ValueError("binary kernels need 16-byte aligned node and "
+                         "triangle tables and 8-byte aligned child codes")
+    args += [n, ptr(nf), nf.shape[1], ptr(nc), pack.num_nodes, ptr(tf),
+             tf.shape[0], pack.arity, pack.max_cluster]
     args += [ptr(o) for o in outs] + [ptr(capped)]
     args.append(ptr(stats) if stats is not None else ctypes.c_void_p(None))
     _build.launch(_lib, LAUNCHES, name, ori.x.device, *args)

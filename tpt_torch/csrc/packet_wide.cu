@@ -57,32 +57,45 @@
 // none can go wrong unseen. Rays with a NaN or infinite origin or
 // direction, or a NaN t_max, miss without traversal.
 //
-// What bounds K1/K2 on this card: operations, not bytes, and latency. A
-// ray reads 28 bytes and writes 16 (K1: 1); the tables (9 MB for the
-// 139k-triangle bench interior) sit in the 50 MB L2, and the work is slab
-// tests and triangle tests per ray, each step waiting on the load of the
-// node or the rows the step before chose.
+// What bounds the four kernels on this card: operations, not bytes, and
+// latency. A ray reads 28 bytes and writes 16 (K1/K8b: 1); the tables
+// (9 MB for the 139k-triangle bench interior) sit in the 50 MB L2, and
+// the work is slab tests and triangle tests per ray, each step waiting on
+// the load of the node or the rows the step before chose.
 //
-// K1/K2's walk (wide_thread_kernel): one thread a ray. A node's row is
-// read as 6A/4 float4 and its child codes as A/4 int4 (one 16-byte load
-// each), its slots are slab-tested unrolled with static indices (no
-// register array is indexed by data, so nothing spills to local memory),
-// and the hit ones are pushed in the order word's order by selects over
-// the static slots. A triangle row is three float4 (cols 0-11; the id is
-// col 9). The loop is while-while (Aila & Laine 2009): the lanes of a warp
-// pop and visit nodes until every lane holds a cluster or is done (a warp
-// vote), then test their clusters, so lanes on nodes and lanes on clusters
-// do not take turns on every step. A ray's pops are the plain walk's, in
-// the same order, so its bits are the same. The stack keeps its top entry
-// in a register (the nearest child, pushed last, is popped next without a
-// memory round trip) and the rest in local memory, 128 threads a block:
-// on an H100 a stack in shared memory (entry k of thread x at k * 128 + x)
-// and 256-thread blocks were no faster (slower on the bench's shadow rays,
-// within the noise of repeated timings elsewhere), and a walk that carried
-// a ray on a group of `arity` lanes, faster alone on the sweep's small
-// tail launches, showed no gain in the frame and was slower on full pools
-// (PERF.md), so the simplest stayed. The counters of `stats` are compiled
-// in only for launches that ask for them.
+// One walk for all four (walk_kernel): one thread a ray. The layout is a
+// policy (Layout<A>): it reads a node, slab-tests its children and pushes
+// the hit ones, and decodes a cluster. A wide node's row is read as 6A/4
+// float4 and its child codes as A/4 int4 (one 16-byte load each), its
+// slots are slab-tested unrolled with static indices (no register array
+// is indexed by data, so nothing spills to local memory), and the hit
+// ones are pushed in the order word's order by selects over the static
+// slots. A binary node is three float4 (cols 0-11 of its 64-byte row) and
+// one int2 (its child codes). A triangle row is three float4 (cols 0-11;
+// the id is col 9). The loop is while-while (Aila & Laine 2009): the
+// lanes of a warp pop and visit nodes until every lane holds a cluster or
+// is done (a warp vote), then test their clusters, so lanes on nodes and
+// lanes on clusters do not take turns on every step. A ray's pops are the
+// plain walk's, in the same order, so its bits are the same. The stack
+// keeps its top entry in a register (the nearest child, pushed last, is
+// popped next without a memory round trip) and the rest in local memory,
+// 128 threads a block: on an H100 a stack in shared memory (entry k of
+// thread x at k * 128 + x) and 256-thread blocks were no faster (slower
+// on the bench's shadow rays, within the noise of repeated timings
+// elsewhere), and a walk that carried a ray on a group of `arity` lanes,
+// faster alone on the sweep's small tail launches, showed no gain in the
+// frame and was slower on full pools (PERF.md), so the simplest stayed.
+// The counters of `stats` are compiled in only for launches that ask for
+// them, and capped rays and counters go out as one atomic a warp.
+//
+// Lane refill (kRefill, K8a/K8b): a launch of about one wave of resident
+// blocks whose lanes, once their ray is done, write its result and take
+// the next ray index from a global counter (one atomic a warp), so a
+// warp's lanes stay busy on incoherent casts instead of idling until the
+// warp's longest ray ends. Each ray still walks alone from a fresh stack
+// and step count, so its bits do not change. The counter is reset by the
+// launch's last warp, so launches on one stream follow each other; two
+// refill launches must not run at once on two streams.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,22 +133,6 @@ __device__ __forceinline__ bool slab6(float b0, float b1, float b2, float b3,
   return *tn <= tf;
 }
 
-__device__ __forceinline__ bool slab(const float* __restrict__ b,
-                                     const Ray& r, float limit, float* tn) {
-  return slab6(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3),
-               __ldg(b + 4), __ldg(b + 5), r, limit, tn);
-}
-
-// Moller-Trumbore of one tri_f32 row (ray_common.cuh:mt_tri)
-__device__ __forceinline__ bool mt(const float* __restrict__ row,
-                                   const Ray& r, float* t_out, float* u_out,
-                                   float* v_out) {
-  return mt_tri(__ldg(row + 0), __ldg(row + 1), __ldg(row + 2),
-                __ldg(row + 3), __ldg(row + 4), __ldg(row + 5),
-                __ldg(row + 6), __ldg(row + 7), __ldg(row + 8), r, t_out,
-                u_out, v_out);
-}
-
 // the row of packed triangle j as three float4 (cols 0-11; id at col 9)
 __device__ __forceinline__ bool mt_row4(const float4* __restrict__ tri4,
                                         int j, const Ray& r, float* t,
@@ -157,183 +154,19 @@ struct Tables {
   int max_cluster;
 };
 
-__device__ __forceinline__ bool push(int* stack, int& sp, int c) {
-  if (sp < STACK_DEPTH) { stack[sp++] = c; return true; }
-  return false;
-}
-
-// K8a/K8b: both children slab-tested; K8a orders them by entry t, K8b
-// keeps slot order (pallas_traverse.py:152-183, :205-224)
-struct Binary {
-  static constexpr int kStepPad = 4096;
-
-  template <bool kAnyHit>
-  static __device__ __forceinline__ bool push_children(
-      const Tables& tb, int code, const Ray& r, float limit, int* stack,
-      int& sp, unsigned long long& slabs) {
-    const float* row = tb.node_f32 + (size_t)code * 16;
-    const int* crow = tb.node_child + (size_t)code * 2;
-    int c0 = __ldg(crow + 0), c1 = __ldg(crow + 1);
-    float t0, t1;
-    bool h0 = slab(row, r, limit, &t0);
-    bool h1 = slab(row + 6, r, limit, &t1);
-    slabs += 2;
-    bool ok = true;
-    if (kAnyHit) {
-      if (h0) ok &= push(stack, sp, c0);
-      if (h1) ok &= push(stack, sp, c1);
-      return ok;
-    }
-    float m0 = h0 ? t0 : BIG, m1 = h1 ? t1 : BIG;
-    if (m0 > m1) {
-      float tm = m0; m0 = m1; m1 = tm;
-      int tc = c0; c0 = c1; c1 = tc;
-    }
-    // far first, so the nearer child is popped next
-    if (m1 < BIG) ok &= push(stack, sp, c1);
-    if (m0 < BIG) ok &= push(stack, sp, c0);
-    return ok;
-  }
-
-  static __device__ __forceinline__ void cluster(const Tables& tb, int code,
-                                                 int& start, int& count) {
-    int v = -(code + 1);
-    start = min(max(v >> 8, 0), tb.tri_rows - tb.max_cluster);
-    count = min(v & 255, tb.max_cluster);
-  }
-};
-
-// K8a over the binary layout: one thread a ray, the stack in local memory
-template <class L>
-__global__ void __launch_bounds__(BLOCK) closest_hit_kernel(
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tmax, int n, Tables tb,
-    float* __restrict__ t_out, int* __restrict__ tri_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ capped, unsigned long long* __restrict__ stats) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  float tm = tmax[i];
-  float bt = fminf(tm, BIG);
-  int btri = -1;
-  float bu = 0.0f, bv = 0.0f;
-  int stack[STACK_DEPTH];
-  int sp = 0;
-  if (ray_finite(r, tm) && bt > 0.0f) stack[sp++] = 0;
-  const int max_steps = 8 * tb.num_nodes + L::kStepPad;
-  int steps = 0;
-  bool exact = true;
-  unsigned long long node_visits = 0, slab_tests = 0, tri_tests = 0;
-  while (sp > 0) {
-    if (steps >= max_steps) { exact = false; break; }
-    ++steps;
-    int code = stack[--sp];
-    if (code >= 0) {
-      ++node_visits;
-      exact &= L::template push_children<false>(tb, code, r, bt, stack, sp,
-                                                slab_tests);
-    } else {
-      int start, count;
-      L::cluster(tb, code, start, count);
-      tri_tests += count;
-      for (int j = 0; j < count; ++j) {
-        const float* row = tb.tri_f32 + (size_t)(start + j) * 16;
-        float t, u, v;
-        if (mt(row, r, &t, &u, &v) && t < bt) {
-          bt = t;
-          btri = (int)__ldg(row + 9);
-          bu = u;
-          bv = v;
-        }
-      }
-    }
-  }
-  t_out[i] = btri >= 0 ? bt : MISS_T;
-  tri_out[i] = btri;
-  u_out[i] = bu;
-  v_out[i] = bv;
-  if (!exact) atomicAdd(capped, 1);
-  if (stats) {
-    atomicAdd(stats + 0, node_visits);
-    atomicAdd(stats + 1, slab_tests);
-    atomicAdd(stats + 2, tri_tests);
-  }
-}
-
-// K8b over the binary layout
-template <class L>
-__global__ void __launch_bounds__(BLOCK) any_hit_kernel(
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ tmax, int n, Tables tb,
-    unsigned char* __restrict__ occ_out, int* __restrict__ capped,
-    unsigned long long* __restrict__ stats) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  float tm = tmax[i];
-  float limit = tm - 1e-3f;
-  // dead lanes (limit <= 0) report occluded, as the TPU kernels do
-  bool occ = limit <= 0.0f;
-  int stack[STACK_DEPTH];
-  int sp = 0;
-  if (ray_finite(r, tm) && !occ) stack[sp++] = 0;
-  const int max_steps = 8 * tb.num_nodes + L::kStepPad;
-  int steps = 0;
-  bool exact = true;
-  unsigned long long node_visits = 0, slab_tests = 0, tri_tests = 0;
-  while (sp > 0) {
-    if (steps >= max_steps) { exact = false; break; }
-    ++steps;
-    int code = stack[--sp];
-    if (code >= 0) {
-      ++node_visits;
-      exact &= L::template push_children<true>(tb, code, r, limit, stack, sp,
-                                               slab_tests);
-    } else {
-      int start, count;
-      L::cluster(tb, code, start, count);
-      for (int j = 0; j < count; ++j) {
-        const float* row = tb.tri_f32 + (size_t)(start + j) * 16;
-        float t, u, v;
-        ++tri_tests;
-        if (mt(row, r, &t, &u, &v) && t < limit) { occ = true; break; }
-      }
-      if (occ) break;
-    }
-  }
-  occ_out[i] = occ ? 1 : 0;
-  if (!exact) atomicAdd(capped, 1);
-  if (stats) {
-    atomicAdd(stats + 0, node_visits);
-    atomicAdd(stats + 1, slab_tests);
-    atomicAdd(stats + 2, tri_tests);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K1/K2 over the wide layout
-// ---------------------------------------------------------------------------
-
 struct Rays {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *tmax;
   int n;
 };
 
 struct Outs {
-  float* t;            // K2: t, tri, u, v
+  float* t;            // K2/K8a: t, tri, u, v
   int* tri;
   float *u, *v;
-  unsigned char* occ;  // K1
+  unsigned char* occ;  // K1/K8b
   int* capped;
   unsigned long long* stats;
 };
-
-constexpr int kWideStepPad = 8192;
 
 // a ray's stack: the top entry in a register, the entries below it in
 // the thread's array `mem` (local memory), mem[0] the bottom
@@ -357,37 +190,38 @@ struct RayStack {
   }
 };
 
-// The state of one ray's wide walk: the pop with its step cap, the
-// cluster decode, the result.
+// The state of one ray's walk: the pop with its step cap, the result,
+// and the lane's counters of `stats` (summed over its rays).
 template <bool kAny>
-struct WideRay {
+struct RayWalk {
+  static constexpr bool kAnyHit = kAny;
   Ray r;
   float tm;
-  float bt;      // K2: best t so far, the slab limit
-  float limit;   // K1: t_max - 1e-3, the slab and hit limit
+  float bt;      // K2/K8a: best t so far, the slab limit
+  float limit;   // K1/K8b: t_max - 1e-3, the slab and hit limit
   int btri;
   float bu, bv;
   bool occ, exact, done;
-  int held;      // the code popped last (node >= 0, cluster < -1)
+  int held;      // the code popped last (node >= 0, cluster < 0)
   int steps, max_steps;
   RayStack st;
-  unsigned long long nodes, slabs, tris;
+  unsigned long long nodes = 0, slabs = 0, tris = 0;
 
+  // ray i (`in`: i < n) from the root, at most `max_pops` pops
   __device__ __forceinline__ void start(const Rays& ra, int i, bool in,
-                                        const Tables& tb, int* mem) {
+                                        int max_pops, int* mem) {
     r = in ? load_ray(ra.ox, ra.oy, ra.oz, ra.dx, ra.dy, ra.dz, i) : Ray{};
     tm = in ? ra.tmax[i] : 0.0f;
     bt = fminf(tm, BIG);
     limit = tm - 1e-3f;
     btri = -1;
     bu = bv = 0.0f;
-    // K1: dead lanes (limit <= 0) report occluded, as the TPU kernels do
+    // K1/K8b: dead lanes (limit <= 0) report occluded, as the TPU kernels do
     occ = kAny && limit <= 0.0f;
     exact = true;
     steps = 0;
-    max_steps = 8 * tb.num_nodes + kWideStepPad;
+    max_steps = max_pops;
     st = RayStack{mem, 0, 0};
-    nodes = slabs = tris = 0;
     held = 0;
     done = !(in && ray_finite(r, tm) && (kAny ? !occ : bt > 0.0f));
     if (!done) { st.push(0); fetch(); }
@@ -395,6 +229,7 @@ struct WideRay {
   __device__ __forceinline__ float slab_limit() const {
     return kAny ? limit : bt;
   }
+  __device__ __forceinline__ void push(int c) { exact &= st.push(c); }
   // the next code, or done once the stack is empty or the cap is reached
   __device__ __forceinline__ void fetch() {
     if (st.sp == 0) { done = true; return; }
@@ -408,26 +243,6 @@ struct WideRay {
   __device__ __forceinline__ bool on_cluster() const {
     return !done && held < 0;
   }
-  __device__ __forceinline__ void cluster(const Tables& tb, int& start,
-                                          int& count) const {
-    const int v = -(held + 1);
-    start = v >> 8;
-    count = v & 255;
-    if (start + count > tb.tri_rows) count = max(tb.tri_rows - start, 0);
-  }
-  // push node `held`'s children in `mask` (bit s: slot s hit) far to
-  // near in the order word's order; child(s) gives slot s's code
-  template <int A, class Child>
-  __device__ __forceinline__ void push_hits(const Tables& tb, unsigned mask,
-                                            Child child) {
-    const unsigned ordw =
-        (unsigned)__ldg(tb.node_child + (size_t)held * 16 + 8 + r.oct);
-#pragma unroll
-    for (int pos = A - 1; pos >= 0; --pos) {
-      const int s = (ordw >> (4 * pos)) & 15;
-      if (mask >> s & 1u) exact &= st.push(child(s));
-    }
-  }
   __device__ __forceinline__ void write(const Outs& o, int i) const {
     if (kAny) {
       o.occ[i] = occ ? 1 : 0;
@@ -440,15 +255,154 @@ struct WideRay {
   }
 };
 
-// capped rays and the counters of `stats`, one atomic a warp; `lead`
-// marks the lanes that carry a ray
+// The layouts. visit() reads node `w.held`, slab-tests its children
+// against w.slab_limit() and pushes the hit ones far to near (the near
+// one is popped next); cluster() decodes a cluster code into its rows.
+template <int A>
+struct Layout {  // K1/K2: arity 4 or 8, children in the octant's order
+  static constexpr int kStepPad = 8192;
+
+  template <bool kStats, class W>
+  static __device__ __forceinline__ void visit(W& w, const Tables& tb) {
+    const float4* row = reinterpret_cast<const float4*>(
+        tb.node_f32 + (size_t)w.held * tb.node_width);
+    const int4* crow =
+        reinterpret_cast<const int4*>(tb.node_child + (size_t)w.held * 16);
+    float b[6 * A];
+    int c[A];
+#pragma unroll
+    for (int k = 0; k < 6 * A / 4; ++k) {
+      const float4 q = __ldg(row + k);
+      b[4 * k] = q.x; b[4 * k + 1] = q.y; b[4 * k + 2] = q.z;
+      b[4 * k + 3] = q.w;
+    }
+#pragma unroll
+    for (int k = 0; k < A / 4; ++k) {
+      const int4 q = __ldg(crow + k);
+      c[4 * k] = q.x; c[4 * k + 1] = q.y; c[4 * k + 2] = q.z;
+      c[4 * k + 3] = q.w;
+    }
+    const float lim = w.slab_limit();
+    unsigned mask = 0;
+#pragma unroll
+    for (int s = 0; s < A; ++s) {
+      if (c[s] == -1) continue;
+      if (kStats) ++w.slabs;
+      float tn;
+      if (slab6(b[6 * s], b[6 * s + 1], b[6 * s + 2], b[6 * s + 3],
+                b[6 * s + 4], b[6 * s + 5], w.r, lim, &tn))
+        mask |= 1u << s;
+    }
+    if (kStats) ++w.nodes;
+    // far to near in the order word of the ray's octant
+    const unsigned ordw =
+        (unsigned)__ldg(tb.node_child + (size_t)w.held * 16 + 8 + w.r.oct);
+#pragma unroll
+    for (int pos = A - 1; pos >= 0; --pos) {
+      const int s = (ordw >> (4 * pos)) & 15;
+      if (mask >> s & 1u) {
+        int cs = c[0];
+#pragma unroll
+        for (int k = 1; k < A; ++k) cs = s == k ? c[k] : cs;
+        w.push(cs);
+      }
+    }
+  }
+  static __device__ __forceinline__ void cluster(const Tables& tb, int code,
+                                                 int& start, int& count) {
+    const int v = -(code + 1);
+    start = v >> 8;
+    count = v & 255;
+    if (start + count > tb.tri_rows) count = max(tb.tri_rows - start, 0);
+  }
+};
+
+template <>
+struct Layout<2> {  // K8a/K8b (pallas_traverse.py:152-183, :188-190, :205-224)
+  static constexpr int kStepPad = 4096;
+
+  template <bool kStats, class W>
+  static __device__ __forceinline__ void visit(W& w, const Tables& tb) {
+    const float4* row =
+        reinterpret_cast<const float4*>(tb.node_f32 + (size_t)w.held * 16);
+    const float4 p = __ldg(row), q = __ldg(row + 1), s = __ldg(row + 2);
+    const int2 c = __ldg(reinterpret_cast<const int2*>(tb.node_child) +
+                         w.held);
+    const float lim = w.slab_limit();
+    float t0, t1;
+    const bool h0 = slab6(p.x, p.y, p.z, p.w, q.x, q.y, w.r, lim, &t0);
+    const bool h1 = slab6(q.z, q.w, s.x, s.y, s.z, s.w, w.r, lim, &t1);
+    if (kStats) { ++w.nodes; w.slabs += 2; }
+    if (W::kAnyHit) {  // slot order
+      if (h0) w.push(c.x);
+      if (h1) w.push(c.y);
+      return;
+    }
+    // by entry t, swapped only when the left one is strictly larger
+    const float m0 = h0 ? t0 : BIG, m1 = h1 ? t1 : BIG;
+    const bool swap = m0 > m1;
+    if ((swap ? m0 : m1) < BIG) w.push(swap ? c.x : c.y);
+    if ((swap ? m1 : m0) < BIG) w.push(swap ? c.y : c.x);
+  }
+  static __device__ __forceinline__ void cluster(const Tables& tb, int code,
+                                                 int& start, int& count) {
+    const int v = -(code + 1);
+    start = min(max(v >> 8, 0), tb.tri_rows - tb.max_cluster);
+    count = min(v & 255, tb.max_cluster);
+  }
+};
+
+// ray indices past the first wave, handed out a warp at a time, and the
+// warps of the launch that have finished (the last one resets both)
+__device__ int g_next_ray = 0;
+__device__ int g_warps_done = 0;
+
+// The lanes of a warp whose ray is done write its result and take the
+// next ray, until every lane holds a live ray or the rays are used up
+// (`dry`); `ncap` counts the lane's capped rays. One atomic a warp a
+// round.
+template <bool kAny, int A, int kBelow, class W>
+__device__ __forceinline__ void refill(W& w, const Rays& ra,
+                                       const Tables& tb, const Outs& o,
+                                       int* mem, int& i, bool& in, bool& dry,
+                                       int& ncap) {
+  if (kBelow < 32 && __popc(__ballot_sync(FULL_MASK, !w.done)) >= kBelow)
+    return;
+  if (w.done && in) {
+    w.write(o, i);
+    ncap += !w.exact;
+    in = false;
+  }
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    const unsigned want = __ballot_sync(FULL_MASK, w.done && !dry);
+    if (!want) return;
+    const int lead = __ffs(want) - 1;
+    int base = 0;
+    if (lane == lead) base = atomicAdd(&g_next_ray, __popc(want));
+    base = __shfl_sync(FULL_MASK, base, lead);
+    if (w.done && !dry) {
+      i = gridDim.x * BLOCK + base + __popc(want & ((1u << lane) - 1u));
+      if (i < ra.n) {
+        w.start(ra, i, true, 8 * tb.num_nodes + Layout<A>::kStepPad, mem);
+        // a ray that needs no walk (dead, NaN) is written at once
+        if (w.done) w.write(o, i);
+        in = !w.done;
+      } else {
+        dry = true;
+      }
+    }
+  }
+}
+
+// capped rays (`ncap` a lane) and the counters of `stats`, one atomic a
+// warp
 template <bool kStats, class W>
-__device__ __forceinline__ void report(const W& w, bool lead, const Outs& o) {
-  const int nc = __popc(__ballot_sync(FULL_MASK, lead && !w.exact));
+__device__ __forceinline__ void report(const W& w, int ncap, const Outs& o) {
+  const int nc = __reduce_add_sync(FULL_MASK, ncap);
   if ((threadIdx.x & 31) == 0 && nc) atomicAdd(o.capped, nc);
   if (kStats) {
-    unsigned long long c[3] = {lead ? w.nodes : 0ull, lead ? w.slabs : 0ull,
-                               lead ? w.tris : 0ull};
+    unsigned long long c[3] = {w.nodes, w.slabs, w.tris};
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
 #pragma unroll
@@ -459,64 +413,34 @@ __device__ __forceinline__ void report(const W& w, bool lead, const Outs& o) {
   }
 }
 
-// K1/K2: one thread a ray, while-while over the warp.
-template <bool kAny, int A, bool kStats>
-__global__ void __launch_bounds__(BLOCK) wide_thread_kernel(Rays ra,
-                                                            Tables tb,
-                                                            Outs o) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool in = i < ra.n;
+// K1/K2 (A = 4, 8) and K8b/K8a (A = 2): one thread a ray, while-while over
+// the warp; with kRefill a lane takes the next ray once its own is done.
+template <bool kAny, int A, bool kStats, int kRefill>
+__device__ __forceinline__ void walk(const Rays& ra, const Tables& tb,
+                                     const Outs& o) {
+  using L = Layout<A>;
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  bool in = i < ra.n;
+  bool dry = !in;
+  int ncap = 0;
   int stack[STACK_DEPTH - 1];
-  WideRay<kAny> w;
-  w.start(ra, i, in, tb, stack);
+  RayWalk<kAny> w;
+  w.start(ra, i, in, 8 * tb.num_nodes + L::kStepPad, stack);
+  if (kRefill) refill<kAny, A, kRefill>(w, ra, tb, o, stack, i, in, dry,
+                                        ncap);
   const float4* tri4 = reinterpret_cast<const float4*>(tb.tri_f32);
   while (__any_sync(FULL_MASK, !w.done)) {
     // nodes, until every lane of the warp holds a cluster or is done
     while (__any_sync(FULL_MASK, w.on_node())) {
       if (!w.on_node()) continue;
-      const float4* row = reinterpret_cast<const float4*>(
-          tb.node_f32 + (size_t)w.held * tb.node_width);
-      const int4* crow =
-          reinterpret_cast<const int4*>(tb.node_child + (size_t)w.held * 16);
-      float b[6 * A];
-      int c[A];
-#pragma unroll
-      for (int k = 0; k < 6 * A / 4; ++k) {
-        const float4 q = __ldg(row + k);
-        b[4 * k] = q.x; b[4 * k + 1] = q.y; b[4 * k + 2] = q.z;
-        b[4 * k + 3] = q.w;
-      }
-#pragma unroll
-      for (int k = 0; k < A / 4; ++k) {
-        const int4 q = __ldg(crow + k);
-        c[4 * k] = q.x; c[4 * k + 1] = q.y; c[4 * k + 2] = q.z;
-        c[4 * k + 3] = q.w;
-      }
-      const float lim = w.slab_limit();
-      unsigned mask = 0;
-#pragma unroll
-      for (int s = 0; s < A; ++s) {
-        if (c[s] == -1) continue;
-        if (kStats) ++w.slabs;
-        float tn;
-        if (slab6(b[6 * s], b[6 * s + 1], b[6 * s + 2], b[6 * s + 3],
-                  b[6 * s + 4], b[6 * s + 5], w.r, lim, &tn))
-          mask |= 1u << s;
-      }
-      if (kStats) ++w.nodes;
-      w.template push_hits<A>(tb, mask, [&](int s) {
-        int cs = c[0];
-#pragma unroll
-        for (int k = 1; k < A; ++k) cs = s == k ? c[k] : cs;
-        return cs;
-      });
+      L::template visit<kStats>(w, tb);
       w.fetch();
     }
     // clusters, until no lane of the warp holds one
     while (__any_sync(FULL_MASK, w.on_cluster())) {
       if (!w.on_cluster()) continue;
       int start, count;
-      w.cluster(tb, start, count);
+      L::cluster(tb, w.held, start, count);
       for (int j = 0; j < count; ++j) {
         float t, u, v;
         int id;
@@ -535,57 +459,97 @@ __global__ void __launch_bounds__(BLOCK) wide_thread_kernel(Rays ra,
       if (kAny && w.occ) w.done = true;
       else w.fetch();
     }
+    if (kRefill)
+      refill<kAny, A, kRefill>(w, ra, tb, o, stack, i, in, dry, ncap);
   }
-  if (in) w.write(o, i);
-  report<kStats>(w, in, o);
+  if (!kRefill && in) {
+    w.write(o, i);
+    ncap = !w.exact;
+  }
+  report<kStats>(w, ncap, o);
+  if (kRefill && (threadIdx.x & 31) == 0) {
+    // every lane of the warp is dry: its last index is past n
+    __threadfence();
+    if (atomicAdd(&g_warps_done, 1) == (int)(gridDim.x * (BLOCK / 32)) - 1) {
+      g_next_ray = 0;
+      g_warps_done = 0;
+      __threadfence();
+    }
+  }
 }
 
-template <class L>
-int launch_closest(const float* ox, const float* oy, const float* oz,
-                   const float* dx, const float* dy, const float* dz,
-                   const float* tmax, int n, Tables tb, float* t_out,
-                   int* tri_out, float* u_out, float* v_out, int* capped,
-                   unsigned long long* stats, void* stream) {
-  if (n > 0) {
-    closest_hit_kernel<L><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
-                            (cudaStream_t)stream>>>(
-        ox, oy, oz, dx, dy, dz, tmax, n, tb, t_out, tri_out, u_out, v_out,
-        capped, stats);
-  }
-  return (int)cudaGetLastError();
+template <bool kAny, int A, bool kStats, int kRefill>
+__global__ void __launch_bounds__(BLOCK) walk_kernel(Rays ra, Tables tb,
+                                                     Outs o) {
+  walk<kAny, A, kStats, kRefill>(ra, tb, o);
+}
+template <bool kAny, int A, bool kStats, int kRefill>
+__global__ void __launch_bounds__(BLOCK, 10) walk_kernel_capped(
+    Rays ra, Tables tb, Outs o) {
+  walk<kAny, A, kStats, kRefill>(ra, tb, o);
 }
 
-template <class L>
-int launch_any(const float* ox, const float* oy, const float* oz,
-               const float* dx, const float* dy, const float* dz,
-               const float* tmax, int n, Tables tb, unsigned char* occ_out,
-               int* capped, unsigned long long* stats, void* stream) {
-  if (n > 0) {
-    any_hit_kernel<L><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
-                        (cudaStream_t)stream>>>(
-        ox, oy, oz, dx, dy, dz, tmax, n, tb, occ_out, capped, stats);
-  }
-  return (int)cudaGetLastError();
-}
+// 0: each binary launch covers its rays with one thread a ray; 1: lane
+// refill over about one wave of resident blocks
+int g_refill = 1;
 
-template <bool kAny, int A>
-int launch_wide_arity(const Rays& ra, const Tables& tb, const Outs& o,
-                      cudaStream_t s) {
-  const int grid = (ra.n + BLOCK - 1) / BLOCK;
-  if (o.stats)
-    wide_thread_kernel<kAny, A, true><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+template <bool kAny, int A, bool kStats, int kRefill, bool kCap>
+int launch_refill(const Rays& ra, const Tables& tb, const Outs& o,
+                  cudaStream_t s, int grid) {
+  // one wave: the blocks that fit on the card at once
+  static int dev_seen = -1, wave = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != dev_seen) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (kCap)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, walk_kernel_capped<kAny, A, kStats, kRefill>, BLOCK, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, walk_kernel<kAny, A, kStats, kRefill>, BLOCK, 0);
+    wave = max(sms * per_sm, 1);
+    dev_seen = dev;
+  }
+  if (kCap)
+    walk_kernel_capped<kAny, A, kStats, kRefill><<<min(grid, wave), BLOCK,
+                                                   0, s>>>(ra, tb, o);
   else
-    wide_thread_kernel<kAny, A, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+    walk_kernel<kAny, A, kStats, kRefill><<<min(grid, wave), BLOCK, 0, s>>>(
+        ra, tb, o);
+  return (int)cudaGetLastError();
+}
+
+template <bool kAny, int A, bool kStats>
+int launch_arity(const Rays& ra, const Tables& tb, const Outs& o,
+                 cudaStream_t s) {
+  const int grid = (ra.n + BLOCK - 1) / BLOCK;
+  if constexpr (A == 2) {
+    if (g_refill == 1)
+      return launch_refill<kAny, A, kStats, 16, false>(ra, tb, o, s, grid);
+    if (g_refill == 2)
+      return launch_refill<kAny, A, kStats, 8, false>(ra, tb, o, s, grid);
+    if (g_refill == 3)
+      return launch_refill<kAny, A, kStats, 16, true>(ra, tb, o, s, grid);
+  }
+  walk_kernel<kAny, A, kStats, 0><<<grid, BLOCK, 0, s>>>(ra, tb, o);
   return (int)cudaGetLastError();
 }
 
 template <bool kAny>
-int launch_wide(const Rays& ra, const Tables& tb, const Outs& o,
-                void* stream) {
+int launch(const Rays& ra, const Tables& tb, const Outs& o, void* stream) {
   if (ra.n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (tb.arity == 4) return launch_wide_arity<kAny, 4>(ra, tb, o, s);
-  if (tb.arity == 8) return launch_wide_arity<kAny, 8>(ra, tb, o, s);
+  const bool st = o.stats != nullptr;
+  switch (tb.arity) {
+    case 2: return st ? launch_arity<kAny, 2, true>(ra, tb, o, s)
+                      : launch_arity<kAny, 2, false>(ra, tb, o, s);
+    case 4: return st ? launch_arity<kAny, 4, true>(ra, tb, o, s)
+                      : launch_arity<kAny, 4, false>(ra, tb, o, s);
+    case 8: return st ? launch_arity<kAny, 8, true>(ra, tb, o, s)
+                      : launch_arity<kAny, 8, false>(ra, tb, o, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -600,6 +564,20 @@ int attributes(K kernel, int* out) {
   return rc;
 }
 
+template <bool kAny>
+int attributes_of(int arity, int* out) {
+  if (arity == 2 && g_refill == 1)
+    return attributes(walk_kernel<kAny, 2, false, 16>, out);
+  if (arity == 2 && g_refill == 2)
+    return attributes(walk_kernel<kAny, 2, false, 8>, out);
+  if (arity == 2 && g_refill == 3)
+    return attributes(walk_kernel_capped<kAny, 2, false, 16>, out);
+  if (arity == 2) return attributes(walk_kernel<kAny, 2, false, 0>, out);
+  if (arity == 4) return attributes(walk_kernel<kAny, 4, false, 0>, out);
+  if (arity == 8) return attributes(walk_kernel<kAny, 8, false, 0>, out);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -608,7 +586,10 @@ int tpt_stack_depth() { return STACK_DEPTH; }
 
 // All pointers are device pointers; `stream` is a cudaStream_t. `stats`,
 // if not null, accumulates (node visits, slab tests, triangle tests).
-// Each returns cudaGetLastError() after the launch (0 = launched).
+// Each returns cudaGetLastError() after the launch (0 = launched). The
+// node table's rows and the triangle table must be 16-byte aligned,
+// node_width a multiple of 4, and the binary node_child 8-byte aligned.
+// cudaErrorInvalidValue for an arity the entry does not take.
 #define TABLES_ARGS                                                        \
   const float *ox, const float *oy, const float *oz, const float *dx,      \
       const float *dy, const float *dz, const float *tmax, int n,          \
@@ -618,54 +599,55 @@ int tpt_stack_depth() { return STACK_DEPTH; }
 #define TABLES                                                             \
   Tables { node_f32, node_width, node_child, num_nodes, tri_f32, tri_rows, \
            arity, max_cluster }
+#define RAYS Rays { ox, oy, oz, dx, dy, dz, tmax, n }
 
-// K2/K1: the node table's rows and the triangle table must be 16-byte
-// aligned and node_width a multiple of 4. cudaErrorInvalidValue for
-// another arity.
+// K2 (arity 4, 8)
 int tpt_packet_closest_hit_wide(TABLES_ARGS,
                                 float* t_out, int* tri_out, float* u_out,
                                 float* v_out, int* capped,
                                 unsigned long long* stats, void* stream) {
-  const Rays ra{ox, oy, oz, dx, dy, dz, tmax, n};
+  if (arity == 2) return (int)cudaErrorInvalidValue;
   const Outs o{t_out, tri_out, u_out, v_out, nullptr, capped, stats};
-  return launch_wide<false>(ra, TABLES, o, stream);
+  return launch<false>(RAYS, TABLES, o, stream);
 }
 
+// K1 (arity 4, 8)
 int tpt_packet_any_hit_wide(TABLES_ARGS, unsigned char* occ_out,
                             int* capped,
                             unsigned long long* stats, void* stream) {
-  const Rays ra{ox, oy, oz, dx, dy, dz, tmax, n};
+  if (arity == 2) return (int)cudaErrorInvalidValue;
   const Outs o{nullptr, nullptr, nullptr, nullptr, occ_out, capped, stats};
-  return launch_wide<true>(ra, TABLES, o, stream);
+  return launch<true>(RAYS, TABLES, o, stream);
 }
 
-// registers a thread, local bytes a thread, static shared bytes a block
-// and the most threads a block of the stats-free K2 (any_hit 0) or K1
-// (any_hit 1) kernel of `arity`, into out[0..3]
-int tpt_packet_wide_attributes(int any_hit, int arity, int* out) {
-  if (arity == 4 && !any_hit)
-    return attributes(wide_thread_kernel<false, 4, false>, out);
-  if (arity == 4 && any_hit)
-    return attributes(wide_thread_kernel<true, 4, false>, out);
-  if (arity == 8 && !any_hit)
-    return attributes(wide_thread_kernel<false, 8, false>, out);
-  if (arity == 8 && any_hit)
-    return attributes(wide_thread_kernel<true, 8, false>, out);
-  return (int)cudaErrorInvalidValue;
-}
-
+// K8a (arity 2)
 int tpt_packet_closest_hit(TABLES_ARGS, float* t_out, int* tri_out,
                            float* u_out, float* v_out, int* capped,
                            unsigned long long* stats, void* stream) {
-  return launch_closest<Binary>(ox, oy, oz, dx, dy, dz, tmax, n, TABLES,
-                                t_out, tri_out, u_out, v_out, capped, stats,
-                                stream);
+  if (arity != 2) return (int)cudaErrorInvalidValue;
+  const Outs o{t_out, tri_out, u_out, v_out, nullptr, capped, stats};
+  return launch<false>(RAYS, TABLES, o, stream);
 }
 
+// K8b (arity 2)
 int tpt_packet_any_hit(TABLES_ARGS, unsigned char* occ_out, int* capped,
                        unsigned long long* stats, void* stream) {
-  return launch_any<Binary>(ox, oy, oz, dx, dy, dz, tmax, n, TABLES, occ_out,
-                            capped, stats, stream);
+  if (arity != 2) return (int)cudaErrorInvalidValue;
+  const Outs o{nullptr, nullptr, nullptr, nullptr, occ_out, capped, stats};
+  return launch<true>(RAYS, TABLES, o, stream);
+}
+
+// lane refill for the binary kernels: 0 off, 1 as soon as a lane is done
+// (the default), 2 once half the warp's lanes are done
+void tpt_packet_set_refill(int mode) { g_refill = mode; }
+
+// registers a thread, local bytes a thread, static shared bytes a block
+// and the most threads a block of the stats-free K2 (any_hit 0) or K1
+// (any_hit 1) kernel of `arity` 4 or 8, or of K8a/K8b for arity 2 (as the
+// refill setting launches it), into out[0..3]
+int tpt_packet_wide_attributes(int any_hit, int arity, int* out) {
+  return any_hit ? attributes_of<true>(arity, out)
+                 : attributes_of<false>(arity, out);
 }
 
 }  // extern "C"
