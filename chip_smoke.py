@@ -44,8 +44,9 @@ command line, `tpt_torch.cli`, rendering the hero on BVH_XLA with SVGF
              on 262,144 live rays (camera primaries and one real diffuse
              bounce of the render, and the NEE shadow rays of both
              bounces), then on all 2,073,600 lanes of each of those casts
-             as the render launches them, dead lanes included; then
-             CUDA-event timings, and K2's and K1's registers a thread
+             as the render launches them, dead lanes included; then each
+             cast timed back to back (kernel_ms) and as one launch
+             between events, and K2's and K1's registers a thread
   flatgroup_check
              K4 (default, groups, any-hit) and K7 (demand, any-hit)
              against their plain versions, bit for bit, on flat groups at
@@ -108,8 +109,11 @@ command line, `tpt_torch.cli`, rendering the hero on BVH_XLA with SVGF
              real diffuse bounce of the binary render, and the NEE shadow
              rays of both bounces), then on all 2,073,600 lanes of each of
              those casts as the render launches them, dead lanes included;
-             CUDA-event timings, bounds from the tests the kernels count,
-             and K2 on the same primaries (wide pack) beside K8a
+             each cast timed back to back and as one launch between
+             events, bounds from the tests the kernels count, K8b with
+             lane refill against one thread a ray in turns, K8a's and
+             K8b's registers, and K2/K1 on the same primaries and shadow
+             rays (wide pack) beside them
   binary_render
              wavefront.render with BVH_PALLAS on the binary pack at 1080p,
              depth 8, with all launch counters zeroed just before and read
@@ -884,10 +888,11 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
                   refill: bool = True) -> tuple:
     """The binary_kernels and binary_render phases on the binary pack
     `bscene` (the wide `scene` times K2 and K1 on the same primaries and
-    shadow rays); with `refill`, each K8a/K8b cast is also timed with lane
-    refill and with one thread a ray, in turns, and K8a/K8b's registers
-    are printed (a tree without lane refill has neither). Returns the K8a
-    and K8b entries of the kernels line and the binary frame's ms."""
+    shadow rays); with `refill`, K8b's shadow casts are also timed with
+    lane refill and with one thread a ray, in turns, and K8a/K8b's
+    registers are printed (a tree without lane refill has neither).
+    Returns the K8a and K8b entries of the kernels line and the binary
+    frame's ms."""
     import torch
 
     from tpt_torch.bvh import packet_traverse as pt
@@ -901,28 +906,22 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
     prim, pool, shd0, shd1 = res.pop("casts")
     if refill:
         print(f"  {walk_registers(2)}")
-        for label, fn, rays in (("K8a primaries", pt.packet_closest_hit, prim),
-                                ("K8a bounce-1 pool", pt.packet_closest_hit,
-                                 pool),
-                                ("K8b bounce-0 shadow", pt.packet_any_hit,
-                                 shd0),
-                                ("K8b bounce-1 shadow", pt.packet_any_hit,
-                                 shd1)):
-            ms = {1: [], 2: [], 3: [], 0: []}
-            for on in (1, 2, 3, 0, 0, 3, 2, 1):
+        for label, rays in (("K8b bounce-0 shadow", shd0),
+                            ("K8b bounce-1 shadow", shd1)):
+            ms = {True: [], False: []}
+            for on in (True, False, False, True):
                 pt.set_refill(on)
-                ms[on].append(kernel_ms(lambda: fn(bscene.pack, *rays),
-                                        KERNEL_REPS))
-            pt.set_refill(1)
-            print(f"  {label}: below 16 {ms[1][0]:.3f}, "
-                  f"{ms[1][1]:.3f} ms; below 8 {ms[2][0]:.3f}, {ms[2][1]:.3f};"
-                  f" below 16 capped {ms[3][0]:.3f}, {ms[3][1]:.3f};"
-                  f" one thread a ray {ms[0][0]:.3f},"
-                  f" {ms[0][1]:.3f} ms (back to back, in turns)")
-        for m in (1, 2, 3, 0):
-            pt.set_refill(m)
-            print(f"  refill mode {m}: {walk_registers(2)}")
-        pt.set_refill(1)
+                ms[on].append(kernel_ms(
+                    lambda: pt.packet_any_hit(bscene.pack, *rays),
+                    KERNEL_REPS))
+            pt.set_refill(True)
+            print(f"  {label}: lane refill {ms[True][0]:.3f}, "
+                  f"{ms[True][1]:.3f} ms; one thread a ray "
+                  f"{ms[False][0]:.3f}, {ms[False][1]:.3f} ms (back to back,"
+                  f" in turns)")
+        pt.set_refill(False)
+        print(f"  K8b without lane refill: {walk_registers(2)}")
+        pt.set_refill(True)
     wide = {}
     for k, fn, rays in (("K2", pt.packet_closest_hit_wide, prim),
                         ("K1", pt.packet_any_hit_wide, shd0)):

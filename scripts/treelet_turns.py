@@ -1,6 +1,6 @@
 """Times the kernels and frames of several checkouts of this repository
 in turns on one card, so that two versions of a kernel source are
-compared within one machine session. Each run is a fresh process,
+compared on the same card in one sitting. Each run is a fresh process,
 started in the checkout, that imports that checkout's `tpt_torch`
 (building its kernels) and runs this checkout's `chip_smoke.py` phases
 on the 1080p fireplace:
@@ -15,7 +15,7 @@ on the 1080p fireplace:
   the primaries and the bounce-1 pool, K8b on the shadow rays of bounces
   0 and 1 (back to back and one launch between events), K2/K1 on the
   same primaries and shadow rays, the binary wavefront frame and the
-  megakernel frames. A checkout whose K8a/K8b have no lane refill
+  megakernel frames. A checkout whose K8b has no lane refill
   (`packet_traverse.set_refill`) skips the refill timings and the
   K8a/K8b registers.
 

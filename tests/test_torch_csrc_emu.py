@@ -6,7 +6,7 @@ one block each) with -ffp-contract=off, and held bit for bit against
 their plain PyTorch versions: K2/K1 on Cornell rays (dead lanes, NaN
 rays, arity 4 and 8, equal-t ties, a cyclic table that caps a ray),
 K8a/K8b on the same rays, on equal-t ties across two clusters and on a
-cyclic table, with and without lane refill, the sweeps on the
+cyclic table, K8b with and without lane refill, the sweeps on the
 flat-group warp and edge pool of `torch_flatgroup`. This checks a kernel's control flow and arithmetic
 before a card runs it; it says nothing of its speed.
 
@@ -251,11 +251,11 @@ def _flat_binary_pack():
 def test_binary_walks_equal_plain(libs, cornell2, case):
     """K8a and K8b, bit for bit with the plain walk: on 300 Cornell rays
     (dead lanes, NaN and infinite rays, short segments; n not a multiple
-    of a block) launched one thread a ray and with lane refill; on
+    of a block), K8b launched one thread a ray and with lane refill; on
     equal-t ties at the shared edge of two clusters (K8a keeps the left
     one, as the plain walk's strict swap and strict t < best do); on a
-    cyclic root that caps every ray once; and on 1000 rays refilled into
-    a launch of 256 lanes (the stand-in's one wave)."""
+    cyclic root that caps every ray once; and on 1000 rays, K8b's
+    refilled into a launch of 256 lanes (the stand-in's one wave)."""
     lib = libs["packet_wide"]
     pack = cornell2.pack
     if case == "cyclic":

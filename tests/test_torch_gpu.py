@@ -2,11 +2,11 @@
 scan, K4 demand sweep with its any-hit and group modes, K7 lane sweep,
 both on flat groups at coordinate 0, K5 a-trous stencil, K6 temporal
 reprojection, K9 treelet scan, K10 treelet closest hit, K11 multi-slot
-scan, K8a/K8b binary closest and any hit, with lane refill and without)
-on the card, each against its plain PyTorch version, and the megakernel
-and the sweep variants on the card against the CPU; the hero scene's
-textured, env-lit casts and renders through the kernels against the
-plain versions and against the CPU.
+scan, K8a/K8b binary closest and any hit, K8b with lane refill and
+without) on the card, each against its plain PyTorch version, and the
+megakernel and the sweep variants on the card against the CPU; the hero
+scene's textured, env-lit casts and renders through the kernels against
+the plain versions and against the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor tpt, so it also runs on a GPU machine without
@@ -1227,9 +1227,10 @@ def test_binary_cyclic_table_is_capped_not_hung(binary_scenes, cuda, kind):
 @pytest.mark.parametrize("n", [1, 31, 4097, 300_000])
 def test_binary_kernels_on_pool_sizes(binary_scenes, cuda, n):
     """K8a and K8b bit-equal to the plain walk on pools of 1 to 300,000
-    random rays in the fireplace (dead, NaN and short lanes), launched
-    with lane refill (300,000 rays outnumber one wave of resident
-    blocks) and with one thread a ray (a ragged last block)."""
+    random rays in the fireplace (dead, NaN and short lanes); K8b
+    launched with lane refill (300,000 rays outnumber one wave of
+    resident blocks) and with one thread a ray, K8a one thread a ray (a
+    ragged last block)."""
     _, data = binary_scenes["fireplace"]
     o, d = _rays(n, [0, 0, 0], [1200, 400, 900], 34, cuda)
     gen = torch.Generator().manual_seed(5)
@@ -1258,7 +1259,7 @@ def test_binary_kernels_on_pool_sizes(binary_scenes, cuda, n):
 
 def test_binary_walk_registers(cuda):
     """K8a and K8b spill nothing to local memory beyond the per-thread
-    stack, with lane refill and without."""
+    stack, K8b with lane refill and without."""
     try:
         for refill in (True, False):
             pt.set_refill(refill)

@@ -27,11 +27,11 @@ lanes' smallest: the closest t is the same, but an equal-t tie on a
 shared edge may name the other triangle. The binary any hit pushes them
 in slot order, as tpt does.
 
-The four kernels share one walk (`csrc/packet_wide.cu`); the binary ones
-also refill lanes: a launch of one wave of resident blocks whose lanes
-take the next ray once theirs is done (`set_refill` turns it off, to
-time the two launches against each other). Either way every ray walks
-alone, so the bits do not change.
+The four kernels share one walk (`csrc/packet_wide.cu`); K8b also
+refills lanes: a launch of one wave of resident blocks whose lanes take
+the next ray once fewer than 8 of their warp are live (`set_refill`
+turns it off, to time the two launches against each other). Either way
+every ray walks alone, so the bits do not change.
 
 Result conventions are `tpt`'s: closest-hit t = FLT_MAX where tri < 0;
 any-hit reports lanes with t_max - 1e-3 <= 0 as occluded (dead lanes).
@@ -109,16 +109,16 @@ def build_kernels() -> None:
 
 
 def set_refill(on: bool) -> None:
-    """Launch K8a/K8b with lane refill (the default) or with one thread a
-    ray over the whole pool; the results are the same bits."""
+    """Launch K8b with lane refill (the default) or with one thread a ray
+    over the whole pool; the results are the same bits."""
     _lib().tpt_packet_set_refill(int(on))
 
 
 def kernel_attributes(any_hit: bool, arity: int) -> dict:
     """Registers a thread, local bytes a thread, static shared bytes a
     block and the most threads a block of the K2 (K1 with `any_hit`)
-    kernel for `arity` 4 or 8, or of K8a (K8b) for arity 2 as
-    `set_refill` launches it, as compiled (without stats)."""
+    kernel for `arity` 4 or 8, or of K8a (K8b, as `set_refill` launches
+    it) for arity 2, as compiled (without stats)."""
     out = (ctypes.c_int * 4)()
     rc = _lib().tpt_packet_wide_attributes(int(any_hit), arity,
                                            ctypes.cast(out, ctypes.c_void_p))

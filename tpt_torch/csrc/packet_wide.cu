@@ -88,14 +88,17 @@
 // The counters of `stats` are compiled in only for launches that ask for
 // them, and capped rays and counters go out as one atomic a warp.
 //
-// Lane refill (kRefill, K8a/K8b): a launch of about one wave of resident
-// blocks whose lanes, once their ray is done, write its result and take
-// the next ray index from a global counter (one atomic a warp), so a
-// warp's lanes stay busy on incoherent casts instead of idling until the
-// warp's longest ray ends. Each ray still walks alone from a fresh stack
-// and step count, so its bits do not change. The counter is reset by the
-// launch's last warp, so launches on one stream follow each other; two
-// refill launches must not run at once on two streams.
+// Lane refill (K8b): a launch of one wave of resident blocks whose lanes,
+// once fewer than 8 of their warp's 32 are live, write their finished
+// rays and take the next ray indices from a global counter (one atomic a
+// warp), so a warp does not idle until its longest ray ends. Each ray
+// still walks alone from a fresh stack and step count, so its bits do not
+// change. On the H100 (PERF.md) it made K8b's bounce-1 shadow rays 8%
+// faster and its bounce-0 ones 2%; K8a it made 10% slower on the camera
+// rays (refilled lanes break a coherent warp's lockstep) and 1-4% faster
+// on the bounce-1 pool, so K8a launches one thread a ray. The counter is
+// reset by the launch's last warp: K8b launches on one stream follow each
+// other, and two must not run at once on two streams.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -256,8 +259,9 @@ struct RayWalk {
 };
 
 // The layouts. visit() reads node `w.held`, slab-tests its children
-// against w.slab_limit() and pushes the hit ones far to near (the near
-// one is popped next); cluster() decodes a cluster code into its rows.
+// against w.slab_limit() and pushes the hit ones in the layout's order
+// (the one pushed last is popped next); cluster() decodes a cluster code
+// into its rows.
 template <int A>
 struct Layout {  // K1/K2: arity 4 or 8, children in the octant's order
   static constexpr int kStepPad = 8192;
@@ -352,22 +356,23 @@ struct Layout<2> {  // K8a/K8b (pallas_traverse.py:152-183, :188-190, :205-224)
   }
 };
 
-// ray indices past the first wave, handed out a warp at a time, and the
-// warps of the launch that have finished (the last one resets both)
+// K8b's lane refill: ray indices past the first wave, handed out a warp
+// at a time, and the warps of the launch that have finished (the last
+// one resets both, so the next launch on the stream finds them at 0)
 __device__ int g_next_ray = 0;
 __device__ int g_warps_done = 0;
+constexpr int kRefillBelow = 8;  // refill once fewer lanes are live
 
-// The lanes of a warp whose ray is done write its result and take the
-// next ray, until every lane holds a live ray or the rays are used up
-// (`dry`); `ncap` counts the lane's capped rays. One atomic a warp a
-// round.
-template <bool kAny, int A, int kBelow, class W>
+// Once fewer than kRefillBelow lanes of the warp are live, the lanes
+// whose ray is done write its result and take the next ray, until every
+// lane holds a live ray or the rays are used up (`dry`); `ncap` counts
+// the lane's capped rays. One atomic a warp a round.
+template <bool kAny, int A, class W>
 __device__ __forceinline__ void refill(W& w, const Rays& ra,
                                        const Tables& tb, const Outs& o,
                                        int* mem, int& i, bool& in, bool& dry,
                                        int& ncap) {
-  if (kBelow < 32 && __popc(__ballot_sync(FULL_MASK, !w.done)) >= kBelow)
-    return;
+  if (__popc(__ballot_sync(FULL_MASK, !w.done)) >= kRefillBelow) return;
   if (w.done && in) {
     w.write(o, i);
     ncap += !w.exact;
@@ -414,10 +419,11 @@ __device__ __forceinline__ void report(const W& w, int ncap, const Outs& o) {
 }
 
 // K1/K2 (A = 4, 8) and K8b/K8a (A = 2): one thread a ray, while-while over
-// the warp; with kRefill a lane takes the next ray once its own is done.
-template <bool kAny, int A, bool kStats, int kRefill>
-__device__ __forceinline__ void walk(const Rays& ra, const Tables& tb,
-                                     const Outs& o) {
+// the warp; with kRefill (K8b) a lane takes the next ray once fewer than
+// kRefillBelow lanes of its warp are live.
+template <bool kAny, int A, bool kStats, bool kRefill>
+__global__ void __launch_bounds__(BLOCK) walk_kernel(Rays ra, Tables tb,
+                                                     Outs o) {
   using L = Layout<A>;
   int i = blockIdx.x * BLOCK + threadIdx.x;
   bool in = i < ra.n;
@@ -426,8 +432,7 @@ __device__ __forceinline__ void walk(const Rays& ra, const Tables& tb,
   int stack[STACK_DEPTH - 1];
   RayWalk<kAny> w;
   w.start(ra, i, in, 8 * tb.num_nodes + L::kStepPad, stack);
-  if (kRefill) refill<kAny, A, kRefill>(w, ra, tb, o, stack, i, in, dry,
-                                        ncap);
+  if (kRefill) refill<kAny, A>(w, ra, tb, o, stack, i, in, dry, ncap);
   const float4* tri4 = reinterpret_cast<const float4*>(tb.tri_f32);
   while (__any_sync(FULL_MASK, !w.done)) {
     // nodes, until every lane of the warp holds a cluster or is done
@@ -459,8 +464,7 @@ __device__ __forceinline__ void walk(const Rays& ra, const Tables& tb,
       if (kAny && w.occ) w.done = true;
       else w.fetch();
     }
-    if (kRefill)
-      refill<kAny, A, kRefill>(w, ra, tb, o, stack, i, in, dry, ncap);
+    if (kRefill) refill<kAny, A>(w, ra, tb, o, stack, i, in, dry, ncap);
   }
   if (!kRefill && in) {
     w.write(o, i);
@@ -478,62 +482,33 @@ __device__ __forceinline__ void walk(const Rays& ra, const Tables& tb,
   }
 }
 
-template <bool kAny, int A, bool kStats, int kRefill>
-__global__ void __launch_bounds__(BLOCK) walk_kernel(Rays ra, Tables tb,
-                                                     Outs o) {
-  walk<kAny, A, kStats, kRefill>(ra, tb, o);
-}
-template <bool kAny, int A, bool kStats, int kRefill>
-__global__ void __launch_bounds__(BLOCK, 10) walk_kernel_capped(
-    Rays ra, Tables tb, Outs o) {
-  walk<kAny, A, kStats, kRefill>(ra, tb, o);
-}
-
-// 0: each binary launch covers its rays with one thread a ray; 1: lane
-// refill over about one wave of resident blocks
+// K8b with lane refill (1, the default) or one thread a ray (0)
 int g_refill = 1;
-
-template <bool kAny, int A, bool kStats, int kRefill, bool kCap>
-int launch_refill(const Rays& ra, const Tables& tb, const Outs& o,
-                  cudaStream_t s, int grid) {
-  // one wave: the blocks that fit on the card at once
-  static int dev_seen = -1, wave = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev != dev_seen) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (kCap)
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, walk_kernel_capped<kAny, A, kStats, kRefill>, BLOCK, 0);
-    else
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, walk_kernel<kAny, A, kStats, kRefill>, BLOCK, 0);
-    wave = max(sms * per_sm, 1);
-    dev_seen = dev;
-  }
-  if (kCap)
-    walk_kernel_capped<kAny, A, kStats, kRefill><<<min(grid, wave), BLOCK,
-                                                   0, s>>>(ra, tb, o);
-  else
-    walk_kernel<kAny, A, kStats, kRefill><<<min(grid, wave), BLOCK, 0, s>>>(
-        ra, tb, o);
-  return (int)cudaGetLastError();
-}
 
 template <bool kAny, int A, bool kStats>
 int launch_arity(const Rays& ra, const Tables& tb, const Outs& o,
                  cudaStream_t s) {
   const int grid = (ra.n + BLOCK - 1) / BLOCK;
-  if constexpr (A == 2) {
-    if (g_refill == 1)
-      return launch_refill<kAny, A, kStats, 16, false>(ra, tb, o, s, grid);
-    if (g_refill == 2)
-      return launch_refill<kAny, A, kStats, 8, false>(ra, tb, o, s, grid);
-    if (g_refill == 3)
-      return launch_refill<kAny, A, kStats, 16, true>(ra, tb, o, s, grid);
+  if constexpr (kAny && A == 2) {
+    if (g_refill) {
+      // one wave: the blocks that fit on the card at once
+      static int dev_seen = -1, wave = 0;
+      int dev = 0;
+      cudaGetDevice(&dev);
+      if (dev != dev_seen) {
+        int sms = 0, per_sm = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, walk_kernel<kAny, A, kStats, true>, BLOCK, 0);
+        wave = max(sms * per_sm, 1);
+        dev_seen = dev;
+      }
+      walk_kernel<kAny, A, kStats, true><<<min(grid, wave), BLOCK, 0, s>>>(
+          ra, tb, o);
+      return (int)cudaGetLastError();
+    }
   }
-  walk_kernel<kAny, A, kStats, 0><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+  walk_kernel<kAny, A, kStats, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
   return (int)cudaGetLastError();
 }
 
@@ -566,15 +541,11 @@ int attributes(K kernel, int* out) {
 
 template <bool kAny>
 int attributes_of(int arity, int* out) {
-  if (arity == 2 && g_refill == 1)
-    return attributes(walk_kernel<kAny, 2, false, 16>, out);
-  if (arity == 2 && g_refill == 2)
-    return attributes(walk_kernel<kAny, 2, false, 8>, out);
-  if (arity == 2 && g_refill == 3)
-    return attributes(walk_kernel_capped<kAny, 2, false, 16>, out);
-  if (arity == 2) return attributes(walk_kernel<kAny, 2, false, 0>, out);
-  if (arity == 4) return attributes(walk_kernel<kAny, 4, false, 0>, out);
-  if (arity == 8) return attributes(walk_kernel<kAny, 8, false, 0>, out);
+  if (arity == 2 && kAny && g_refill)
+    return attributes(walk_kernel<kAny, 2, false, true>, out);
+  if (arity == 2) return attributes(walk_kernel<kAny, 2, false, false>, out);
+  if (arity == 4) return attributes(walk_kernel<kAny, 4, false, false>, out);
+  if (arity == 8) return attributes(walk_kernel<kAny, 8, false, false>, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -637,14 +608,13 @@ int tpt_packet_any_hit(TABLES_ARGS, unsigned char* occ_out, int* capped,
   return launch<true>(RAYS, TABLES, o, stream);
 }
 
-// lane refill for the binary kernels: 0 off, 1 as soon as a lane is done
-// (the default), 2 once half the warp's lanes are done
-void tpt_packet_set_refill(int mode) { g_refill = mode; }
+// K8b's lane refill on (1, the default) or off (0)
+void tpt_packet_set_refill(int on) { g_refill = on ? 1 : 0; }
 
 // registers a thread, local bytes a thread, static shared bytes a block
 // and the most threads a block of the stats-free K2 (any_hit 0) or K1
-// (any_hit 1) kernel of `arity` 4 or 8, or of K8a/K8b for arity 2 (as the
-// refill setting launches it), into out[0..3]
+// (any_hit 1) kernel of `arity` 4 or 8, or of K8a/K8b for arity 2 (K8b as
+// the refill setting launches it), into out[0..3]
 int tpt_packet_wide_attributes(int any_hit, int arity, int* out) {
   return any_hit ? attributes_of<true>(arity, out)
                  : attributes_of<false>(arity, out);
