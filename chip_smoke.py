@@ -110,8 +110,7 @@ command line, `tpt_torch.cli`, rendering the hero on BVH_XLA with SVGF
              rays of both bounces), then on all 2,073,600 lanes of each of
              those casts as the render launches them, dead lanes included;
              each cast timed back to back and as one launch between
-             events, bounds from the tests the kernels count, K8b with
-             lane refill against one thread a ray in turns, K8a's and
+             events, bounds from the tests the kernels count, K8a's and
              K8b's registers, and K2/K1 on the same primaries and shadow
              rays (wide pack) beside them
   binary_render
@@ -264,6 +263,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 WATCHDOG_S = 600          # whole run, builds included
 T_START = time.perf_counter()
@@ -826,15 +826,18 @@ def cast_phase(scene, cam, dev, names: tuple, closest, any_hit,
         ms, ev_ms = kernel_ms(launch, KERNEL_REPS), cuda_time_ms(
             launch, TIMING_REPS)
         b_ms, b_by = bound(pack, rays[2].numel(), out_bytes, stats.cpu())
-        out[label] = (ms, b_ms, b_by)
+        out[label] = (ms, b_ms, b_by, ev_ms)
         print(f"  {kernel} {label}: {ms:.3f} ms back to back "
               f"({rays[2].numel() / (ms * 1e-3) / 1e6:.1f} Mrays/s), one "
               f"launch between events {ev_ms:.3f} ms, bound {b_ms:.3f} ms "
               f"({b_by}); {tests_done(stats.cpu())}")
     print(f"  plain: {kc} primaries {c_plain_ms:.1f} ms, {ka} bounce-0 "
           f"shadow {a_plain_ms:.1f} ms")
+    # `ms` is the back-to-back time; one launch between events (what
+    # older kernels lines gave as `ms`) stands beside it as ms_one_launch
     entry = lambda label, err, plain_ms: dict(
-        max_abs_err=err, ms=out[label][0], plain_ms=plain_ms,
+        max_abs_err=err, ms=out[label][0], timing="back_to_back",
+        ms_one_launch=out[label][3], plain_ms=plain_ms,
         bound_ms=out[label][1], bound_by=out[label][2])
     return dict(lanes=n, casts=(prim, pool, shd0, shd1),
                 closest=entry("primaries", c_err, c_plain_ms),
@@ -884,17 +887,13 @@ def walk_registers(arity: int) -> str:
         for k, a in zip(names, (0, 1)))
 
 
-def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
-                  refill: bool = True) -> tuple:
+def binary_phases(scene, bscene, cam, dev,
+                  pallas_frame_ms: Optional[float]) -> tuple:
     """The binary_kernels and binary_render phases on the binary pack
     `bscene` (the wide `scene` times K2 and K1 on the same primaries and
-    shadow rays); with `refill`, K8b's shadow casts are also timed with
-    lane refill and with one thread a ray, in turns, and K8a/K8b's
-    registers are printed (a tree without lane refill has neither).
-    Returns the K8a and K8b entries of the kernels line and the binary
-    frame's ms."""
-    import torch
-
+    shadow rays); the binary frame is set beside the wide BVH_PALLAS
+    frame `pallas_frame_ms` of the run, if one was measured. Returns the
+    K8a and K8b entries of the kernels line and the binary frame's ms."""
     from tpt_torch.bvh import packet_traverse as pt
     from tpt_torch.config import RayCastBackend, RenderConfig
 
@@ -904,24 +903,7 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
                      pt.packet_any_hit, pt.closest_hit_plain,
                      pt.any_hit_plain)
     prim, pool, shd0, shd1 = res.pop("casts")
-    if refill:
-        print(f"  {walk_registers(2)}")
-        for label, rays in (("K8b bounce-0 shadow", shd0),
-                            ("K8b bounce-1 shadow", shd1)):
-            ms = {True: [], False: []}
-            for on in (True, False, False, True):
-                pt.set_refill(on)
-                ms[on].append(kernel_ms(
-                    lambda: pt.packet_any_hit(bscene.pack, *rays),
-                    KERNEL_REPS))
-            pt.set_refill(True)
-            print(f"  {label}: lane refill {ms[True][0]:.3f}, "
-                  f"{ms[True][1]:.3f} ms; one thread a ray "
-                  f"{ms[False][0]:.3f}, {ms[False][1]:.3f} ms (back to back,"
-                  f" in turns)")
-        pt.set_refill(False)
-        print(f"  K8b without lane refill: {walk_registers(2)}")
-        pt.set_refill(True)
+    print(f"  {walk_registers(2)}")
     wide = {}
     for k, fn, rays in (("K2", pt.packet_closest_hit_wide, prim),
                         ("K1", pt.packet_any_hit_wide, shd0)):
@@ -946,9 +928,10 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
     frame_ms, launches, img, rc = render_phase(
         "binary render", bscene, cam, cfg, BINARY_FRAMES,
         dict(packet_closest_hit=DEPTH, packet_any_hit=DEPTH), 400)
-    print(f"  against the wide BVH_PALLAS frame of this run: "
-          f"{frame_ms / pallas_frame_ms:.2f}x ({frame_ms:.1f} ms vs "
-          f"{pallas_frame_ms:.1f} ms)")
+    if pallas_frame_ms is not None:
+        print(f"  against the wide BVH_PALLAS frame of this run: "
+              f"{frame_ms / pallas_frame_ms:.2f}x ({frame_ms:.1f} ms vs "
+              f"{pallas_frame_ms:.1f} ms)")
     phase("binary_render", t0, frame_ms=f"{frame_ms:.1f}",
           mpaths_s=f"{cam.num_pixels / (frame_ms * 1e-3) / 1e6:.3f}",
           launches=json.dumps({k: launches[k] for k in BINARY + WIDE}
@@ -969,11 +952,12 @@ def binary_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
     return entries, frame_ms
 
 
-def mega_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
+def mega_phases(scene, bscene, cam, dev, pallas_frame_ms: Optional[float],
                 binary_frame_ms: float, agreement: bool = True) -> None:
     """The mega_render and mega_agreement (unless not `agreement`) phases:
     the megakernel through the engine on the binary pack (K8a/K8b) and on
-    the wide one (K2/K1)."""
+    the wide one (K2/K1), beside the wavefront frames of the run (the
+    wide one if `pallas_frame_ms` was measured)."""
     import numpy as np
     import torch
 
@@ -1027,11 +1011,12 @@ def mega_phases(scene, bscene, cam, dev, pallas_frame_ms: float,
                            "capped rays")
     check_image("megakernel (wide pack)", wimg)
     mp = lambda ms: npx / (ms * 1e-3) / 1e6
+    wide_wf = ("" if pallas_frame_ms is None
+               else f", wide {pallas_frame_ms:.1f} ms")
     print(f"  {MEGA_FRAMES} frames after a warm-up frame: binary pack "
           f"{frame_ms:.1f} ms a frame ({mp(frame_ms):.3f} Mpaths/s), wide "
           f"pack {wide_ms:.1f} ms ({mp(wide_ms):.3f} Mpaths/s); wavefront "
-          f"frames of this run: binary {binary_frame_ms:.1f} ms, wide "
-          f"{pallas_frame_ms:.1f} ms")
+          f"frames of this run: binary {binary_frame_ms:.1f} ms{wide_wf}")
     phase("mega_render", t0, frame_ms=f"{frame_ms:.1f}",
           mpaths_s=f"{mp(frame_ms):.3f}", wide_ms=f"{wide_ms:.1f}",
           busy=f"{busy:.3f}",
@@ -1852,9 +1837,12 @@ def svgf_phases(scene, cam, dev) -> list:
     ]
 
 
-def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
-    """The treelet_kernels, treelet_render and treelet_agreement phases;
-    returns the K9 and K10 entries of the kernels line."""
+def treelet_phases(scene, cam, dev,
+                   pallas_frame_ms: Optional[float]) -> list:
+    """The treelet_kernels, treelet_render and treelet_agreement phases,
+    the frame beside the BVH_PALLAS frame `pallas_frame_ms` of the run if
+    one was measured; returns the K9 and K10 entries of the kernels
+    line."""
     import numpy as np
     import torch
 
@@ -2173,9 +2161,10 @@ def treelet_phases(scene, cam, dev, pallas_frame_ms: float) -> list:
           f"{host_ms:.1f} ms); " + "; ".join(
               f"{k} {v:.1f} ms ({100 * v / f_ms:.1f}%)"
               for k, v in split.items()))
-    print(f"  against the BVH_PALLAS frame of this run: "
-          f"{frame_ms / pallas_frame_ms:.2f}x ({frame_ms:.1f} ms vs "
-          f"{pallas_frame_ms:.1f} ms)")
+    if pallas_frame_ms is not None:
+        print(f"  against the BVH_PALLAS frame of this run: "
+              f"{frame_ms / pallas_frame_ms:.2f}x ({frame_ms:.1f} ms vs "
+              f"{pallas_frame_ms:.1f} ms)")
     phase("treelet_render", t0, frame_ms=f"{frame_ms:.1f}",
           mpaths_s=f"{cam.num_pixels / (frame_ms * 1e-3) / 1e6:.3f}",
           launches=json.dumps(launches).replace(" ", ""),

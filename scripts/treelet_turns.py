@@ -15,9 +15,11 @@ on the 1080p fireplace:
   the primaries and the bounce-1 pool, K8b on the shadow rays of bounces
   0 and 1 (back to back and one launch between events), K2/K1 on the
   same primaries and shadow rays, the binary wavefront frame and the
-  megakernel frames. A checkout whose K8b has no lane refill
-  (`packet_traverse.set_refill`) skips the refill timings and the
-  K8a/K8b registers.
+  megakernel frames. A checkout whose library reports no arity-2
+  attributes (one older than the shared walk) prints no K8a/K8b
+  registers.
+
+No wide BVH_PALLAS frame is rendered, so no frame is set beside one.
 
 Parent, change, change, parent:
 
@@ -60,15 +62,21 @@ if PHASES == "treelet":
     cs.TREELET_PLAIN_RENDER_S = float("inf")   # treelet_agreement refuses
     tlt.build_kernels()
     try:
-        cs.treelet_phases(scene, host.camera, dev, 1.0)
+        cs.treelet_phases(scene, host.camera, dev, None)
     except RuntimeError as e:
         if "treelet_agreement" not in str(e):
             raise
 else:
+    try:
+        pt.kernel_attributes(False, 2)
+    except RuntimeError:
+        walk_registers = cs.walk_registers
+        cs.walk_registers = lambda arity: (
+            "K8a/K8b registers not reported by this tree" if arity == 2
+            else walk_registers(arity))
     bscene = host.build(with_bvh=True, packet_arity=2, device=dev)
-    _, binary_ms = cs.binary_phases(scene, bscene, host.camera, dev, 1.0,
-                                    refill=hasattr(pt, "set_refill"))
-    cs.mega_phases(scene, bscene, host.camera, dev, 1.0, binary_ms,
+    _, binary_ms = cs.binary_phases(scene, bscene, host.camera, dev, None)
+    cs.mega_phases(scene, bscene, host.camera, dev, None, binary_ms,
                    agreement=False)
 '''
 

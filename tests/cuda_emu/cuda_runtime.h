@@ -282,8 +282,6 @@ inline int __syncthreads_count(int p) { return emu::block_count(p); }
 inline int __syncthreads_or(int p) { return emu::block_count(p) != 0; }
 
 // one thread runs at a time, so atomics are plain read-modify-writes
-// and a fence orders nothing
-inline void __threadfence() {}
 inline int atomicAdd(int* p, int v) {
   const int old = *p;
   *p += v;

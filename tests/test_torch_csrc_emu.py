@@ -6,7 +6,7 @@ one block each) with -ffp-contract=off, and held bit for bit against
 their plain PyTorch versions: K2/K1 on Cornell rays (dead lanes, NaN
 rays, arity 4 and 8, equal-t ties, a cyclic table that caps a ray),
 K8a/K8b on the same rays, on equal-t ties across two clusters and on a
-cyclic table, K8b with and without lane refill, the sweeps on the
+cyclic table, K8b's lane refill, the sweeps on the
 flat-group warp and edge pool of `torch_flatgroup`. This checks a kernel's control flow and arithmetic
 before a card runs it; it says nothing of its speed.
 
@@ -138,7 +138,8 @@ def _cast(lib, pack, o, d, t_max, any_hit):
     """K2 (K1 with `any_hit`) of the emulated library, or K8a (K8b) for a
     binary pack: (result, capped, stats)."""
     n = t_max.numel()
-    capped = torch.zeros(1, dtype=torch.int32)
+    # the capped count; K8b also takes its lane-refill counter in slot 1
+    capped = torch.zeros(2, dtype=torch.int32)
     stats = torch.zeros(3, dtype=torch.int64)
     args = [_p(a) for a in (o.x, o.y, o.z, d.x, d.y, d.z, t_max)]
     args += [n, _p(pack.node_f32), pack.node_f32.shape[1], _p(pack.node_child),
@@ -251,11 +252,12 @@ def _flat_binary_pack():
 def test_binary_walks_equal_plain(libs, cornell2, case):
     """K8a and K8b, bit for bit with the plain walk: on 300 Cornell rays
     (dead lanes, NaN and infinite rays, short segments; n not a multiple
-    of a block), K8b launched one thread a ray and with lane refill; on
-    equal-t ties at the shared edge of two clusters (K8a keeps the left
-    one, as the plain walk's strict swap and strict t < best do); on a
-    cyclic root that caps every ray once; and on 1000 rays, K8b's
-    refilled into a launch of 256 lanes (the stand-in's one wave)."""
+    of a block; K8b's 44 rays past the stand-in's 256-lane wave go to
+    refilled lanes); on equal-t ties at the shared edge of two clusters
+    (K8a keeps the left one, as the plain walk's strict swap and strict
+    t < best do); on a cyclic root that caps every ray once; and on 1000
+    rays, K8b's refilled into a launch of 256 lanes (the stand-in's one
+    wave)."""
     lib = libs["packet_wide"]
     pack = cornell2.pack
     if case == "cyclic":
@@ -277,15 +279,13 @@ def test_binary_walks_equal_plain(libs, cornell2, case):
     want, cap = pt.closest_hit_plain(pack, o, d, t_max)
     occ_want, cap_a = pt.any_hit_plain(pack, o, d, t_max)
     assert int(cap) == 0 and int(cap_a) == 0
-    for refill in ((0, 1) if case == "cornell" else (1,)):
-        lib.tpt_packet_set_refill(ctypes.c_int(refill))
-        got, capped, stats = _cast(lib, pack, o, d, t_max, False)
-        for a, b in zip(got, (want.t, want.tri, want.u, want.v)):
-            assert torch.equal(_bits(a), _bits(b)), refill
-        occ, capped_a, _ = _cast(lib, pack, o, d, t_max, True)
-        assert torch.equal(occ, occ_want), refill
-        assert capped == 0 and capped_a == 0
-        assert int(stats[1]) == 2 * int(stats[0]) > 0
+    got, capped, stats = _cast(lib, pack, o, d, t_max, False)
+    for a, b in zip(got, (want.t, want.tri, want.u, want.v)):
+        assert torch.equal(_bits(a), _bits(b))
+    occ, capped_a, _ = _cast(lib, pack, o, d, t_max, True)
+    assert torch.equal(occ, occ_want)
+    assert capped == 0 and capped_a == 0
+    assert int(stats[1]) == 2 * int(stats[0]) > 0
     if case == "ties":
         assert bool((want.tri == 0).any()) and bool((want.tri == 1).any())
     else:

@@ -2,8 +2,8 @@
 scan, K4 demand sweep with its any-hit and group modes, K7 lane sweep,
 both on flat groups at coordinate 0, K5 a-trous stencil, K6 temporal
 reprojection, K9 treelet scan, K10 treelet closest hit, K11 multi-slot
-scan, K8a/K8b binary closest and any hit, K8b with lane refill and
-without) on the card, each against its plain PyTorch version, and the
+scan, K8a/K8b binary closest and any hit, K8b with lane refill) on the
+card, each against its plain PyTorch version, and the
 megakernel and the sweep variants on the card against the CPU; the hero
 scene's textured, env-lit casts and renders through the kernels against
 the plain versions and against the CPU.
@@ -1227,10 +1227,9 @@ def test_binary_cyclic_table_is_capped_not_hung(binary_scenes, cuda, kind):
 @pytest.mark.parametrize("n", [1, 31, 4097, 300_000])
 def test_binary_kernels_on_pool_sizes(binary_scenes, cuda, n):
     """K8a and K8b bit-equal to the plain walk on pools of 1 to 300,000
-    random rays in the fireplace (dead, NaN and short lanes); K8b
-    launched with lane refill (300,000 rays outnumber one wave of
-    resident blocks) and with one thread a ray, K8a one thread a ray (a
-    ragged last block)."""
+    random rays in the fireplace (dead, NaN and short lanes); K8b with
+    lane refill (300,000 rays outnumber one wave of resident blocks), K8a
+    one thread a ray (a ragged last block)."""
     _, data = binary_scenes["fireplace"]
     o, d = _rays(n, [0, 0, 0], [1200, 400, 900], 34, cuda)
     gen = torch.Generator().manual_seed(5)
@@ -1242,34 +1241,45 @@ def test_binary_kernels_on_pool_sizes(binary_scenes, cuda, n):
     want, cap_p = pt.closest_hit_plain(data.pack, o, d, t_max)
     occ_p, cap_pa = pt.any_hit_plain(data.pack, o, d, t_max)
     assert int(cap_p) == 0 and int(cap_pa) == 0
-    try:
-        for refill in (True, False):
-            pt.set_refill(refill)
-            got, cap = pt.packet_closest_hit(data.pack, o, d, t_max)
-            for f in ("t", "tri", "u", "v"):
-                _bits_equal(getattr(got, f), getattr(want, f))
-            occ, cap_a = pt.packet_any_hit(data.pack, o, d, t_max)
-            assert torch.equal(occ, occ_p), refill
-            assert int(cap) == 0 and int(cap_a) == 0, refill
-    finally:
-        pt.set_refill(True)
+    got, cap = pt.packet_closest_hit(data.pack, o, d, t_max)
+    for f in ("t", "tri", "u", "v"):
+        _bits_equal(getattr(got, f), getattr(want, f))
+    occ, cap_a = pt.packet_any_hit(data.pack, o, d, t_max)
+    assert torch.equal(occ, occ_p)
+    assert int(cap) == 0 and int(cap_a) == 0
     if n > 1:
         assert bool((want.tri >= 0).any()) and bool(occ_p.any())
 
 
+def test_binary_any_hit_on_two_streams_at_once(binary_scenes, cuda):
+    """K8b launched on two streams at once, each over 300,000 rays: each
+    launch takes its rays from a refill counter of its own, so both
+    results are the plain walk's."""
+    _, data = binary_scenes["fireplace"]
+    n = 300_000
+    o, d = _rays(n, [0, 0, 0], [1200, 400, 900], 36, cuda)
+    t_max = torch.full((n,), 500.0, device=cuda)
+    occ_p, cap_p = pt.any_hit_plain(data.pack, o, d, t_max)
+    assert int(cap_p) == 0
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    got = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            got.append(pt.packet_any_hit(data.pack, o, d, t_max))
+    torch.cuda.synchronize()
+    for occ, cap in got:
+        assert torch.equal(occ, occ_p) and int(cap) == 0
+    assert bool(occ_p.any())
+
+
 def test_binary_walk_registers(cuda):
     """K8a and K8b spill nothing to local memory beyond the per-thread
-    stack, K8b with lane refill and without."""
-    try:
-        for refill in (True, False):
-            pt.set_refill(refill)
-            for any_hit in (False, True):
-                a = pt.kernel_attributes(any_hit, 2)
-                assert 0 < a["regs"] <= 255 and a["max_threads"] >= 128
-                assert a["local_bytes"] <= 4 * (pt.STACK_DEPTH - 1) + 16, (
-                    refill, any_hit, a)
-    finally:
-        pt.set_refill(True)
+    stack (its 63 entries, 252 bytes, take a 256-byte frame)."""
+    for any_hit in (False, True):
+        a = pt.kernel_attributes(any_hit, 2)
+        assert 0 < a["regs"] <= 255 and a["max_threads"] >= 128
+        assert a["local_bytes"] <= 4 * pt.STACK_DEPTH, (any_hit, a)
 
 
 def test_binary_launch_refuses_misaligned_tables(binary_scenes, cuda):

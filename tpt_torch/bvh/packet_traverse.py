@@ -29,9 +29,9 @@ in slot order, as tpt does.
 
 The four kernels share one walk (`csrc/packet_wide.cu`); K8b also
 refills lanes: a launch of one wave of resident blocks whose lanes take
-the next ray once fewer than 8 of their warp are live (`set_refill`
-turns it off, to time the two launches against each other). Either way
-every ray walks alone, so the bits do not change.
+the next ray from a counter of the launch's own once fewer than 8 of
+their warp are live. Every ray still walks alone, so the bits do not
+change.
 
 Result conventions are `tpt`'s: closest-hit t = FLT_MAX where tri < 0;
 any-hit reports lanes with t_max - 1e-3 <= 0 as occluded (dead lanes).
@@ -92,8 +92,6 @@ def _lib() -> ctypes.CDLL:
             any_hit.argtypes = common + [p] * 4
         lib.tpt_packet_wide_attributes.restype = ctypes.c_int
         lib.tpt_packet_wide_attributes.argtypes = [i, i, p]
-        lib.tpt_packet_set_refill.restype = None
-        lib.tpt_packet_set_refill.argtypes = [i]
         lib.tpt_stack_depth.restype = ctypes.c_int
         lib.tpt_stack_depth.argtypes = []
         if lib.tpt_stack_depth() != STACK_DEPTH:
@@ -108,17 +106,11 @@ def build_kernels() -> None:
     _lib()
 
 
-def set_refill(on: bool) -> None:
-    """Launch K8b with lane refill (the default) or with one thread a ray
-    over the whole pool; the results are the same bits."""
-    _lib().tpt_packet_set_refill(int(on))
-
-
 def kernel_attributes(any_hit: bool, arity: int) -> dict:
     """Registers a thread, local bytes a thread, static shared bytes a
     block and the most threads a block of the K2 (K1 with `any_hit`)
-    kernel for `arity` 4 or 8, or of K8a (K8b, as `set_refill` launches
-    it) for arity 2, as compiled (without stats)."""
+    kernel for `arity` 4 or 8, or of K8a (K8b) for arity 2, as compiled
+    (without stats)."""
     out = (ctypes.c_int * 4)()
     rc = _lib().tpt_packet_wide_attributes(int(any_hit), arity,
                                            ctypes.cast(out, ctypes.c_void_p))
@@ -267,9 +259,10 @@ def packet_any_hit(pack: PacketBVH, ori: Vec3, d: Vec3, t_max: torch.Tensor,
     if dev.type == "cpu":
         return any_hit_plain(pack, ori, d, t_max)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
-    capped = torch.zeros((), dtype=torch.int32, device=dev)
-    _launch("packet_any_hit", pack, ori, d, t_max, (occ,), capped, stats)
-    return occ, capped
+    # the capped count and the launch's lane-refill counter
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    _launch("packet_any_hit", pack, ori, d, t_max, (occ,), counts, stats)
+    return occ, counts[0]
 
 
 # ---------------------------------------------------------------------------

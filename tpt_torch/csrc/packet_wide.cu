@@ -90,15 +90,13 @@
 //
 // Lane refill (K8b): a launch of one wave of resident blocks whose lanes,
 // once fewer than 8 of their warp's 32 are live, write their finished
-// rays and take the next ray indices from a global counter (one atomic a
-// warp), so a warp does not idle until its longest ray ends. Each ray
-// still walks alone from a fresh stack and step count, so its bits do not
-// change. On the H100 (PERF.md) it made K8b's bounce-1 shadow rays 8%
-// faster and its bounce-0 ones 2%; K8a it made 10% slower on the camera
-// rays (refilled lanes break a coherent warp's lockstep) and 1-4% faster
-// on the bounce-1 pool, so K8a launches one thread a ray. The counter is
-// reset by the launch's last warp: K8b launches on one stream follow each
-// other, and two must not run at once on two streams.
+// rays and take the next ray indices from a counter of the launch's own
+// (one atomic a warp), so a warp does not idle until its longest ray
+// ends. Each ray still walks alone from a fresh stack and step count, so
+// its bits do not change. On the H100 (PERF.md) it made K8b's bounce-1
+// shadow rays 8% faster and its bounce-0 ones 2%; K8a it made 10% slower
+// on the camera rays (refilled lanes break a coherent warp's lockstep)
+// and 1-4% faster on the bounce-1 pool, so K8a launches one thread a ray.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,6 +166,7 @@ struct Outs {
   float *u, *v;
   unsigned char* occ;  // K1/K8b
   int* capped;
+  int* next;           // K8b: the launch's ray counter (capped + 1)
   unsigned long long* stats;
 };
 
@@ -356,17 +355,17 @@ struct Layout<2> {  // K8a/K8b (pallas_traverse.py:152-183, :188-190, :205-224)
   }
 };
 
-// K8b's lane refill: ray indices past the first wave, handed out a warp
-// at a time, and the warps of the launch that have finished (the last
-// one resets both, so the next launch on the stream finds them at 0)
-__device__ int g_next_ray = 0;
-__device__ int g_warps_done = 0;
-constexpr int kRefillBelow = 8;  // refill once fewer lanes are live
+// K8b refills its lanes, once fewer than kRefillBelow of a warp are
+// live; K1, K2 and K8a launch a thread a ray
+template <bool kAny, int A>
+constexpr bool kRefill = kAny && A == 2;
+constexpr int kRefillBelow = 8;
 
 // Once fewer than kRefillBelow lanes of the warp are live, the lanes
 // whose ray is done write its result and take the next ray, until every
 // lane holds a live ray or the rays are used up (`dry`); `ncap` counts
-// the lane's capped rays. One atomic a warp a round.
+// the lane's capped rays. The indices past the first wave come from the
+// launch's counter o.next, one atomic a warp a round.
 template <bool kAny, int A, class W>
 __device__ __forceinline__ void refill(W& w, const Rays& ra,
                                        const Tables& tb, const Outs& o,
@@ -384,7 +383,7 @@ __device__ __forceinline__ void refill(W& w, const Rays& ra,
     if (!want) return;
     const int lead = __ffs(want) - 1;
     int base = 0;
-    if (lane == lead) base = atomicAdd(&g_next_ray, __popc(want));
+    if (lane == lead) base = atomicAdd(o.next, __popc(want));
     base = __shfl_sync(FULL_MASK, base, lead);
     if (w.done && !dry) {
       i = gridDim.x * BLOCK + base + __popc(want & ((1u << lane) - 1u));
@@ -419,9 +418,9 @@ __device__ __forceinline__ void report(const W& w, int ncap, const Outs& o) {
 }
 
 // K1/K2 (A = 4, 8) and K8b/K8a (A = 2): one thread a ray, while-while over
-// the warp; with kRefill (K8b) a lane takes the next ray once fewer than
-// kRefillBelow lanes of its warp are live.
-template <bool kAny, int A, bool kStats, bool kRefill>
+// the warp; K8b (kRefill) launches one wave, and a lane takes the next ray
+// once fewer than kRefillBelow lanes of its warp are live.
+template <bool kAny, int A, bool kStats>
 __global__ void __launch_bounds__(BLOCK) walk_kernel(Rays ra, Tables tb,
                                                      Outs o) {
   using L = Layout<A>;
@@ -432,7 +431,8 @@ __global__ void __launch_bounds__(BLOCK) walk_kernel(Rays ra, Tables tb,
   int stack[STACK_DEPTH - 1];
   RayWalk<kAny> w;
   w.start(ra, i, in, 8 * tb.num_nodes + L::kStepPad, stack);
-  if (kRefill) refill<kAny, A>(w, ra, tb, o, stack, i, in, dry, ncap);
+  if (kRefill<kAny, A>)
+    refill<kAny, A>(w, ra, tb, o, stack, i, in, dry, ncap);
   const float4* tri4 = reinterpret_cast<const float4*>(tb.tri_f32);
   while (__any_sync(FULL_MASK, !w.done)) {
     // nodes, until every lane of the warp holds a cluster or is done
@@ -464,51 +464,36 @@ __global__ void __launch_bounds__(BLOCK) walk_kernel(Rays ra, Tables tb,
       if (kAny && w.occ) w.done = true;
       else w.fetch();
     }
-    if (kRefill) refill<kAny, A>(w, ra, tb, o, stack, i, in, dry, ncap);
+    if (kRefill<kAny, A>)
+      refill<kAny, A>(w, ra, tb, o, stack, i, in, dry, ncap);
   }
-  if (!kRefill && in) {
+  if (!kRefill<kAny, A> && in) {
     w.write(o, i);
     ncap = !w.exact;
   }
   report<kStats>(w, ncap, o);
-  if (kRefill && (threadIdx.x & 31) == 0) {
-    // every lane of the warp is dry: its last index is past n
-    __threadfence();
-    if (atomicAdd(&g_warps_done, 1) == (int)(gridDim.x * (BLOCK / 32)) - 1) {
-      g_next_ray = 0;
-      g_warps_done = 0;
-      __threadfence();
-    }
-  }
 }
-
-// K8b with lane refill (1, the default) or one thread a ray (0)
-int g_refill = 1;
 
 template <bool kAny, int A, bool kStats>
 int launch_arity(const Rays& ra, const Tables& tb, const Outs& o,
                  cudaStream_t s) {
-  const int grid = (ra.n + BLOCK - 1) / BLOCK;
-  if constexpr (kAny && A == 2) {
-    if (g_refill) {
-      // one wave: the blocks that fit on the card at once
-      static int dev_seen = -1, wave = 0;
-      int dev = 0;
-      cudaGetDevice(&dev);
-      if (dev != dev_seen) {
-        int sms = 0, per_sm = 0;
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, walk_kernel<kAny, A, kStats, true>, BLOCK, 0);
-        wave = max(sms * per_sm, 1);
-        dev_seen = dev;
-      }
-      walk_kernel<kAny, A, kStats, true><<<min(grid, wave), BLOCK, 0, s>>>(
-          ra, tb, o);
-      return (int)cudaGetLastError();
+  int grid = (ra.n + BLOCK - 1) / BLOCK;
+  if constexpr (kRefill<kAny, A>) {
+    // one wave: the blocks that fit on the card at once
+    static int dev_seen = -1, wave = 0;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev != dev_seen) {
+      int sms = 0, per_sm = 0;
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, walk_kernel<kAny, A, kStats>, BLOCK, 0);
+      wave = max(sms * per_sm, 1);
+      dev_seen = dev;
     }
+    grid = min(grid, wave);
   }
-  walk_kernel<kAny, A, kStats, false><<<grid, BLOCK, 0, s>>>(ra, tb, o);
+  walk_kernel<kAny, A, kStats><<<grid, BLOCK, 0, s>>>(ra, tb, o);
   return (int)cudaGetLastError();
 }
 
@@ -541,11 +526,9 @@ int attributes(K kernel, int* out) {
 
 template <bool kAny>
 int attributes_of(int arity, int* out) {
-  if (arity == 2 && kAny && g_refill)
-    return attributes(walk_kernel<kAny, 2, false, true>, out);
-  if (arity == 2) return attributes(walk_kernel<kAny, 2, false, false>, out);
-  if (arity == 4) return attributes(walk_kernel<kAny, 4, false, false>, out);
-  if (arity == 8) return attributes(walk_kernel<kAny, 8, false, false>, out);
+  if (arity == 2) return attributes(walk_kernel<kAny, 2, false>, out);
+  if (arity == 4) return attributes(walk_kernel<kAny, 4, false>, out);
+  if (arity == 8) return attributes(walk_kernel<kAny, 8, false>, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -578,7 +561,7 @@ int tpt_packet_closest_hit_wide(TABLES_ARGS,
                                 float* v_out, int* capped,
                                 unsigned long long* stats, void* stream) {
   if (arity == 2) return (int)cudaErrorInvalidValue;
-  const Outs o{t_out, tri_out, u_out, v_out, nullptr, capped, stats};
+  const Outs o{t_out, tri_out, u_out, v_out, nullptr, capped, nullptr, stats};
   return launch<false>(RAYS, TABLES, o, stream);
 }
 
@@ -587,7 +570,8 @@ int tpt_packet_any_hit_wide(TABLES_ARGS, unsigned char* occ_out,
                             int* capped,
                             unsigned long long* stats, void* stream) {
   if (arity == 2) return (int)cudaErrorInvalidValue;
-  const Outs o{nullptr, nullptr, nullptr, nullptr, occ_out, capped, stats};
+  const Outs o{nullptr, nullptr, nullptr, nullptr, occ_out, capped, nullptr,
+               stats};
   return launch<true>(RAYS, TABLES, o, stream);
 }
 
@@ -596,25 +580,24 @@ int tpt_packet_closest_hit(TABLES_ARGS, float* t_out, int* tri_out,
                            float* u_out, float* v_out, int* capped,
                            unsigned long long* stats, void* stream) {
   if (arity != 2) return (int)cudaErrorInvalidValue;
-  const Outs o{t_out, tri_out, u_out, v_out, nullptr, capped, stats};
+  const Outs o{t_out, tri_out, u_out, v_out, nullptr, capped, nullptr, stats};
   return launch<false>(RAYS, TABLES, o, stream);
 }
 
-// K8b (arity 2)
+// K8b (arity 2): `capped` points to two zeroed ints, the count of capped
+// rays and the launch's lane-refill counter
 int tpt_packet_any_hit(TABLES_ARGS, unsigned char* occ_out, int* capped,
                        unsigned long long* stats, void* stream) {
   if (arity != 2) return (int)cudaErrorInvalidValue;
-  const Outs o{nullptr, nullptr, nullptr, nullptr, occ_out, capped, stats};
+  const Outs o{nullptr, nullptr, nullptr, nullptr, occ_out, capped,
+               capped + 1, stats};
   return launch<true>(RAYS, TABLES, o, stream);
 }
 
-// K8b's lane refill on (1, the default) or off (0)
-void tpt_packet_set_refill(int on) { g_refill = on ? 1 : 0; }
-
 // registers a thread, local bytes a thread, static shared bytes a block
 // and the most threads a block of the stats-free K2 (any_hit 0) or K1
-// (any_hit 1) kernel of `arity` 4 or 8, or of K8a/K8b for arity 2 (K8b as
-// the refill setting launches it), into out[0..3]
+// (any_hit 1) kernel of `arity` 4 or 8, or of K8a/K8b for arity 2, into
+// out[0..3]
 int tpt_packet_wide_attributes(int any_hit, int arity, int* out) {
   return any_hit ? attributes_of<true>(arity, out)
                  : attributes_of<false>(arity, out);
