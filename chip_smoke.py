@@ -309,11 +309,17 @@ SVGF_PAN_PX = 3.0
 # refused to start; the denoiser it checks sees the same planes
 SVGF_AGREE_DEPTH = 4
 # bytes a pixel moves (float32/int32 planes read once and written once)
-# and fp32 operations it needs (counted from tpt_torch/csrc/svgf.cu; exp,
-# pow and the divides counted as one each, so the bound stays a least
-# time): K5 reads 12 planes and writes 8; K6 reads 15 history and 7
-# current planes and writes 11
-ATROUS_BYTES_PX, ATROUS_OPS_PX = 80, 532
+# and fp32 operations it needs (counted from tpt_torch/csrc/svgf.cu, the
+# divides as one each, so the bound stays a least time): K5 reads 12
+# planes and writes 8; K6 reads 15 history and 7 current planes and
+# writes 11. K5's 500 besides its 24 expf and its normal weights: one
+# powf for each of a pixel's 4 edges (an edge's weight is the same from
+# either end), expf and powf counted at their lengths as compiled with
+# the port's flags (8 and 96 SASS instructions: scripts/svgf_sass.py on
+# an NVIDIA H100 80GB HBM3)
+EXPF_OPS, POWF_OPS = 8, 96
+ATROUS_BYTES_PX = 80
+ATROUS_OPS_PX = 500 + 24 * EXPF_OPS + 4 * POWF_OPS
 REPROJECT_BYTES_PX, REPROJECT_OPS_PX = 132, 210
 # BVH_TREELET: whole packets held against the plain versions (seeded
 # 2048-lane bounce packets, unseeded 4096-lane camera-ray packets), frames
@@ -622,6 +628,7 @@ def plain_kernels() -> Patch:
     p.set(tlt, "treelet_scan_multi", tlt.treelet_scan_multi_plain)
     p.set(sw, "sweep_closest_hit", sw.sweep_closest_hit_plain)
     p.set(stencil, "atrous", stencil.atrous_plain)
+    p.set(stencil, "atrous_passes", stencil.atrous_passes_plain)
     p.set(reproject, "reproject", svgf._reproject_taps)
     p.set(sw, "dense_scan", sw.dense_scan_plain)
     p.set(sw, "sweep8_closest_hit", sw.sweep8_closest_hit_plain)
@@ -1573,56 +1580,52 @@ def carried_sequence(scene, cam, cfg, frames: int, on_frame=None) -> list:
     return imgs
 
 
-def svgf_phases(scene, cam, dev) -> list:
-    """The svgf_kernels, svgf_render and svgf_agreement phases; returns
-    the K5 and K6 entries of the kernels line."""
-    import numpy as np
+def svgf_kernel_check(scene, cam, cfg) -> dict:
+    """K5 and K6 on the inputs of the third frame of a carried sequence:
+    K6 bit-equal to its plain version; K5 bit-equal to its plain version
+    at steps 1..16, each single pass on the plain chain's input, and the
+    frame's five passes in one call (`stencil.atrous_passes`, where the
+    tree has it) in both planes it returns; each timed back to back.
+    Returns their numbers."""
     import torch
 
-    from tpt_torch import Renderer
-    from tpt_torch.bvh import packet_traverse as pt
-    from tpt_torch.bvh import sweep as sw
-    from tpt_torch.config import RayCastBackend, RenderConfig
-    from tpt_torch.core.camera import Camera
     from tpt_torch.denoise import reproject, stencil, svgf
-    from tpt_torch.integrators import wavefront
 
-    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH,
-                       denoiser_on=True)
     sig = (cfg.svgf.sigma_z, cfg.svgf.sigma_n, cfg.svgf.sigma_l)
+    iters = cfg.svgf.atrous_iterations
     npx = cam.num_pixels
-
-    # ---- svgf_kernels: K5/K6 inputs of the third frame of a sequence -------
-    t0 = time.perf_counter()
     grabbed = {"atrous": []}
     record = [False]
     patch = Patch()
+    kernels = {k: getattr(mod, k) for mod, k in (
+        (reproject, "reproject"), (stencil, "atrous"),
+        (stencil, "atrous_passes")) if hasattr(mod, k)}
 
-    def grab_reproject(*args):
-        if record[0]:
-            grabbed["reproject"] = args
-        return kernel_reproject(*args)
+    def grab(key):
+        def call(*args):
+            if record[0]:
+                grabbed.setdefault(key, []).append(args)
+            return kernels[key](*args)
+        return call
 
-    def grab_atrous(*args):
-        if record[0]:
-            grabbed["atrous"].append(args)
-        return kernel_atrous(*args)
-
-    kernel_reproject, kernel_atrous = reproject.reproject, stencil.atrous
-    patch.set(reproject, "reproject", grab_reproject)
-    patch.set(stencil, "atrous", grab_atrous)
+    for key in kernels:
+        patch.set(reproject if key == "reproject" else stencil, key,
+                  grab(key))
     try:
         carried_sequence(scene, cam, cfg, 3,
                          on_frame=lambda k: record.__setitem__(0, k == 2))
     finally:
         patch.restore()
+    planes_in = (grabbed["atrous_passes"][0] if "atrous_passes" in kernels
+                 else grabbed["atrous"][0])[:6]
 
-    def compare(label, got, want) -> tuple:
-        """(max abs err, mismatching pixels) of two plane lists; raises
-        unless bit-equal (NaN equal to NaN)."""
+    def compare(label, got, want) -> float:
+        """max abs err of two plane lists; raises unless bit-equal (NaN
+        equal to NaN)"""
         err, bad = 0.0, 0
         for a, b in zip(got, want):
-            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            same = (bit_patterns(a) == bit_patterns(b)) | (
+                torch.isnan(a) & torch.isnan(b))
             bad += int((~same).sum())
             d = (a - b).abs()
             err = max(err, float(torch.where(same, 0.0, d).nan_to_num(
@@ -1630,36 +1633,52 @@ def svgf_phases(scene, cam, dev) -> list:
         if bad:
             raise RuntimeError(f"{label}: kernel differs from plain on {bad} "
                                f"values, max abs err {err}")
-        return err, bad
+        return err
 
     flat = lambda o: [o[0].x, o[0].y, o[0].z, o[1], o[2].x, o[2].y, o[2].z,
                       o[3]]
-    r_args = grabbed["reproject"]
+    r_args = grabbed["reproject"][0]
     sums, wsum = reproject.reproject(*r_args)
     (psums, pw), k6_plain_ms = timed_once(
         lambda: svgf._reproject_taps(*r_args))
-    k6_err, _ = compare("K6", [sums[k] for k in svgf.DATA_KEYS] + [wsum],
-                        [psums[k] for k in svgf.DATA_KEYS] + [pw])
+    k6_err = compare("K6", [sums[k] for k in svgf.DATA_KEYS] + [wsum],
+                     [psums[k] for k in svgf.DATA_KEYS] + [pw])
     carried_share = float((wsum > 1e-4).float().mean())
     print(f"  K6 vs plain, frame 3: {npx} pixels x 11 planes bit-equal "
           f"(0 mismatching), {100 * carried_share:.2f}% of pixels with "
           f"history weight > 1e-4 (history carried across the moves)")
     k6_ms = kernel_ms(lambda: reproject.reproject(*r_args), KERNEL_REPS)
-    k5_err, k5_ms_steps, k5_plain_steps = 0.0, [], []
-    if [a[6] for a in grabbed["atrous"]] != [1, 2, 4, 8, 16]:
-        raise RuntimeError("the frame did not run K5 at steps 1..16")
-    for a in grabbed["atrous"]:
-        got = flat(stencil.atrous(*a))
-        want, p_ms = timed_once(lambda: flat(stencil.atrous_plain(*a)))
-        err, _ = compare(f"K5 step {a[6]}", got, want)
-        k5_err = max(k5_err, err)
-        k5_plain_steps.append(p_ms)
-        k5_ms_steps.append(kernel_ms(lambda: stencil.atrous(*a),
-                                     KERNEL_REPS))
-    print(f"  K5 vs plain, frame 3, steps 1-16: {npx} pixels x 8 planes "
-          f"bit-equal at every step (0 mismatching)")
-    k5_ms = sum(k5_ms_steps) / len(k5_ms_steps)
-    k5_plain_ms = sum(k5_plain_steps) / len(k5_plain_steps)
+    del sums, wsum, psums, pw, r_args
+
+    # each pass on the plain chain's input, at steps 1, 2, 4, ...
+    k5_err, steps_ms, plain_steps, chain = 0.0, [], [], [tuple(planes_in)]
+    rest = tuple(planes_in[4:])
+    for it in range(iters):
+        a = chain[-1][:4] + rest + (1 << it,) + sig
+        want, p_ms = timed_once(lambda: stencil.atrous_plain(*a))
+        k5_err = max(k5_err, compare(f"K5 step {1 << it}",
+                                     flat(stencil.atrous(*a)), flat(want)))
+        plain_steps.append(p_ms)
+        steps_ms.append(kernel_ms(lambda: stencil.atrous(*a), KERNEL_REPS))
+        chain.append(tuple(want))
+    print(f"  K5 vs plain, frame 3, steps 1-{1 << (iters - 1)}: {npx} pixels "
+          f"x 8 planes bit-equal at every step (0 mismatching), one pass "
+          f"a call")
+    if "atrous_passes" in kernels:
+        fa = tuple(planes_in) + (iters,) + sig
+        fin, hist = stencil.atrous_passes(*fa)
+        k5_err = max(k5_err, compare("K5 frame passes, last",
+                                     flat(fin), flat(chain[-1])))
+        k5_err = max(k5_err, compare("K5 frame passes, history",
+                                     flat(hist), flat(chain[-2])))
+        print(f"  K5's {iters} passes in one call: last and history passes "
+              f"bit-equal to the plain chain ({npx} pixels x 8 planes each)")
+        frame_ms = kernel_ms(lambda: stencil.atrous_passes(*fa), KERNEL_REPS)
+        per_pass = frame_ms / iters
+    else:
+        frame_ms = sum(steps_ms)
+        per_pass = frame_ms / iters
+    del chain, grabbed
 
     def bound(bytes_px, ops_px):
         b_ms = npx * bytes_px / PEAK_BYTES_S * 1e3
@@ -1668,15 +1687,48 @@ def svgf_phases(scene, cam, dev) -> list:
 
     k5_bound, k5_by = bound(ATROUS_BYTES_PX, ATROUS_OPS_PX)
     k6_bound, k6_by = bound(REPROJECT_BYTES_PX, REPROJECT_OPS_PX)
-    print(f"  K5: {k5_ms:.4f} ms a pass (steps 1..16: "
-          + ", ".join(f"{m:.4f}" for m in k5_ms_steps)
-          + f"), plain {k5_plain_ms:.2f} ms, bound {k5_bound:.4f} ms "
-          f"({k5_by}), {100 * k5_bound / k5_ms:.1f}% of bound")
+    k5_plain_ms = sum(plain_steps) / len(plain_steps)
+    print(f"  K5: {per_pass:.4f} ms a pass on the frame's path ({iters} "
+          f"passes {frame_ms:.4f} ms back to back"
+          + (", one call" if "atrous_passes" in kernels else "")
+          + "); one pass a call at steps 1..16: "
+          + ", ".join(f"{m:.4f}" for m in steps_ms)
+          + f" ms; plain {k5_plain_ms:.2f} ms, bound {k5_bound:.4f} ms "
+          f"({k5_by}), {100 * k5_bound / per_pass:.1f}% of bound")
     print(f"  K6: {k6_ms:.4f} ms, plain {k6_plain_ms:.2f} ms, bound "
-          f"{k6_bound:.4f} ms ({k6_by}), {100 * k6_bound / k6_ms:.1f}% of bound")
-    phase("svgf_kernels", t0, pixels=npx, k5_ms=f"{k5_ms:.4f}",
-          k6_ms=f"{k6_ms:.4f}", k5_max_abs_err=k5_err, k6_max_abs_err=k6_err)
-    del grabbed, r_args, sums, wsum, psums, pw
+          f"{k6_bound:.4f} ms ({k6_by}), {100 * k6_bound / k6_ms:.1f}% of "
+          f"bound")
+    return dict(k5_ms=per_pass, k5_frame_ms=frame_ms, k5_steps_ms=steps_ms,
+                k5_plain_ms=k5_plain_ms, k5_err=k5_err, k5_bound=k5_bound,
+                k5_by=k5_by, k6_ms=k6_ms, k6_plain_ms=k6_plain_ms,
+                k6_err=k6_err, k6_bound=k6_bound, k6_by=k6_by,
+                carried_share=carried_share)
+
+
+def svgf_phases(scene, cam, dev, agreement: bool = True) -> list:
+    """The svgf_kernels, svgf_render and (with `agreement`) svgf_agreement
+    phases; returns the K5 and K6 entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from tpt_torch import Renderer
+    from tpt_torch.bvh import sweep as sw
+    from tpt_torch.config import RayCastBackend, RenderConfig
+    from tpt_torch.core.camera import Camera
+    from tpt_torch.denoise import reproject, stencil, svgf
+    from tpt_torch.integrators import wavefront
+
+    cfg = RenderConfig(backend=RayCastBackend.BVH_PALLAS, trace_depth=DEPTH,
+                       denoiser_on=True)
+
+    # ---- svgf_kernels: K5/K6 inputs of the third frame of a sequence -------
+    t0 = time.perf_counter()
+    kc = svgf_kernel_check(scene, cam, cfg)
+    carried_share = kc["carried_share"]
+    phase("svgf_kernels", t0, pixels=cam.num_pixels,
+          k5_ms=f"{kc['k5_ms']:.4f}", k5_frame_ms=f"{kc['k5_frame_ms']:.4f}",
+          k6_ms=f"{kc['k6_ms']:.4f}", k5_max_abs_err=kc["k5_err"],
+          k6_max_abs_err=kc["k6_err"])
 
     # ---- svgf_render: the engine's real-time denoised frame --------------
     t0 = time.perf_counter()
@@ -1712,7 +1764,9 @@ def svgf_phases(scene, cam, dev) -> list:
         timer.wrap(wavefront, "trace_frame", "trace")
         timer.wrap(svgf, "run_svgf", "svgf")
         timer.wrap(reproject, "reproject", "K6")
-        timer.wrap(stencil, "atrous", "K5")
+        for name in ("atrous", "atrous_passes"):     # a tree has either
+            if hasattr(stencil, name):
+                timer.wrap(stencil, name, "K5")
         outs = []
         trace = wavefront.trace_frame
 
@@ -1797,43 +1851,46 @@ def svgf_phases(scene, cam, dev) -> list:
     del renderer, out, g
 
     # ---- svgf_agreement: the sequence through kernels and plain ----------
-    t0 = time.perf_counter()
-    small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
-                         cam.fovy_deg)
-    acfg = cfg.with_(trace_depth=SVGF_AGREE_DEPTH)
-    runs = {
-        "renderer": lambda: svgf_sequence(Renderer(scene, small, acfg), small,
-                                          SVGF_FRAMES),
-        "carried": lambda: [i.cpu().numpy() for i in carried_sequence(
-            scene, small, acfg, SVGF_FRAMES)],
-    }
-    worst_close, worst_abs = 1.0, 0.0
-    for label, run in runs.items():
-        img_k = run()
-        patch = plain_kernels()
-        try:
-            img_p = run()
-        finally:
-            patch.restore()
-        for k, (a, b) in enumerate(zip(img_k, img_p)):
-            close, _, max_abs = golden_agree(f"{label} frame {k} vs plain",
-                                             a, b)
-            worst_close = min(worst_close, close)
-            worst_abs = max(worst_abs, max_abs)
-    phase("svgf_agreement", t0, depth=SVGF_AGREE_DEPTH, frames=2 * SVGF_FRAMES,
-          min_close=f"{worst_close:.6f}", max_abs=f"{worst_abs:.3g}")
+    if agreement:
+        t0 = time.perf_counter()
+        small = Camera.build(AGREE_RES, cam.position, cam.look_at, cam.up,
+                             cam.fovy_deg)
+        acfg = cfg.with_(trace_depth=SVGF_AGREE_DEPTH)
+        runs = {
+            "renderer": lambda: svgf_sequence(Renderer(scene, small, acfg),
+                                              small, SVGF_FRAMES),
+            "carried": lambda: [i.cpu().numpy() for i in carried_sequence(
+                scene, small, acfg, SVGF_FRAMES)],
+        }
+        worst_close, worst_abs = 1.0, 0.0
+        for label, run in runs.items():
+            img_k = run()
+            patch = plain_kernels()
+            try:
+                img_p = run()
+            finally:
+                patch.restore()
+            for k, (a, b) in enumerate(zip(img_k, img_p)):
+                close, _, max_abs = golden_agree(
+                    f"{label} frame {k} vs plain", a, b)
+                worst_close = min(worst_close, close)
+                worst_abs = max(worst_abs, max_abs)
+        phase("svgf_agreement", t0, depth=SVGF_AGREE_DEPTH,
+              frames=2 * SVGF_FRAMES, min_close=f"{worst_close:.6f}",
+              max_abs=f"{worst_abs:.3g}")
 
     return [
         dict(name="atrous", route="cuda", source="tpt_torch/csrc/svgf.cu",
              replaces="tpt/denoise/pallas_stencil.py:180",
-             launches=launches["atrous"], max_abs_err=k5_err, ms=k5_ms,
-             plain_ms=k5_plain_ms, bound_ms=k5_bound, bound_by=k5_by,
-             library_ms=None),
+             launches=launches["atrous"], max_abs_err=kc["k5_err"],
+             ms=kc["k5_ms"], plain_ms=kc["k5_plain_ms"],
+             bound_ms=kc["k5_bound"], bound_by=kc["k5_by"], library_ms=None,
+             frame_ms=kc["k5_frame_ms"]),
         dict(name="reproject", route="cuda", source="tpt_torch/csrc/svgf.cu",
              replaces="tpt/denoise/pallas_reproject.py:227",
-             launches=launches["reproject"], max_abs_err=k6_err, ms=k6_ms,
-             plain_ms=k6_plain_ms, bound_ms=k6_bound, bound_by=k6_by,
-             library_ms=None),
+             launches=launches["reproject"], max_abs_err=kc["k6_err"],
+             ms=kc["k6_ms"], plain_ms=kc["k6_plain_ms"],
+             bound_ms=kc["k6_bound"], bound_by=kc["k6_by"], library_ms=None),
     ]
 
 
@@ -2269,33 +2326,13 @@ def top_walk_need(pack, ori, d, t_max, window) -> int:
     return tests
 
 
-def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
-    """The sweepvar_kernels, sweepvar_render, sweepvar_mega and
-    sweepvar_agreement phases (the BVH_SWEEP variants and K11); returns
-    the entries of the kernels line for K7, K7's any-hit mode, K4's group
-    and any-hit modes and K11."""
-    import torch
+def sweep_bounce1(scene, cam, cfg, dev) -> dict:
+    """Bounces 0 and 1 of one BVH_SWEEP frame of `cfg`, keeping bounce 1's
+    pools: "unsorted" (as `_sweep_scan_keys` gets it), "sorted" (the
+    bin-sorted pool and its K3 planes, as `_sweep_bin_sort` returns them)
+    and "shadow" (its shadow rays)."""
+    from tpt_torch.integrators import common, wavefront
 
-    from tpt_torch import Renderer
-    from tpt_torch.bvh import packet_traverse as pt
-    from tpt_torch.bvh import sweep as sw
-    from tpt_torch.bvh import sweepcast as tsc
-    from tpt_torch.bvh import treelet_traverse as tlt
-    from tpt_torch.config import RayCastBackend, RenderConfig, RenderMode
-    from tpt_torch.core.camera import Camera
-    from tpt_torch.core.vec import Vec3
-    from tpt_torch.integrators import common, megakernel, wavefront
-
-    tables, pack = scene.sweep, scene.pack
-    cfg = RenderConfig(backend=RayCastBackend.BVH_SWEEP, **SWEEP_KNOBS)
-    S, unroll, spp = cfg.sweep_slots, cfg.sweep_unroll, cfg.spp_batch
-    sub = lambda v, idx: Vec3(v.x[idx].contiguous(), v.y[idx].contiguous(),
-                              v.z[idx].contiguous())
-    table_bytes = (tables.tri_f32.numel() + tables.ranges.numel()) * 4
-    D = DEPTH
-
-    # ---- sweepvar_kernels: bounce 1 of one bench frame ----------------------
-    t0 = time.perf_counter()
     grabbed = {}
     scan_keys, bin_sort = wavefront._sweep_scan_keys, wavefront._sweep_bin_sort
     depth_now = [0]
@@ -2330,7 +2367,132 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     finally:
         patch.restore()
     del carry
-    spool, (s_o, s_t, thr) = grabbed["sorted"]
+    return grabbed
+
+
+def scanmulti_check(scene, upool, S: int, unroll: int, dev) -> dict:
+    """K11 on the first K11_LANES lanes of `upool`, an unsorted bounce-1
+    pool: bit-equal to its plain version in every plane and in capped,
+    its slots equal to K3's and its thr at or below K3's, 0 capped; its
+    sweep cast (one bin sort, K4) equal to K2's; timed back to back, with
+    its per-ray and packet-semantics bounds, its registers and where its
+    lane state lives. Returns its entry of the kernels line."""
+    import torch
+
+    from tpt_torch.bvh import packet_traverse as pt
+    from tpt_torch.bvh import sweep as sw
+    from tpt_torch.bvh import sweepcast as tsc
+    from tpt_torch.bvh import treelet_traverse as tlt
+    from tpt_torch.core.vec import Vec3
+
+    tables, pack = scene.sweep, scene.pack
+    sub = lambda v, idx: Vec3(v.x[idx].contiguous(), v.y[idx].contiguous(),
+                              v.z[idx].contiguous())
+    m = min(K11_LANES, upool[5].numel())
+    part = slice(0, m)
+    ou, du = sub(upool[0], part), sub(upool[1], part)
+    tu = torch.where(upool[5][:m], 3.4e38, -1.0)
+    k11 = tlt.treelet_scan_multi(pack, ou, du, tu, slots=S)
+    k11p, plain_ms = timed_once(lambda: tlt.treelet_scan_multi_plain(
+        pack, ou, du, tu, slots=S))
+    for a, b, what in zip(k11, k11p, ("entry t", "ordinal", "thr", "capped")):
+        if not torch.equal(bit_patterns(a), bit_patterns(b)):
+            raise RuntimeError(f"K11 {what} differs from plain")
+    if int(k11[3]):
+        raise RuntimeError(f"K11 capped {int(k11[3])} lanes")
+    k3 = sw.dense_scan(tables, ou, du, tu, slots=S)
+    if not (torch.equal(k11[1], k3[1]) and torch.equal(k11[0], k3[0])
+            and bool((k11[2] <= k3[2]).all())):
+        raise RuntimeError("K11's slots differ from K3's, or its thr lies "
+                           "above K3's")
+    counts = zero_launches()
+    s_t11, s_o11, thr11, _ = tlt.treelet_scan_multi(pack, ou, du, tu, slots=S)
+    launches = tlt.LAUNCHES["treelet_scan_multi"]
+    key = tsc.bin_key(s_o11, du, tables.num_treelets, S)
+    perm = tsc.bin_sort_perm([torch.where(tu > 0, key, 1 << 30)])
+    g = lambda a: a[..., perm].contiguous()
+    os_, ds_, ts_ = sub(ou, perm), sub(du, perm), g(tu)
+    fin, capped = tsc.sweep_cast_sorted(pack, tables, os_, ds_, ts_, g(s_o11),
+                                        g(s_t11), g(thr11), unroll=unroll)
+    expect_launches("K11 into the sweep cast", counts, dict(
+        treelet_scan_multi=1, sweep8_closest_hit=1,
+        packet_closest_hit_wide=(0, 1)), 1)
+    ref, capped2 = pt.packet_closest_hit_wide(pack, os_, ds_, ts_)
+    if int(capped) or int(capped2):
+        raise RuntimeError(f"capped rays: K11 sweep cast {int(capped)}, K2 "
+                           f"{int(capped2)}")
+    if not torch.equal(fin.t, ref.t):
+        raise RuntimeError(f"K11-seeded sweep cast t differs from K2 on "
+                           f"{int((fin.t != ref.t).sum())} lanes")
+    tri_diff = int((fin.tri != ref.tri).sum())
+    if tri_diff > TAIL_TRI_MISMATCH_MAX * int((tu > 0).sum()):
+        raise RuntimeError(f"K11-seeded sweep cast triangle differs from K2 "
+                           f"on {tri_diff} lanes")
+    ms = cuda_time_ms(lambda: tlt.treelet_scan_multi(pack, ou, du, tu,
+                                                     slots=S), TIMING_REPS)
+    st11 = torch.zeros(2, dtype=torch.int64, device=dev)
+    tlt.treelet_scan_multi(pack, ou, du, tu, slots=S, stats=st11)
+    st11 = st11.cpu()
+    top_bytes = sum(a.numel() * 4 for a in (pack.top_f32, pack.top_child,
+                                            pack.top_tord))
+    # K11's bound: the slab tests a per-ray walk needs for the same slots;
+    # beside it the packet-semantics bound, from the tests its packets
+    # make (its thr depends on each of them)
+    need = top_walk_need(pack, ou, du, tu, s_t11[S - 1])
+    bound = sweep_bound(m, 28, 8 * S + 4, top_bytes, OPS_PER_SLAB * need)
+    packet_b = sweep_bound(m, 28, 8 * S + 4, top_bytes,
+                           OPS_PER_SLAB * int(st11[1]))
+    group = 2                     # treelet_scan_multi's default packet
+    at = tlt.kernel_attributes(11, group, S)
+    place = (tlt.multi_place(group, S) if hasattr(tlt, "multi_place")
+             else "its output planes")   # a tree before K9's walk
+    mr = m / (ms * 1e-3) / 1e6
+    print(f"  K11 on {m} lanes: {ms:.3f} ms ({mr:.1f} Mrays/s), plain "
+          f"{plain_ms:.1f} ms, top pops {int(st11[0])}, slab tests "
+          f"{int(st11[1])} ({int(st11[1]) / need:.2f}x the {need} a per-ray "
+          f"walk needs); bound {bound[0]:.3f} ms ({bound[1]}, per-ray), "
+          f"packet-semantics bound {packet_b[0]:.3f} ms "
+          f"({100 * packet_b[0] / ms:.1f}% of it); slots equal to K3's; its "
+          f"sweep cast equals K2 (t bit-equal, tri differs on {tri_diff}), "
+          f"0 capped")
+    print(f"  K11 at {1024 * group} lanes a packet, S {S}: lane state in "
+          f"{place}, {at['regs']} registers a thread, {at['local_bytes']} "
+          f"local bytes, {at['shared_bytes']} static + "
+          f"{at['dynamic_shared_bytes']} dynamic shared bytes")
+    return dict(name="treelet_scan_multi", route="cuda",
+                source="tpt_torch/csrc/treelet.cu",
+                replaces="tpt/bvh/pallas_treelet.py:769", launches=launches,
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None, lanes=m,
+                packet_bound_ms=packet_b[0], registers=at["regs"],
+                local_bytes=at["local_bytes"], lane_state=place)
+
+
+def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
+    """The sweepvar_kernels, sweepvar_render, sweepvar_mega and
+    sweepvar_agreement phases (the BVH_SWEEP variants and K11); returns
+    the entries of the kernels line for K7, K7's any-hit mode, K4's group
+    and any-hit modes and K11."""
+    import torch
+
+    from tpt_torch import Renderer
+    from tpt_torch.bvh import sweep as sw
+    from tpt_torch.config import RayCastBackend, RenderConfig, RenderMode
+    from tpt_torch.core.camera import Camera
+    from tpt_torch.core.vec import Vec3
+    from tpt_torch.integrators import common, megakernel, wavefront
+
+    tables = scene.sweep
+    cfg = RenderConfig(backend=RayCastBackend.BVH_SWEEP, **SWEEP_KNOBS)
+    S, unroll, spp = cfg.sweep_slots, cfg.sweep_unroll, cfg.spp_batch
+    sub = lambda v, idx: Vec3(v.x[idx].contiguous(), v.y[idx].contiguous(),
+                              v.z[idx].contiguous())
+    D = DEPTH
+
+    # ---- sweepvar_kernels: bounce 1 of one bench frame ----------------------
+    t0 = time.perf_counter()
+    grabbed = sweep_bounce1(scene, cam, cfg, dev)
+    spool, (s_o, s_t, _) = grabbed["sorted"]
     ori, d = spool[0], spool[1]
     tmax = torch.where(spool[5], 3.4e38, -1.0)
     n = tmax.numel()
@@ -2450,59 +2612,13 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
                            galign=galign)
     k7a_b = need_bound(n_sh, S, tables, need7a)
     k4a_b = need_bound(n_sh, S, tables, need4a)
-    del c, o_sh, d_sh, t_sh, st_sh, so_sh, spool, ori, d, tmax, s_o, s_t, thr
+    del c, o_sh, d_sh, t_sh, st_sh, so_sh, spool, ori, d, tmax, s_o, s_t
 
     # K11 on the first K11_LANES lanes of the unsorted bounce-1 pool
     upool = grabbed.pop("unsorted")
-    m = min(K11_LANES, upool[5].numel())
-    part = slice(0, m)
-    ou, du = sub(upool[0], part), sub(upool[1], part)
-    tu = torch.where(upool[5][:m], 3.4e38, -1.0)
-    del upool, grabbed
-    k11 = tlt.treelet_scan_multi(pack, ou, du, tu, slots=S)
-    k11p, k11_plain_ms = timed_once(lambda: tlt.treelet_scan_multi_plain(
-        pack, ou, du, tu, slots=S))
-    for a, b, what in zip(k11, k11p, ("entry t", "ordinal", "thr", "capped")):
-        if not torch.equal(a, b):
-            raise RuntimeError(f"K11 {what} differs from plain")
-    if int(k11[3]):
-        raise RuntimeError(f"K11 capped {int(k11[3])} lanes")
-    k3 = sw.dense_scan(tables, ou, du, tu, slots=S)
-    if not (torch.equal(k11[1], k3[1]) and torch.equal(k11[0], k3[0])
-            and bool((k11[2] <= k3[2]).all())):
-        raise RuntimeError("K11's slots differ from K3's, or its thr lies "
-                           "above K3's")
-    counts = zero_launches()
-    s_t11, s_o11, thr11, _ = tlt.treelet_scan_multi(pack, ou, du, tu, slots=S)
-    k11_launches = tlt.LAUNCHES["treelet_scan_multi"]
-    key = tsc.bin_key(s_o11, du, tables.num_treelets, S)
-    perm = tsc.bin_sort_perm([torch.where(tu > 0, key, 1 << 30)])
-    g = lambda a: a[..., perm].contiguous()
-    os_, ds_, ts_ = sub(ou, perm), sub(du, perm), g(tu)
-    fin, capped = tsc.sweep_cast_sorted(pack, tables, os_, ds_, ts_, g(s_o11),
-                                        g(s_t11), g(thr11), unroll=unroll)
-    expect_launches("K11 into the sweep cast", counts, dict(
-        treelet_scan_multi=1, sweep8_closest_hit=1,
-        packet_closest_hit_wide=(0, 1)), 1)
-    ref, capped2 = pt.packet_closest_hit_wide(pack, os_, ds_, ts_)
-    if int(capped) or int(capped2):
-        raise RuntimeError(f"capped rays: K11 sweep cast {int(capped)}, K2 "
-                           f"{int(capped2)}")
-    if not torch.equal(fin.t, ref.t):
-        raise RuntimeError(f"K11-seeded sweep cast t differs from K2 on "
-                           f"{int((fin.t != ref.t).sum())} lanes")
-    tri_diff = int((fin.tri != ref.tri).sum())
-    if tri_diff > TAIL_TRI_MISMATCH_MAX * int((tu > 0).sum()):
-        raise RuntimeError(f"K11-seeded sweep cast triangle differs from K2 "
-                           f"on {tri_diff} lanes")
-    k11_ms, st11 = timed_stats(lambda **kw: tlt.treelet_scan_multi(
-        pack, ou, du, tu, slots=S, **kw), 2)
-    top_bytes = sum(a.numel() * 4 for a in (pack.top_f32, pack.top_child,
-                                            pack.top_tord))
-    # K11's bound: the slab tests a per-ray walk needs for the same slots
-    k11_need = top_walk_need(pack, ou, du, tu, s_t11[S - 1])
-    k11_b = sweep_bound(m, 28, 8 * S + 4, top_bytes, OPS_PER_SLAB * k11_need)
-    del ou, du, tu, k11, k11p, k3, fin, ref, os_, ds_, ts_
+    del grabbed
+    k11 = scanmulti_check(scene, upool, S, unroll, dev)
+    del upool
     mr = lambda ms, k: k / (ms * 1e-3) / 1e6
     made = lambda st, need: (f"tri tests made {int(st[1])}, "
                              f"{int(st[1]) / max(1, need[0]):.2f}x the "
@@ -2517,24 +2633,17 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
     print(f"  bounce-1 shadow rays ({n_sh} lanes): K7 any-hit {k7a_ms:.3f} ms "
           f"({made(st7a, need7a)}), K4 any-hit with groups {k4a_ms:.3f} ms "
           f"({made(st4a, need4a)})")
-    print(f"  K11 on {m} lanes: {k11_ms:.3f} ms ({mr(k11_ms, m):.1f} Mrays/s), "
-          f"plain {k11_plain_ms:.1f} ms, top pops {int(st11[0])}, slab tests "
-          f"{int(st11[1])} ({int(st11[1]) / k11_need:.2f}x the {k11_need} a "
-          f"per-ray walk needs, which its bound counts); slots equal to "
-          f"K3's; its sweep cast equals K2 "
-          f"(t bit-equal, tri differs on {tri_diff}), 0 capped")
     for label, (b_ms, by), ms, pms in (
             ("K7", k7_b, k7_ms, k7_plain_ms),
             ("K4 groups", k4g_b, k4g_ms, k4g_plain_ms),
             ("K7 any-hit", k7a_b, k7a_ms, k7a_plain_ms),
-            ("K4 any-hit", k4a_b, k4a_ms, k4a_plain_ms),
-            ("K11", k11_b, k11_ms, k11_plain_ms)):
+            ("K4 any-hit", k4a_b, k4a_ms, k4a_plain_ms)):
         print(f"  {label}: {ms:.3f} ms, bound {b_ms:.3f} ms ({by}), plain "
               f"{pms:.1f} ms")
     phase("sweepvar_kernels", t0, lanes=n, k7_ms=f"{k7_ms:.3f}",
           k4_ms=f"{k4_ms:.3f}", k4_groups_ms=f"{k4g_ms:.3f}",
           k7_any_ms=f"{k7a_ms:.3f}", k4_any_ms=f"{k4a_ms:.3f}",
-          k11_ms=f"{k11_ms:.3f}", k7_union=f"{int(st7[0]) / nb7:.2f}",
+          k11_ms=f"{k11['ms']:.3f}", k7_union=f"{int(st7[0]) / nb7:.2f}",
           k4_union=f"{int(st4[0]) / nb4:.2f}", capped=0)
 
     # ---- sweepvar_render: the "lane" and "cascade" wavefronts at 1080p -----
@@ -2658,9 +2767,7 @@ def sweepvar_phases(scene, cam, dev, bench_frame_ms: float) -> list:
               k4_launches["sweep8_closest_hit/any_hit"], k4a_ms, k4a_plain_ms,
               k4a_b, replaces="tpt/bvh/pallas_sweep.py:623", lanes=n_sh,
               plain_lanes=int(idx_sh.numel())),
-        entry("treelet_scan_multi", k11_launches, k11_ms, k11_plain_ms, k11_b,
-              source="tpt_torch/csrc/treelet.cu",
-              replaces="tpt/bvh/pallas_treelet.py:769", lanes=m),
+        k11,
     ]
 
 

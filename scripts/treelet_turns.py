@@ -17,7 +17,20 @@ on the 1080p fireplace:
   same primaries and shadow rays, the binary wavefront frame and the
   megakernel frames. A checkout whose library reports no arity-2
   attributes (one older than the shared walk) prints no K8a/K8b
-  registers.
+  registers;
+- `--phases scanmulti`: K11 as `sweepvar_kernels` checks and times it
+  (`scanmulti_check`) on the first 2,073,600 lanes of the unsorted
+  bounce-1 pool of one bench frame (`sweep_bounce1`): bit-equal to its
+  plain version, its slots equal to K3's, its sweep cast equal to K2's,
+  its time back to back, its bounds, registers and lane state;
+- `--phases svgf`: `svgf_kernels` (`svgf_kernel_check`: K5 at steps
+  1..16 one pass a call and, where the tree has it, the frame's passes
+  in one call; K6) and `svgf_render` (the denoised frame and its split
+  into the trace, K6, K5 x5 and the rest by CUDA events);
+  `svgf_agreement` is skipped.
+
+Phases may be joined with commas (`--phases scanmulti,svgf`): each run
+then builds its scene once and runs them in that order.
 
 No wide BVH_PALLAS frame is rendered, so no frame is set beside one.
 
@@ -58,33 +71,57 @@ pt.build_kernels()
 host = procedural.fireplace_like(resolution=cs.RES)
 scene = host.build(with_bvh=True, sweep_chunk_align=cs.SWEEP_ALIGN,
                    device=dev)
-if PHASES == "treelet":
-    cs.TREELET_PLAIN_RENDER_S = float("inf")   # treelet_agreement refuses
-    tlt.build_kernels()
-    try:
-        cs.treelet_phases(scene, host.camera, dev, None)
-    except RuntimeError as e:
-        if "treelet_agreement" not in str(e):
-            raise
-else:
-    try:
-        pt.kernel_attributes(False, 2)
-    except RuntimeError:
-        walk_registers = cs.walk_registers
-        cs.walk_registers = lambda arity: (
-            "K8a/K8b registers not reported by this tree" if arity == 2
-            else walk_registers(arity))
-    bscene = host.build(with_bvh=True, packet_arity=2, device=dev)
-    _, binary_ms = cs.binary_phases(scene, bscene, host.camera, dev, None)
-    cs.mega_phases(scene, bscene, host.camera, dev, None, binary_ms,
-                   agreement=False)
+
+
+def run_phases(name):
+    if name == "treelet":
+        cs.TREELET_PLAIN_RENDER_S = float("inf")   # treelet_agreement refuses
+        tlt.build_kernels()
+        try:
+            cs.treelet_phases(scene, host.camera, dev, None)
+        except RuntimeError as e:
+            if "treelet_agreement" not in str(e):
+                raise
+    elif name == "binary":
+        try:
+            pt.kernel_attributes(False, 2)
+        except RuntimeError:
+            walk_registers = cs.walk_registers
+            cs.walk_registers = lambda arity: (
+                "K8a/K8b registers not reported by this tree" if arity == 2
+                else walk_registers(arity))
+        bscene = host.build(with_bvh=True, packet_arity=2, device=dev)
+        _, binary_ms = cs.binary_phases(scene, bscene, host.camera, dev, None)
+        cs.mega_phases(scene, bscene, host.camera, dev, None, binary_ms,
+                       agreement=False)
+    elif name == "scanmulti":
+        from tpt_torch.bvh import sweep as sw
+        from tpt_torch.config import RayCastBackend, RenderConfig
+        sw.build_kernels()
+        tlt.build_kernels()
+        cfg = RenderConfig(backend=RayCastBackend.BVH_SWEEP, **cs.SWEEP_KNOBS)
+        pools = cs.sweep_bounce1(scene, host.camera, cfg, dev)
+        cs.scanmulti_check(scene, pools.pop("unsorted"), cfg.sweep_slots,
+                           cfg.sweep_unroll, dev)
+        del pools
+    elif name == "svgf":
+        from tpt_torch.denoise import stencil
+        stencil.build_kernels()
+        cs.svgf_phases(scene, host.camera, dev, agreement=False)
+    else:
+        raise ValueError(f"no phases {name!r}")
+
+
+for name in PHASES.split(","):
+    run_phases(name)
 '''
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", choices=("treelet", "binary"),
-                    default="treelet")
+    ap.add_argument("--phases", default="treelet",
+                    help="treelet, binary, scanmulti or svgf, or several "
+                    "joined by commas")
     ap.add_argument("trees", nargs="+", help="checkouts, run in this order")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

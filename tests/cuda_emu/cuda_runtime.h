@@ -2,9 +2,11 @@
 // (tpt_torch/csrc/*.cu) compile with a host C++20 compiler and run on the
 // CPU, so a test can hold a kernel's own source against the plain PyTorch
 // version without a card (tests/test_torch_csrc_emu.py,
-// tests/test_torch_csrc_emu_treelet.py).
+// tests/test_torch_csrc_emu_treelet.py, tests/test_torch_csrc_emu_svgf.py).
 //
-// A launch runs its blocks one after another. The threads of a block are
+// A launch runs its blocks one after another (grids and blocks of up to
+// three dimensions; the warps divide a block's threads in linear order).
+// The threads of a block are
 // fibers on the calling thread (started with ucontext, then switched with
 // _setjmp/_longjmp, which skip swapcontext's signal-mask system calls),
 // run one at a time: a thread runs until it waits on a barrier, then the
@@ -62,6 +64,9 @@ enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
 struct dim3 {
@@ -159,7 +164,13 @@ inline unsigned char* dynamic_shared() {
   return buf;
 }
 
-inline int lane() { return (int)(threadIdx.x & 31); }
+// the thread's linear index in its block, which the warps divide
+inline int tid() {
+  return (int)(threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y *
+                                           threadIdx.z));
+}
+
+inline int lane() { return tid() & 31; }
 
 // arrive at `b` and wait until every thread it names has arrived
 inline void wait(Barrier& b) {
@@ -178,7 +189,7 @@ inline void wait(Barrier& b) {
 }
 
 inline Barrier& mask_barrier(unsigned mask) {
-  const int warp = (int)(threadIdx.x >> 5);
+  const int warp = tid() >> 5;
   Barrier& b = current->masks[{warp, mask}];
   if (!b.needed) b.needed = __builtin_popcount(mask);
   return b;
@@ -190,8 +201,8 @@ inline unsigned long long exchange(unsigned mask, T v, int src) {
   unsigned long long w = 0;
   memcpy(&w, &v, sizeof(T));
   Barrier& bar = mask_barrier(mask);
-  const int base = (int)(threadIdx.x & ~31u);
-  current->slot[threadIdx.x] = w;
+  const int base = tid() & ~31;
+  current->slot[tid()] = w;
   wait(bar);
   const unsigned long long r = current->slot[base + src];
   wait(bar);
@@ -204,8 +215,8 @@ inline T gather(unsigned mask, T v, F f) {
   unsigned long long w = 0;
   memcpy(&w, &v, sizeof(T));
   Barrier& bar = mask_barrier(mask);
-  const int base = (int)(threadIdx.x & ~31u);
-  current->slot[threadIdx.x] = w;
+  const int base = tid() & ~31;
+  current->slot[tid()] = w;
   wait(bar);
   T acc{};
   bool first = true;
@@ -269,7 +280,7 @@ inline void __syncthreads() { emu::wait(emu::current->all); }
 namespace emu {
 // every thread of the block posts `p`; returns the count of non-zero ones
 inline int block_count(int p) {
-  current->slot[threadIdx.x] = p != 0;
+  current->slot[tid()] = p != 0;
   wait(current->all);
   int n = 0;
   for (unsigned long long w : current->slot) n += (int)w;
@@ -319,14 +330,15 @@ inline void emu_launch(dim3 grid, dim3 block, F f) {
   const int nt = (int)(block.x * block.y * block.z);
   blockDim = block;
   gridDim = grid;
-  for (unsigned b = 0; b < grid.x; ++b) {
+  const unsigned nb = grid.x * grid.y * grid.z;
+  for (unsigned b = 0; b < nb; ++b) {
     emu::Block blk;
     blk.fibers.resize(nt);
     blk.all.needed = nt;
     blk.slot.assign(nt, 0);
     blk.body = f;
     emu::current = &blk;
-    blockIdx = dim3(b);
+    blockIdx = dim3(b % grid.x, b / grid.x % grid.y, b / (grid.x * grid.y));
     for (auto& fb : blk.fibers) {
       fb.stack.reset(new char[emu::kStack]);
       getcontext(&fb.ctx);
@@ -344,7 +356,8 @@ inline void emu_launch(dim3 grid, dim3 block, F f) {
         left = true;
         if (fb.wait && fb.wait->gen == fb.wait_gen) continue;
         blk.cur = t;
-        threadIdx = dim3((unsigned)t);
+        threadIdx = dim3(t % block.x, t / block.x % block.y,
+                         t / (block.x * block.y));
         if (!_setjmp(blk.sched_jb)) {
           if (fb.started) {
             _longjmp(fb.jb, 1);

@@ -20,12 +20,14 @@ import ctypes
 import os
 import shutil
 import subprocess
+from dataclasses import replace
 
 import pytest
 import torch
 
 from test_torch_csrc_emu import CSRC, FLAGS, STUB, rewrite_launches
 from torch_treelet_pools import tie_pool, treelet_rays
+from tpt_torch.bvh import sweep as sw
 from tpt_torch.bvh import treelet_traverse as tlt
 from tpt_torch.core.vec import Vec3
 from tpt_torch.integrators import intersect
@@ -251,23 +253,85 @@ def test_k10_max_rounds_is_capped(lib, scenes):
     assert int(capped) == int(cap_p) == int((t_max > 0).sum()) > 0
 
 
-@pytest.mark.parametrize("group,slots", [(2, 4), (1, 8)])
-def test_k11_equals_plain(lib, scenes, group, slots):
-    pack = scenes[64].pack
-    o, d, t_max = treelet_rays(scenes[64], N, 41 + slots, "cpu")
+def _k11(lib, pack, o, d, t_max, group, slots, node_pops=tlt.NODE_POPS):
     n = t_max.numel()
-    inv = torch.zeros(3 * n)
+    L = 1024 * group
+    lib.tpt_treelet_scan_multi_place.restype = ctypes.c_int
+    place = tlt.MULTI_PLACES[lib.tpt_treelet_scan_multi_place(L, slots)]
+    scratch = torch.zeros(-(-n // L) * (2 * slots + 1) * L
+                          if place == "scratch" else 1)
     s_t = torch.zeros(slots * n)
     s_o = torch.zeros(slots * n, dtype=torch.int32)
     thr = torch.zeros(n)
     capped = torch.zeros(1, dtype=torch.int32)
     stats = torch.zeros(2, dtype=torch.int64)
     _call(lib, "tpt_treelet_scan_multi", _rays(o, d, t_max) + [
-        n, 1024 * group, slots, tlt.NODE_POPS, _p(pack.top_f32),
-        pack.top_f32.shape[1], _p(pack.top_child), _p(pack.top_tord),
-        pack.num_top, pack.arity] + [_p(a) for a in (
-            inv, s_t, s_o, thr, capped, stats)] + [ctypes.c_void_p(None)])
+        n, L, slots, node_pops, _p(pack.top_f32), pack.top_f32.shape[1],
+        _p(pack.top_child), _p(pack.top_tord), pack.num_top,
+        pack.arity] + [_p(a) for a in (
+            scratch, s_t, s_o, thr, capped, stats)] + [ctypes.c_void_p(None)])
+    return ((s_t.view(slots, n), s_o.view(slots, n), thr, capped[0]), stats,
+            place)
+
+
+# every placement of K11's slots: registers while a thread's lanes hold at
+# most 18 slot words, then dynamic shared memory, then the global scratch
+K11_PLACES = {(1, 1): "registers", (1, 4): "registers", (1, 8): "registers",
+              (2, 1): "registers", (2, 4): "registers", (2, 8): "shared",
+              (4, 1): "registers", (4, 4): "shared", (4, 8): "scratch"}
+
+
+@pytest.mark.parametrize("group,slots", list(K11_PLACES))
+def test_k11_equals_plain(lib, scenes, group, slots):
+    """Entry t, ordinal, thr and capped bit for bit on 1500 lanes (no
+    multiple of the packet), in every placement of the lanes' slots."""
+    pack = scenes[64].pack
+    o, d, t_max = treelet_rays(scenes[64], N, 41 + slots, "cpu")
+    got, stats, place = _k11(lib, pack, o, d, t_max, group, slots)
+    assert place == K11_PLACES[group, slots]
     want = tlt.treelet_scan_multi_plain(pack, o, d, t_max, slots=slots,
                                         group=group)
-    _equal((s_t.view(slots, n), s_o.view(slots, n), thr, capped[0]), want)
-    assert int(stats[0]) > 0
+    _equal(got, want)
+    assert int(got[3]) == 0 and int(stats[0]) > 0
+    assert bool((got[1][0] != sw.NONE_ORD).any())
+    assert bool((got[2] < 3.0e38).any())
+
+
+def _chain_top(pack, depth):
+    """A top tree that overflows K11's 256-entry stack and then ends: a
+    chain of `depth` nodes, each with a box around everything, whose
+    near child is the next chain node and whose far child is a node with
+    no child a ray can enter (NaN boxes), so each pop leaves one node on
+    the stack below the chain."""
+    A = pack.arity
+    num = 2 * depth
+    f32 = torch.full((num, pack.top_f32.shape[1]), float("nan"))
+    child = torch.full((num, 16), -1, dtype=torch.int32)
+    box = torch.tensor([-1e6] * 3 + [1e6] * 3)
+    order = sum(15 << (4 * p) for p in range(A))  # every slot past A
+    child[:, 8:] = order
+    for k in range(depth):
+        node = 2 * k
+        f32[node, 6:12] = box                      # slot 1: the far node
+        child[node, 1] = node + 1
+        if k + 1 < depth:
+            f32[node, 0:6] = box                   # slot 0: the next node
+            child[node, 0] = node + 2
+        child[node, 8:] = (order & ~0xFF) | (1 << 4)  # slot 0 popped first
+    tref = torch.full((num, 8), -2, dtype=torch.int32)
+    tord = torch.zeros((num, 8), dtype=torch.int32)
+    return replace(pack, top_f32=f32, top_child=child, top_tref=tref,
+                   top_tord=tord, num_top=num)
+
+
+def test_k11_stack_overflow_is_capped(lib, scenes):
+    """A walk that drops pushes on a full stack, then ends: every live lane
+    of the packet counts as capped, as in the plain walk, and the slots
+    and thr agree bit for bit."""
+    pack = _chain_top(scenes[64].pack, 300)
+    o, d, t_max = treelet_rays(scenes[64], 200, 47, "cpu")
+    got, stats, _ = _k11(lib, pack, o, d, t_max, 1, 4)
+    want = tlt.treelet_scan_multi_plain(pack, o, d, t_max, slots=4, group=1)
+    _equal(got, want)
+    assert int(got[3]) == int((t_max > 0).sum()) > 0
+    assert int(stats[0]) < 8 * pack.num_top + 1024   # ended before the cap

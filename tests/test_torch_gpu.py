@@ -749,7 +749,9 @@ def _atrous_planes(h, w, kind, seed, device):
 @pytest.mark.parametrize("h,w,step,kind", [
     (1, 1, 1, "plain"), (17, 33, 1, "plain"), (17, 33, 2, "all_sky"),
     (17, 33, 4, "signed_zero_normals"), (17, 33, 2, "nonfinite"),
-    (9, 9, 16, "plain"), (1080, 1920, 8, "plain")])
+    (9, 9, 16, "plain"), (70, 37, 33, "nonfinite"), (1080, 1920, 1, "plain"),
+    (1080, 1920, 2, "plain"), (1080, 1920, 4, "plain"),
+    (1080, 1920, 8, "plain"), (1080, 1920, 16, "nonfinite")])
 def test_atrous_kernel_equals_plain(cuda, h, w, step, kind):
     planes = _atrous_planes(h, w, kind, 31, cuda)
     sig = (1.0, 128.0, 4.0)
@@ -762,6 +764,26 @@ def test_atrous_kernel_equals_plain(cuda, h, w, step, kind):
         _exact(a, b)
     if kind == "all_sky":
         _exact(got[0].x, planes[0].x)
+
+
+@pytest.mark.parametrize("h,w,kind,iterations", [
+    (1, 1, "plain", 5), (17, 33, "nonfinite", 5), (23, 37, "plain", 2),
+    (23, 37, "all_sky", 1), (1080, 1920, "plain", 5),
+    (1080, 1920, "nonfinite", 5)])
+def test_atrous_passes_equal_plain(cuda, h, w, kind, iterations):
+    """The frame's passes in one call (packed records between them): the
+    last pass and the history pass (iterations - 2) bit-equal to the plain
+    passes, one K5 launch a pass."""
+    planes = _atrous_planes(h, w, kind, 37, cuda)
+    sig = (1.0, 128.0, 4.0)
+    before = stencil.LAUNCHES["atrous"]
+    fin, hist = stencil.atrous_passes(*planes, iterations, *sig)
+    assert stencil.LAUNCHES["atrous"] == before + iterations
+    want_fin, want_hist = stencil.atrous_passes_plain(*planes, iterations,
+                                                      *sig)
+    flat = lambda o: [o[0].x, o[0].y, o[0].z, o[1], o[2].x, o[2].y, o[2].z, o[3]]
+    for a, b in zip(flat(fin) + flat(hist), flat(want_fin) + flat(want_hist)):
+        _exact(a, b)
 
 
 def _reproject_inputs(h, w, motion, seed, device):
@@ -843,6 +865,7 @@ def test_denoised_renderer_kernels_equal_plain(cornell, cuda, monkeypatch):
     assert (stencil.LAUNCHES["atrous"], reproject.LAUNCHES["reproject"]) == \
         (before[0] + 25, before[1] + 5)
     monkeypatch.setattr(stencil, "atrous", stencil.atrous_plain)
+    monkeypatch.setattr(stencil, "atrous_passes", stencil.atrous_passes_plain)
     monkeypatch.setattr(reproject, "reproject", svgf._reproject_taps)
     img_p = run()
     assert stencil.LAUNCHES["atrous"] == before[0] + 25
@@ -955,9 +978,14 @@ def test_treelet_closest_hit_kernel_equals_plain(treelet_scenes, cuda, mt, n,
 
 
 @pytest.mark.parametrize("n,group,S", [(1, 2, 4), (2049, 2, 4), (2049, 1, 8),
-                                       (6000, 2, 1), (6000, 1, 2)])
+                                       (6000, 2, 1), (6000, 1, 2),
+                                       (2049, 2, 8), (6000, 4, 4),
+                                       (6000, 4, 8), (9000, 8, 1),
+                                       (9000, 8, 5)])
 def test_treelet_scan_multi_kernel_equals_plain(treelet_scenes, cuda, n, group,
                                                 S):
+    """Every plane bit for bit, with the lanes' slots in registers, in
+    shared memory and in the global scratch (tlt.multi_place)."""
     data = treelet_scenes[64]
     o, d, tm = _treelet_rays(data, n, 41 + n, cuda)
     before = tlt.LAUNCHES["treelet_scan_multi"]
@@ -1100,14 +1128,36 @@ def test_treelet_large_clusters_stage_in_chunks(cuda):
 
 
 def test_treelet_kernel_attributes(cuda):
-    """K9/K10 run THREADS threads a packet, K11 256; K10's lane planes fit
-    in shared memory as the layout says."""
-    for k in (9, 10):
+    """K9/K10/K11 run THREADS threads a packet; K10's lane planes fit in
+    shared memory as the layout says."""
+    for k in (9, 10, 11):
         assert tlt.kernel_attributes(k, 2)["threads"] == tlt.THREADS
-    assert tlt.kernel_attributes(11, 2)["threads"] >= 256
     assert tlt.kernel_attributes(10, 2, 4)["dynamic_shared_bytes"] == \
         (13 + 3 + 2 * 4) * 4 * 2048
     assert tlt.kernel_attributes(10, 8, 4)["dynamic_shared_bytes"] == 0
+
+
+def test_treelet_scan_multi_registers(cuda):
+    """K11's instantiations: where each keeps its lanes' slots, and no
+    spill where they live in registers (at 1 and 2 lanes a thread, the
+    packets the port launches); the planes in shared memory take their
+    bytes as dynamic shared memory."""
+    for group in (1, 2, 4, 8):
+        for S in range(1, tlt.MAX_SLOTS + 1):
+            a = tlt.kernel_attributes(11, group, S)
+            place = tlt.multi_place(group, S)
+            print(f"K11 group {group} S {S}: {place}, {a}")
+            assert a["threads"] == tlt.THREADS
+            if place == "shared":
+                assert a["dynamic_shared_bytes"] == 4 * (2 * S + 1) * 1024 \
+                    * group
+            else:
+                assert a["dynamic_shared_bytes"] == 0
+            if group <= 2:
+                assert a["local_bytes"] == 0, (group, S, a)
+    assert tlt.multi_place(2, 4) == "registers"
+    assert tlt.multi_place(4, 4) == "shared"
+    assert tlt.multi_place(4, 8) == "scratch"
 
 
 def test_treelet_render_kernels_equal_plain(cuda, monkeypatch):
@@ -1416,6 +1466,7 @@ def test_hero_render_kernels_equal_plain(hero, cuda, monkeypatch, integrator):
                         pt.closest_hit_wide_plain)
     monkeypatch.setattr(pt, "packet_any_hit_wide", pt.any_hit_wide_plain)
     monkeypatch.setattr(stencil, "atrous", stencil.atrous_plain)
+    monkeypatch.setattr(stencil, "atrous_passes", stencil.atrous_passes_plain)
     monkeypatch.setattr(reproject, "reproject", svgf._reproject_taps)
     img_p = run()
     for a, b in zip(img_k, img_p):

@@ -93,12 +93,12 @@ def load_library(name: str, compiler: List[str], sources: Sequence[str],
 
 def launch(lib: Callable[[], ctypes.CDLL], launches: Dict[str, int],
            name: str, dev: torch.device, *args,
-           count_as: Optional[str] = None) -> None:
+           count_as: Optional[str] = None, kernels: int = 1) -> None:
     """Launch tpt_<name> of the library `lib()` loads on the current
-    stream, count it in `launches` (under `count_as` if given: one C
-    entry point can serve several modes, each counted on its own), and
-    raise on a CUDA error. A tensor that is not on a CUDA device raises
-    before anything is built."""
+    stream, count its `kernels` kernel launches in `launches` (under
+    `count_as` if given: one C entry point can serve several modes, each
+    counted on its own), and raise on a CUDA error. A tensor that is not
+    on a CUDA device raises before anything is built."""
     if dev.type != "cuda":
         raise ValueError(f"no {name} kernel for device {dev}")
     fn = getattr(lib(), "tpt_" + name)
@@ -107,4 +107,4 @@ def launch(lib: Callable[[], ctypes.CDLL], launches: Dict[str, int],
         rc = fn(*args, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    launches[count_as or name] += 1
+    launches[count_as or name] += kernels

@@ -12,9 +12,10 @@ below. There is no fallback between the two: a CUDA tensor launches the
 kernel or raises.
 
 All three walk tpt's super-packets of `group * 1024` consecutive lanes
-with one stack per packet, as the TPU kernels do (on the card K9 and K10
-run a packet as one block of THREADS threads with its lanes' state on
-chip; K11 as one block of 256), because what they return depends on the
+with one stack per packet, as the TPU kernels do (on the card each runs
+a packet as one block of THREADS threads with its lanes' state on chip;
+K11 on K9's walk, its slots in registers, shared memory or a global
+scratch as `multi_place` says), because what they return depends on the
 packet: K9's overflow flag and candidate count (the hybrid easy/hard
 split) count every child the packet visits, K11's thr is lowered by
 every child its slot window excludes, and K10's packet decides which
@@ -100,6 +101,8 @@ def _lib() -> ctypes.CDLL:
         lib.tpt_treelet_scan_multi.restype = ctypes.c_int
         lib.tpt_treelet_scan_multi.argtypes = ([p] * 7 + [i, i, i, i, p, i, p,
                                                 p, i, i] + [p] * 7)
+        lib.tpt_treelet_scan_multi_place.restype = ctypes.c_int
+        lib.tpt_treelet_scan_multi_place.argtypes = [i, i]
         for name in ("tpt_treelet_max_slots", "tpt_treelet_threads"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = []
@@ -230,13 +233,32 @@ def treelet_scan_multi(pack: PacketBVH, ori: Vec3, d: Vec3,
     thr = torch.empty(n, dtype=torch.float32, device=dev)
     capped = torch.zeros((), dtype=torch.int32, device=dev)
     if n:
-        inv = torch.empty((3, n), dtype=torch.float32, device=dev)
+        scratch = None
+        if multi_place(group, S) == "scratch":
+            scratch = torch.empty((-(-n // L), 2 * S + 1, L),
+                                  dtype=torch.float32, device=dev)
         _run("treelet_scan_multi", dev, *_rays(ori, d, t_max), n, L, S,
              node_pops, _ptr(pack.top_f32), pack.top_f32.shape[1],
              _ptr(pack.top_child), _ptr(pack.top_tord), pack.num_top,
-             pack.arity, _ptr(inv), _ptr(s_t), _ptr(s_o), _ptr(thr),
+             pack.arity, _ptr(scratch), _ptr(s_t), _ptr(s_o), _ptr(thr),
              _ptr(capped), _ptr(stats))
     return s_t, s_o, thr, capped
+
+
+MULTI_PLACES = ("registers", "shared", "scratch")
+
+
+def multi_place(group: int, slots: int) -> str:
+    """Where K11 keeps its lanes' slots and thr at `group` * 1024 lanes a
+    packet and `slots` slots, as the library decides: "registers",
+    "shared" (dynamic shared memory) or "scratch" (a global scratch per
+    packet)."""
+    place = _lib().tpt_treelet_scan_multi_place(_packet(group),
+                                                _slots(slots, MAX_SLOTS))
+    if place < 0:
+        raise ValueError(f"K11 takes no packet of group {group} with "
+                         f"{slots} slots")
+    return MULTI_PLACES[place]
 
 
 def _check_seed(seed, n: int, dev):

@@ -74,11 +74,20 @@
 // times over the SMs plus the tail of the packets it starts last; its
 // order is the pool's (scripts/treelet_packet_order.py measures both).
 //
-// K11 is K9's walk that keeps S candidate slots and thr per lane, as K3
-// does over every treelet box; its slots equal K3's, and its thr, which
-// also counts pruned subtrees, lies at or below K3's. It keeps the
-// earlier layout: blocks of MULTI_THREADS threads, the lanes' state in its
-// output planes.
+// K11 runs K9's walk (scan_kernel) with another lane policy: each lane
+// keeps S (entry t, ordinal) slots and thr, as K3 does over every treelet
+// box; its slots equal K3's, and its thr, which also counts pruned
+// subtrees, lies at or below K3's. Its result depends on every slab test
+// its packets make (thr is lowered by each child the slot window
+// excludes), so what bounds it is the same as K9's: the packet's serial
+// pops times one pop's lane tests and vote. The walk is K9's: 1024
+// threads a packet, the rays in registers, each child box read once for
+// all of a thread's lanes, one vote a pop. The slots, 2S + 1 words a
+// lane, stay in registers while a thread's lanes hold at most 18 of them
+// (S <= 8 at one lane a thread, S <= 4 at two), else in [2S + 1][packet]
+// planes in dynamic shared memory (up to 227 KB), else in a global
+// scratch per block; a lane reads its window (the S-th slot's t) at every
+// box it passes and the slots only to insert.
 //
 // K10 runs tpt's round machine per packet: SCAN rounds walk the top tree
 // and fill each lane's S candidate slots past its (thr_t, thr_c)
@@ -107,9 +116,8 @@
 
 #include "ray_common.cuh"
 
-#define THREADS 1024          // K9/K10: threads a packet (one block)
+#define THREADS 1024          // K9/K10/K11: threads a packet (one block)
 #define WARPS (THREADS / 32)
-#define MULTI_THREADS 256     // K11: threads a packet
 #define NONE_CODE 0x7FFFFFFF
 #define NONE_ORD 0x7FFFFF     // K11's empty slot (pallas_treelet.py NONE_ORD)
 #define CODE_MIN (-0x7FFFFFFF - 1)
@@ -191,12 +199,6 @@ __device__ __forceinline__ bool slab_tn(const float* __restrict__ b, float ox,
   return slab_box(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3),
                   __ldg(b + 4), __ldg(b + 5), ox, oy, oz, ix, iy, iz, limit,
                   tn);
-}
-
-// block-wide OR of each thread's bits into *dst (zero beforehand; K11)
-__device__ __forceinline__ void or_bits(unsigned* dst, unsigned bits) {
-  bits = __reduce_or_sync(FULL_MASK, bits);
-  if ((threadIdx.x & 31) == 0 && bits) atomicOr(dst, bits);
 }
 
 // float -> int preserving order
@@ -297,26 +299,230 @@ __device__ __forceinline__ int read_count(const Votes& v) {
 #define V_NEED 4u   // some lane needs a scan
 
 // ---------------------------------------------------------------------------
-// K9: nearest treelet candidate per lane (pallas_treelet.py:408-519)
+// K9 and K11: one walk of the top tree per packet (pallas_treelet.py:408-519
+// and :647-766). The walk is shared; what a lane keeps is the policy's
+// (`Lanes`): K9's nearest candidate, overflow flag and count; K11's S
+// (entry t, ordinal) slots and thr. The policy is told, for each child
+// box a lane passes, whether the child is kept (tn within the lane's
+// window), and whether it is an internal child the window excludes or a
+// treelet candidate.
 // ---------------------------------------------------------------------------
 
-// LPT: the most lanes a thread owns (packet / THREADS, rounded up to the
-// instantiation); the lanes' state lives in registers
+// K9's outputs, f32/int32 [n] planes
+struct NearestOut {
+  float* st;
+  int *sc, *so, *ovf, *cnt;
+};
+
+// K9's lane state, in registers: the lexicographically nearest (entry t,
+// code) candidate and its ordinal, an overflow flag and a candidate count
 template <int LPT>
+struct Nearest {
+  using Out = NearestOut;
+  static constexpr bool kCodes = true;  // reads the children's codes
+  float t[LPT];
+  int c[LPT], o[LPT], f[LPT], m[LPT];
+
+  __device__ __forceinline__ Nearest(const Out&, int, int) {
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+      t[k] = BIG;
+      c[k] = NONE_CODE;
+      o[k] = 0;
+      f[k] = 0;
+      m[k] = 0;
+    }
+  }
+  __device__ __forceinline__ float window(int k) const { return t[k]; }
+  __device__ __forceinline__ void excluded(int k, float) { f[k] = 1; }
+  __device__ __forceinline__ void candidate(int k, float tn, bool kept,
+                                            int code, int ord) {
+    ++m[k];
+    if (!kept) {
+      f[k] = 1;
+    } else if (lex_lt(tn, code, t[k], c[k])) {
+      if (c[k] != NONE_CODE) f[k] = 1;
+      t[k] = tn;
+      c[k] = code;
+      o[k] = ord;
+    } else {
+      f[k] = 1;
+    }
+  }
+  __device__ __forceinline__ void store(const Out& out, int k, int i,
+                                        int) const {
+    out.st[i] = t[k];
+    out.sc[i] = c[k];
+    out.so[i] = o[k];
+    out.ovf[i] = f[k];
+    out.cnt[i] = m[k];
+  }
+};
+
+// K11's outputs, st/so [S, n] and thr [n], and where its planes live when
+// they are not in registers
+struct SlotOut {
+  float* st;
+  int* so;
+  float* thr;
+  int S;
+  float* scratch;  // [blocks][2S + 1][packet] when not in shared memory
+  int shared;      // the planes are in dynamic shared memory
+};
+
+// K11's lane state in registers: S slots and thr a lane, LPT lanes
+template <int LPT, int S>
+struct SlotRegs {
+  using Out = SlotOut;
+  static constexpr bool kCodes = false;
+  float t[LPT][S];
+  int o[LPT][S];
+  float th[LPT];
+
+  __device__ __forceinline__ SlotRegs(const Out&, int, int) {
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+#pragma unroll
+      for (int q = 0; q < S; ++q) {
+        t[k][q] = BIG;
+        o[k][q] = NONE_ORD;
+      }
+      th[k] = BIG;
+    }
+  }
+  __device__ __forceinline__ float window(int k) const { return t[k][S - 1]; }
+  __device__ __forceinline__ void excluded(int k, float tn) {
+    th[k] = nmin(th[k], tn);
+  }
+  __device__ __forceinline__ void candidate(int k, float tn, bool kept, int,
+                                            int ord) {
+    if (!kept) {
+      th[k] = nmin(th[k], tn);
+      return;
+    }
+    // insert (tn, ord) in ascending lexicographic order, a compare-swap
+    // cascade; the entry it displaces, or the candidate itself when the
+    // slots hold S nearer ones, lowers thr
+    float ct = tn;
+    int co = ord;
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      const float tq = t[k][q];
+      const int oq = o[k][q];
+      if (lex_lt(ct, co, tq, oq)) {
+        t[k][q] = ct;
+        o[k][q] = co;
+        ct = tq;
+        co = oq;
+      }
+    }
+    if (co != NONE_ORD) th[k] = nmin(th[k], ct);
+  }
+  __device__ __forceinline__ void store(const Out& out, int k, int i,
+                                        int n) const {
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      out.st[(size_t)q * n + i] = t[k][q];
+      out.so[(size_t)q * n + i] = o[k][q];
+    }
+    out.thr[i] = th[k];
+  }
+};
+
+// K11's lane state in [2S + 1][packet] planes (S entry t, S ordinals,
+// thr), in dynamic shared memory or in the block's slice of a global
+// scratch, read through the same pointer; S at run time
+template <int LPT>
+struct SlotPlanes {
+  using Out = SlotOut;
+  static constexpr bool kCodes = false;
+  float* p;
+  int packet, S;
+
+  __device__ __forceinline__ SlotPlanes(const Out& out, int packet_, int lpt)
+      : p(out.shared ? reinterpret_cast<float*>(DYNAMIC_SHARED)
+                     : out.scratch + (size_t)blockIdx.x * packet_ *
+                                         (2 * out.S + 1)),
+        packet(packet_),
+        S(out.S) {
+    for (int k = 0; k < lpt; ++k) {
+      const int j = k * THREADS + threadIdx.x;
+      for (int q = 0; q < S; ++q) {
+        tf(q, j) = BIG;
+        oi(q, j) = NONE_ORD;
+      }
+      tf(2 * S, j) = BIG;
+    }
+  }
+  __device__ __forceinline__ float& tf(int q, int j) const {
+    return p[q * packet + j];
+  }
+  __device__ __forceinline__ int& oi(int q, int j) const {
+    return reinterpret_cast<int*>(p)[(S + q) * packet + j];
+  }
+  __device__ __forceinline__ float window(int k) const {
+    return tf(S - 1, k * THREADS + threadIdx.x);
+  }
+  __device__ __forceinline__ void excluded(int k, float tn) {
+    float& th = tf(2 * S, k * THREADS + threadIdx.x);
+    th = nmin(th, tn);
+  }
+  __device__ __forceinline__ void candidate(int k, float tn, bool kept, int,
+                                            int ord) {
+    const int j = k * THREADS + threadIdx.x;
+    float& th = tf(2 * S, j);
+    if (!kept) {
+      th = nmin(th, tn);
+      return;
+    }
+    // SlotRegs' cascade, rolled: S is known only at run time, and
+    // unrolled to MAX_SLOTS it spilled beside the rays
+    float ct = tn;
+    int co = ord;
+#pragma unroll 1
+    for (int q = 0; q < S; ++q) {
+      const float tq = tf(q, j);
+      const int oq = oi(q, j);
+      if (lex_lt(ct, co, tq, oq)) {
+        tf(q, j) = ct;
+        oi(q, j) = co;
+        ct = tq;
+        co = oq;
+      }
+    }
+    if (co != NONE_ORD) th = nmin(th, ct);
+  }
+  __device__ __forceinline__ void store(const Out& out, int k, int i,
+                                        int n) const {
+    const int j = k * THREADS + threadIdx.x;
+    for (int q = 0; q < S; ++q) {
+      out.st[(size_t)q * n + i] = tf(q, j);
+      out.so[(size_t)q * n + i] = oi(q, j);
+    }
+    out.thr[i] = tf(2 * S, j);
+  }
+};
+
+struct ScanShared {
+  int stack[SCAN_STACK + 2];
+  Votes votes;
+};
+
+// LPT: the most lanes a thread owns (packet / THREADS, rounded up to the
+// instantiation); the lanes' rays live in registers
+template <int LPT, class Lanes>
 __global__ void __launch_bounds__(THREADS, 1) scan_kernel(
-    Rays r, int packet, Top top, int arity, float* __restrict__ st,
-    int* __restrict__ sc, int* __restrict__ so, int* __restrict__ ovf,
-    int* __restrict__ cnt, int* __restrict__ capped,
+    Rays r, int packet, Top top, int arity, int node_pops,
+    typename Lanes::Out out, int* __restrict__ capped,
     unsigned long long* __restrict__ stats) {
-  __shared__ int stack[SCAN_STACK + 2];
-  __shared__ Votes votes;
+  __shared__ ScanShared sh;
+  int* stack = sh.stack;
   const int n = r.n;
   const int base = blockIdx.x * packet;
   const int lpt = packet / THREADS;
   const int A = arity;
-  float ox[LPT], oy[LPT], oz[LPT], ix[LPT], iy[LPT], iz[LPT], bt[LPT],
-      s_t[LPT];
-  int s_c[LPT], s_o[LPT], f[LPT], c[LPT];
+  float ox[LPT], oy[LPT], oz[LPT], ix[LPT], iy[LPT], iz[LPT], bt[LPT];
+  Lanes lanes(out, packet, lpt);
   unsigned vb = 0u;
   int nlive = 0;
 #pragma unroll
@@ -333,17 +539,12 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(
     ix[k] = safe_inv(in ? r.dx[i] : 0.0f);
     iy[k] = safe_inv(in ? r.dy[i] : 0.0f);
     iz[k] = safe_inv(in ? r.dz[i] : 0.0f);
-    s_t[k] = BIG;
-    s_c[k] = NONE_CODE;
-    s_o[k] = 0;
-    f[k] = 0;
-    c[k] = 0;
   }
   int par = 0;
-  post_count(votes, nlive);
+  post_count(sh.votes, nlive);
   // jnp.max(bt) > 0: false when any lane's bt is NaN
-  const unsigned any0 = vote_or(votes, par, vb);
-  const int live = read_count(votes);
+  const unsigned any0 = vote_or(sh.votes, par, vb);
+  const int live = read_count(sh.votes);
   const int oct = packet_octant(r, base);
   int sp = ((any0 & V_POS) && !(any0 & V_NAN)) ? 1 : 0;
   stack[0] = 0;  // every thread writes the same stack entries
@@ -352,7 +553,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(
   unsigned long long pops = 0, slabs = 0;
   const int cap = 8 * top.num + 1024;
   while (sp > 0 && step < cap) {
-    for (int p = 0; p < NODE_POPS && sp > 0; ++p) {
+    for (int p = 0; p < node_pops && sp > 0; ++p) {
       const int code = stack[--sp];
       ++pops;
       const float* row = top.f32 + (size_t)code * top.width;
@@ -367,7 +568,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(
         const float b0 = __ldg(b + 0), b1 = __ldg(b + 1), b2 = __ldg(b + 2),
                     b3 = __ldg(b + 3), b4 = __ldg(b + 4), b5 = __ldg(b + 5);
         const bool internal = __ldg(crow + s) >= 0;
-        const int tcode = __ldg(trow + s), tord = __ldg(orow + s);
+        const int tcode = Lanes::kCodes ? __ldg(trow + s) : 0;
+        const int tord = __ldg(orow + s);
 #pragma unroll
         for (int k = 0; k < LPT; ++k) {
           if (!(bt[k] >= 0.0f)) continue;  // no box can pass: tn >= 0 > limit
@@ -376,29 +578,17 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(
                                     oz[k], ix[k], iy[k], iz[k], bt[k], tn);
           ++slabs;
           if (!hit) continue;
-          const bool kept = tn <= s_t[k];
+          const bool kept = tn <= lanes.window(k);
           if (internal) {
             if (kept) bits |= 1u << s;
-            else f[k] = 1;
+            else lanes.excluded(k, tn);
             continue;
           }
           if (!(tn < bt[k])) continue;
-          ++c[k];
-          if (!kept) {
-            f[k] = 1;
-            continue;
-          }
-          if (lex_lt(tn, tcode, s_t[k], s_c[k])) {
-            if (s_c[k] != NONE_CODE) f[k] = 1;
-            s_t[k] = tn;
-            s_c[k] = tcode;
-            s_o[k] = tord;
-          } else {
-            f[k] = 1;
-          }
+          lanes.candidate(k, tn, kept, tcode, tord);
         }
       }
-      const unsigned any = vote_or(votes, par, bits);
+      const unsigned any = vote_or(sh.votes, par, bits);
       // push the kept top children far to near in the packet's order
       const unsigned ordw = (unsigned)__ldg(crow + 8 + oct);
       for (int pos = A - 1; pos >= 0; --pos) {
@@ -417,11 +607,7 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(
   for (int k = 0; k < LPT; ++k) {
     const int i = base + k * THREADS + threadIdx.x;
     if (k >= lpt || i >= n) continue;
-    st[i] = s_t[k];
-    sc[i] = s_c[k];
-    so[i] = s_o[k];
-    ovf[i] = f[k];
-    cnt[i] = c[k];
+    lanes.store(out, k, i, n);
   }
   if (threadIdx.x == 0) {
     if (!exact && live) atomicAdd(capped, live);
@@ -998,193 +1184,102 @@ int launch_closest(Rays r, int packet, int nt, int max_rounds,
   return (int)cudaGetLastError();
 }
 
-template <int LPT>
-int launch_scan(Rays r, int packet, int nt, Top top, int arity, float* st,
-                int* sc, int* so, int* ovf, int* cnt, int* capped,
-                unsigned long long* stats, cudaStream_t stream) {
-  scan_kernel<LPT><<<nt, THREADS, 0, stream>>>(r, packet, top, arity, st, sc,
-                                               so, ovf, cnt, capped, stats);
+// one launch of the top-tree walk with lane policy `Lanes`, with `dyn`
+// bytes of dynamic shared memory
+template <int LPT, class Lanes>
+int launch_walk(Rays r, int packet, int nt, Top top, int arity,
+                int node_pops, const typename Lanes::Out& out, int dyn,
+                int* capped, unsigned long long* stats,
+                cudaStream_t stream) {
+  if (dyn > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_kernel<LPT, Lanes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  scan_kernel<LPT, Lanes><<<nt, THREADS, dyn, stream>>>(
+      r, packet, top, arity, node_pops, out, capped, stats);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// K11: the S nearest treelet candidates per lane and thr
-// (pallas_treelet.py:647-766)
-// ---------------------------------------------------------------------------
-
-// K9's walk with K3's output: each lane keeps S (entry t, ordinal) slots
-// in ascending lexicographic order, and thr, a lower bound on the entry t
-// of every candidate the slots do not hold: it is lowered by each
-// candidate or kept internal child the window (t <= the S-th slot's t)
-// excludes, and by each entry an insert displaces. The lane's state lives
-// in the output planes st/so [S, n] and thr [n], read and written per
-// popped node.
-template <int S>
-__global__ void __launch_bounds__(MULTI_THREADS) scan_multi_kernel(
-    Rays r, int packet, Top top, int arity, int node_pops,
-    float* __restrict__ inv, float* __restrict__ st, int* __restrict__ so,
-    float* __restrict__ thr, int* __restrict__ capped,
-    unsigned long long* __restrict__ stats) {
-  __shared__ int stack[SCAN_STACK + 2];
-  __shared__ unsigned any_buf[2];
-  __shared__ int s_live;
-  const int n = r.n;
-  const int base = blockIdx.x * packet;
-  const int lpt = packet / MULTI_THREADS;
-  const int A = arity;
-  bool any_pos = false, any_nan = false;
-  int nlive = 0;
-  for (int k = 0; k < lpt; ++k) {
-    const int i = base + k * MULTI_THREADS + threadIdx.x;
-    if (i >= n) continue;
-    const float bt = nmin(r.tmax[i], BIG);
-    any_pos |= bt > 0.0f;
-    any_nan |= bt != bt;
-    nlive += r.tmax[i] > 0.0f;
-    inv[i] = safe_inv(r.dx[i]);
-    inv[(size_t)n + i] = safe_inv(r.dy[i]);
-    inv[2 * (size_t)n + i] = safe_inv(r.dz[i]);
-#pragma unroll
-    for (int q = 0; q < S; ++q) {
-      st[(size_t)q * n + i] = BIG;
-      so[(size_t)q * n + i] = NONE_ORD;
-    }
-    thr[i] = BIG;
-  }
-  if (threadIdx.x == 0) {
-    stack[0] = 0;
-    any_buf[0] = any_buf[1] = 0u;
-    s_live = 0;
-  }
-  __syncthreads();
-  if (nlive) atomicAdd(&s_live, nlive);
-  // jnp.max(bt) > 0: false when any lane's bt is NaN
-  const bool b_pos = __syncthreads_or(any_pos);
-  const bool b_nan = __syncthreads_or(any_nan);
-  const int oct = packet_octant(r, base);
-  int sp = (b_pos && !b_nan) ? 1 : 0;
-  int step = 0, par = 0;
-  bool exact = true;
-  unsigned long long pops = 0, slabs = 0;
-  const int cap = 8 * top.num + 1024;
-  while (sp > 0 && step < cap) {
-    for (int p = 0; p < node_pops; ++p) {
-      __syncthreads();  // the pushes and the buffer reset are visible
-      if (threadIdx.x == 0) any_buf[par ^ 1] = 0u;
-      const int code = sp > 0 ? stack[sp - 1] : -1;
-      if (sp > 0) --sp;
-      unsigned bits = 0;
-      const float* row = top.f32 + (size_t)max(code, 0) * top.width;
-      const int* crow = top.child + (size_t)max(code, 0) * 16;
-      if (code >= 0) {
-        ++pops;
-        const int* orow = top.tord + (size_t)code * 8;
-        for (int k = 0; k < lpt; ++k) {
-          const int i = base + k * MULTI_THREADS + threadIdx.x;
-          if (i >= n) continue;
-          const float bt = nmin(r.tmax[i], BIG);
-          if (!(bt >= 0.0f)) continue;  // no box can pass: tn >= 0 > limit
-          const float ox = r.ox[i], oy = r.oy[i], oz = r.oz[i];
-          const float ix = inv[i], iy = inv[(size_t)n + i],
-                      iz = inv[2 * (size_t)n + i];
-          float s_t[S];
-          int s_o[S];
-#pragma unroll
-          for (int q = 0; q < S; ++q) {
-            s_t[q] = st[(size_t)q * n + i];
-            s_o[q] = so[(size_t)q * n + i];
-          }
-          float th = thr[i];
-          bool dirty = false;
-          for (int s = 0; s < A; ++s) {
-            float tn;
-            const bool hit =
-                slab_tn(row + 6 * s, ox, oy, oz, ix, iy, iz, bt, tn);
-            ++slabs;
-            if (!hit) continue;
-            const bool kept = tn <= s_t[S - 1];
-            if (__ldg(crow + s) >= 0) {  // an internal top child
-              if (kept) {
-                bits |= 1u << s;
-              } else {
-                th = nmin(th, tn);
-                dirty = true;
-              }
-              continue;
-            }
-            if (!(tn < bt)) continue;
-            dirty = true;
-            if (!kept) {  // outside the slot window
-              th = nmin(th, tn);
-              continue;
-            }
-            // insert (tn, ordinal) in lex order; the displaced entry falls
-            // to thr
-            float ct = tn;
-            int co = __ldg(orow + s);
-#pragma unroll
-            for (int q = 0; q < S; ++q) {
-              const bool swap = lex_lt(ct, co, s_t[q], s_o[q]);
-              const float tt = swap ? s_t[q] : ct;
-              const int oo = swap ? s_o[q] : co;
-              s_t[q] = swap ? ct : s_t[q];
-              s_o[q] = swap ? co : s_o[q];
-              ct = tt;
-              co = oo;
-            }
-            if (co != NONE_ORD) th = nmin(th, ct);
-          }
-          if (dirty) {
-#pragma unroll
-            for (int q = 0; q < S; ++q) {
-              st[(size_t)q * n + i] = s_t[q];
-              so[(size_t)q * n + i] = s_o[q];
-            }
-            thr[i] = th;
-          }
-        }
-      }
-      or_bits(&any_buf[par], bits);
-      __syncthreads();
-      const unsigned any = any_buf[par];
-      par ^= 1;
-      if (code >= 0) {
-        // push the kept top children far to near in the packet's order
-        const unsigned ordw = (unsigned)__ldg(crow + 8 + oct);
-        for (int pos = A - 1; pos >= 0; --pos) {
-          const int slot = (ordw >> (4 * pos)) & 15;
-          if (slot >= A || !((any >> slot) & 1u)) continue;
-          const int csel = __ldg(crow + slot);
-          if (csel < 0) continue;
-          if (sp < SCAN_STACK) {
-            if (threadIdx.x == 0) stack[sp] = csel;
-            ++sp;
-          } else {
-            exact = false;
-          }
-        }
-      }
-    }
-    ++step;
-  }
-  if (sp > 0) exact = false;
-  if (threadIdx.x == 0) {
-    if (!exact && s_live) atomicAdd(capped, s_live);
-    if (stats) atomicAdd(stats + 0, pops);
-  }
-  if (stats && slabs) atomicAdd(stats + 1, slabs);
+// the instantiated lanes a thread for a packet: 1, 2, 4 or 8
+int lanes_inst(int packet) {
+  const int lpt = packet / THREADS;
+  return lpt <= 1 ? 1 : lpt <= 2 ? 2 : lpt <= 4 ? 4 : 8;
 }
 
-template <int S>
-int launch_scan_multi(Rays r, int packet, int nt, Top top, int arity,
-                      int node_pops, float* inv, float* st, int* so,
-                      float* thr, int* capped, unsigned long long* stats,
-                      cudaStream_t stream) {
-  scan_multi_kernel<S><<<nt, MULTI_THREADS, 0, stream>>>(
-      r, packet, top, arity, node_pops, inv, st, so, thr, capped, stats);
-  return (int)cudaGetLastError();
+// Where K11 keeps a lane's 2S + 1 slot words: in registers while a
+// thread's LPT lanes hold at most MULTI_REG_WORDS of them (S <= 8 at one
+// lane a thread, S <= 4 at two: beside the rays' 7 LPT words that fits
+// the 64 registers a thread of a 1024-thread block has), else in
+// [2S + 1][packet] planes in dynamic shared memory, else in a global
+// scratch per block.
+#define MULTI_REG_WORDS 18
+enum MultiPlace { IN_REGS = 0, IN_SHARED = 1, IN_SCRATCH = 2 };
+
+int multi_place(int packet, int S) {
+  if (lanes_inst(packet) * (2 * S + 1) <= MULTI_REG_WORDS) return IN_REGS;
+  const long bytes = 4L * (2 * S + 1) * packet;
+  return bytes <= SMEM_LIMIT - (long)sizeof(ScanShared) ? IN_SHARED
+                                                        : IN_SCRATCH;
 }
 
+template <int LPT, int S>
+int launch_multi_regs(Rays r, int packet, int nt, Top top, int arity,
+                      int node_pops, const SlotOut& out, int* capped,
+                      unsigned long long* stats, cudaStream_t stream) {
+  return launch_walk<LPT, SlotRegs<LPT, S>>(r, packet, nt, top, arity,
+                                            node_pops, out, 0, capped, stats,
+                                            stream);
+}
+
+// the register instantiations MULTI_REG_WORDS allows, by (LPT, S)
+#define MULTI_REGS_CASES(X)                                        \
+  X(1, 1) X(1, 2) X(1, 3) X(1, 4) X(1, 5) X(1, 6) X(1, 7) X(1, 8) \
+  X(2, 1) X(2, 2) X(2, 3) X(2, 4) X(4, 1)
+
+int launch_multi(Rays r, int packet, int nt, Top top, int arity,
+                 int node_pops, SlotOut out, int* capped,
+                 unsigned long long* stats, cudaStream_t stream) {
+  const int L = lanes_inst(packet), S = out.S;
+  const int place = multi_place(packet, S);
+  if (place == IN_REGS) {
+#define REGS_CASE(LPT, SS)                                                  \
+  if (L == LPT && S == SS)                                                  \
+    return launch_multi_regs<LPT, SS>(r, packet, nt, top, arity, node_pops, \
+                                      out, capped, stats, stream);
+    MULTI_REGS_CASES(REGS_CASE)
+#undef REGS_CASE
+    return (int)cudaErrorInvalidValue;
+  }
+  out.shared = place == IN_SHARED;
+  const int dyn = out.shared ? 4 * (2 * S + 1) * packet : 0;
+#define PLANES_CASE(LPT)                                                   \
+  if (L == LPT)                                                            \
+    return launch_walk<LPT, SlotPlanes<LPT>>(r, packet, nt, top, arity,    \
+                                             node_pops, out, dyn, capped,  \
+                                             stats, stream);
+  PLANES_CASE(1) PLANES_CASE(2) PLANES_CASE(4) PLANES_CASE(8)
+#undef PLANES_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// the attributes of the K11 instantiation a packet and S launch
+cudaError_t multi_attributes(int packet, int S, cudaFuncAttributes* a) {
+  const int L = lanes_inst(packet);
+  if (multi_place(packet, S) == IN_REGS) {
+#define REGS_ATTR(LPT, SS)                                             \
+  if (L == LPT && S == SS)                                             \
+    return cudaFuncGetAttributes(a, scan_kernel<LPT, SlotRegs<LPT, SS>>);
+    MULTI_REGS_CASES(REGS_ATTR)
+#undef REGS_ATTR
+    return cudaErrorInvalidValue;
+  }
+  return L == 1   ? cudaFuncGetAttributes(a, scan_kernel<1, SlotPlanes<1>>)
+         : L == 2 ? cudaFuncGetAttributes(a, scan_kernel<2, SlotPlanes<2>>)
+         : L == 4 ? cudaFuncGetAttributes(a, scan_kernel<4, SlotPlanes<4>>)
+                  : cudaFuncGetAttributes(a, scan_kernel<8, SlotPlanes<8>>);
+}
 
 }  // namespace
 
@@ -1215,19 +1310,16 @@ int tpt_treelet_scan(const float* ox, const float* oy, const float* oz,
   Rays r{ox, oy, oz, dx, dy, dz, tmax, n};
   Top top{top_f32, top_width, top_child, top_tref, top_tord, num_top};
   const int nt = (n + packet - 1) / packet;
-  const int lpt = packet / THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-  if (lpt <= 1)
-    return launch_scan<1>(r, packet, nt, top, arity, st, sc, so, ovf, cnt,
-                          capped, stats, s);
-  if (lpt <= 2)
-    return launch_scan<2>(r, packet, nt, top, arity, st, sc, so, ovf, cnt,
-                          capped, stats, s);
-  if (lpt <= 4)
-    return launch_scan<4>(r, packet, nt, top, arity, st, sc, so, ovf, cnt,
-                          capped, stats, s);
-  return launch_scan<8>(r, packet, nt, top, arity, st, sc, so, ovf, cnt,
-                        capped, stats, s);
+  const NearestOut out{st, sc, so, ovf, cnt};
+#define SCAN_CASE(LPT)                                                  \
+  if (lanes_inst(packet) == LPT)                                        \
+    return launch_walk<LPT, Nearest<LPT>>(r, packet, nt, top, arity,    \
+                                          NODE_POPS, out, 0, capped,    \
+                                          stats, s);
+  SCAN_CASE(1) SCAN_CASE(2) SCAN_CASE(4) SCAN_CASE(8)
+#undef SCAN_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // f32 planes a lane of K10's global scratch needs for a packet of
@@ -1279,37 +1371,41 @@ int tpt_treelet_closest_hit(
   return (int)cudaErrorInvalidValue;
 }
 
-// K11. `inv` is a [3, n] f32 scratch; `st`, `so` are f32/int32 [S, n],
-// `thr` f32 [n]; the other arguments as for tpt_treelet_scan, with
-// `node_pops` pops a step (the step cap counts steps) and the packet a
-// multiple of MULTI_THREADS. Returns cudaErrorInvalidValue also for S
+// Where K11 keeps its lane state for a packet of `packet` lanes and
+// `slots` slots: 0 in registers, 1 in dynamic shared memory, 2 in a
+// global scratch of f32 [ceil(n / packet), 2 * slots + 1, packet] the
+// caller allocates; -1 for a packet or slot count the kernel does not
+// take.
+int tpt_treelet_scan_multi_place(int packet, int slots) {
+  if (packet <= 0 || packet % THREADS || packet > 8 * THREADS || slots < 1 ||
+      slots > MAX_SLOTS)
+    return -1;
+  return multi_place(packet, slots);
+}
+
+// K11. `st`, `so` are f32/int32 [S, n], `thr` f32 [n]; `scratch` as
+// tpt_treelet_scan_multi_place says (unused unless it says 2); the other
+// arguments as for tpt_treelet_scan, with `node_pops` pops a step (the
+// step cap counts steps). Returns cudaErrorInvalidValue also for S
 // outside 1..MAX_SLOTS.
 int tpt_treelet_scan_multi(const float* ox, const float* oy, const float* oz,
                            const float* dx, const float* dy, const float* dz,
                            const float* tmax, int n, int packet, int slots,
                            int node_pops, const float* top_f32, int top_width,
                            const int* top_child, const int* top_tord,
-                           int num_top, int arity, float* inv, float* st,
+                           int num_top, int arity, float* scratch, float* st,
                            int* so, float* thr, int* capped,
                            unsigned long long* stats, void* stream) {
-  if (packet <= 0 || packet % MULTI_THREADS || arity < 2 ||
+  if (tpt_treelet_scan_multi_place(packet, slots) < 0 || arity < 2 ||
       arity > MAX_ARITY || node_pops < 1)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   Rays r{ox, oy, oz, dx, dy, dz, tmax, n};
   Top top{top_f32, top_width, top_child, nullptr, top_tord, num_top};
   const int nt = (n + packet - 1) / packet;
-  cudaStream_t s = (cudaStream_t)stream;
-#define MULTI_CASE(K)                                                      \
-  case K:                                                                  \
-    return launch_scan_multi<K>(r, packet, nt, top, arity, node_pops, inv, \
-                                st, so, thr, capped, stats, s);
-  switch (slots) {
-    MULTI_CASE(1) MULTI_CASE(2) MULTI_CASE(3) MULTI_CASE(4)
-    MULTI_CASE(5) MULTI_CASE(6) MULTI_CASE(7) MULTI_CASE(8)
-  }
-#undef MULTI_CASE
-  return (int)cudaErrorInvalidValue;
+  const SlotOut out{st, so, thr, slots, scratch, 0};
+  return launch_multi(r, packet, nt, top, arity, node_pops, out, capped,
+                      stats, (cudaStream_t)stream);
 }
 
 // Registers a thread, local (spill) bytes a thread, static shared bytes,
@@ -1324,22 +1420,25 @@ int tpt_treelet_attributes(int kernel, int group, int slots, int* out) {
   int dyn = 0;
   const int packet = 1024 * group;
   if (kernel == 9) {
-    e = group <= 1   ? cudaFuncGetAttributes(&a, scan_kernel<1>)
-        : group <= 2 ? cudaFuncGetAttributes(&a, scan_kernel<2>)
-        : group <= 4 ? cudaFuncGetAttributes(&a, scan_kernel<4>)
-                     : cudaFuncGetAttributes(&a, scan_kernel<8>);
-  } else if (kernel == 10 || kernel == 11) {
-    dyn = kernel == 10 ? closest_layout(packet, slots).dyn_bytes : 0;
-#define ATTR_CASE(K)                                             \
-  case K:                                                        \
-    e = kernel == 10 ? cudaFuncGetAttributes(&a, closest_kernel<K>) \
-                     : cudaFuncGetAttributes(&a, scan_multi_kernel<K>); \
+    e = group <= 1   ? cudaFuncGetAttributes(&a, scan_kernel<1, Nearest<1>>)
+        : group <= 2 ? cudaFuncGetAttributes(&a, scan_kernel<2, Nearest<2>>)
+        : group <= 4 ? cudaFuncGetAttributes(&a, scan_kernel<4, Nearest<4>>)
+                     : cudaFuncGetAttributes(&a, scan_kernel<8, Nearest<8>>);
+  } else if (kernel == 10) {
+    dyn = closest_layout(packet, slots).dyn_bytes;
+#define ATTR_CASE(K)                                        \
+  case K:                                                   \
+    e = cudaFuncGetAttributes(&a, closest_kernel<K>); \
     break;
     switch (slots) {
       ATTR_CASE(1) ATTR_CASE(2) ATTR_CASE(3) ATTR_CASE(4)
       ATTR_CASE(5) ATTR_CASE(6) ATTR_CASE(7) ATTR_CASE(8)
     }
 #undef ATTR_CASE
+  } else if (kernel == 11) {
+    dyn = multi_place(packet, slots) == IN_SHARED
+              ? 4 * (2 * slots + 1) * packet : 0;
+    e = multi_attributes(packet, slots, &a);
   }
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;

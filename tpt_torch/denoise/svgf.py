@@ -10,8 +10,9 @@ ping-pong: the 4th a-trous output becomes next frame's history.
 Every expression keeps tpt's float32 operation order, so the plain
 versions here and the CUDA kernels give the same bits. `_reproject_taps`
 and `_atrous_once` are the plain versions of K6 and K5; `run_svgf` calls
-them through their wrappers, `reproject.reproject` and `stencil.atrous`,
-which launch the CUDA kernels on CUDA tensors.
+them through their wrappers, `reproject.reproject` and
+`stencil.atrous_passes` (the frame's a-trous passes in one call), which
+launch the CUDA kernels on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -398,15 +399,9 @@ def run_svgf(cfg: SVGFConfig, state: SVGFState,
 
     # 5. a-trous passes (K5); the reference's history tap is the output of
     # pass index iterations - 2 (the buffer last written to the ping slot)
-    hist_tap = None
-    for it in range(cfg.atrous_iterations):
-        ill_d, var_d, ill_i, var_i = stencil.atrous(
-            ill_d, var_d, ill_i, var_i, depth, normal, 1 << it,
-            cfg.sigma_z, cfg.sigma_n, cfg.sigma_l)
-        if it == cfg.atrous_iterations - 2:
-            hist_tap = (ill_d, var_d, ill_i, var_i)
-    if hist_tap is None:
-        hist_tap = (ill_d, var_d, ill_i, var_i)
+    (ill_d, var_d, ill_i, var_i), hist_tap = stencil.atrous_passes(
+        ill_d, var_d, ill_i, var_i, depth, normal, cfg.atrous_iterations,
+        cfg.sigma_z, cfg.sigma_n, cfg.sigma_l)
 
     # 6. modulation (+ sky passthrough of indirect)
     rgb = (ill_d + ill_i) * albedo
