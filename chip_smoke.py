@@ -24,12 +24,14 @@ the multi-slot top-tree scan K11 feeding the sweep cast; and the hero
 scene, loaded from scenes/hero.json (JSON, OBJ/MTL, four PNG textures
 in one atlas, an HDR sky with its alias table) with textured,
 normal-mapped and env-lit shading and environment NEE, on BVH_PALLAS
-with and without the denoiser and on BVH_SWEEP; and last the LBVH
-builder on the card, the BVH_XLA backend (a plain-PyTorch walk, no
-kernel of its own) on the hero, the engine's BVH heatmap, and the
-command line, `tpt_torch.cli`, rendering the hero on BVH_XLA with SVGF
-(K6 and K5) against tests/golden_hero_120x68.npz. One line per phase
-(name, seconds, key numbers):
+with and without the denoiser and on BVH_SWEEP; then the LBVH builder
+on the card, the BVH_XLA backend (a plain-PyTorch walk, no kernel of
+its own) on the hero, the engine's BVH heatmap, and the command line,
+`tpt_torch.cli`, rendering the hero on BVH_XLA with SVGF (K6 and K5)
+against tests/golden_hero_120x68.npz; and last the multi-device render
+(`tpt_torch.parallel`: pixels sharded by rows, SVGF over row windows)
+over NCCL in this process and over gloo in two processes on this card.
+One line per phase (name, seconds, key numbers):
 
   device     nvidia-smi name and power limit, torch and CUDA versions
   build      nvcc (sm_90a) of tpt_torch/csrc/packet_wide.cu (K1, K2,
@@ -149,7 +151,7 @@ command line, `tpt_torch.cli`, rendering the hero on BVH_XLA with SVGF
              split by CUDA events into K9 and the sort, K10, K2, K1 and
              the rest
   treelet_agreement
-             BVH_TREELET at 240x135, depth 4, both samples in one pool
+             BVH_TREELET at 240x135, depth 3, both samples in one pool
              (spp_batch 2), through the kernels, through the plain versions
              and against the BVH_PALLAS render; it refuses to start with
              less than twice its plain render's time left on the watchdog
@@ -238,6 +240,17 @@ command line, `tpt_torch.cli`, rendering the hero on BVH_XLA with SVGF
              tpt's (> 97% of values within 2/255, means within 2%); then
              2 iterations at the file's own 960x540, depth 8, and their
              ms a frame
+  sharded    tpt_torch.parallel's sharded render, 2 denoised frames of
+             BVH_SWEEP at 1080p (depth 8, 1 spp, sweep_unroll 8, the
+             chunk_align-8 tables, SVGF over row windows), the camera
+             turning before the second: world 1 over NCCL in this process
+             and world 2 over gloo in two spawned processes on this one
+             card, each frame's image and all 18 SVGF state leaves held
+             against carried_sequence as bit patterns, the rays summed over
+             the ranks against its count, 0 capped; each rank's launches
+             (K2, K3, K4, K1, K6, K5) between its counters' zeroing and
+             reading, its window's rows, R and M, and its frame ms (two
+             processes sharing one card: not a scaling figure)
 
 Then one JSON line describing each of the twelve ported kernels, K4's
 and K7's modes under their own entries (with the lanes their times and
@@ -308,6 +321,7 @@ SVGF_PAN_PX = 3.0
 # 700 W), and on the slower host of those runs the hero phases then
 # refused to start; the denoiser it checks sees the same planes
 SVGF_AGREE_DEPTH = 4
+SHARDED_FRAMES = 2      # the sharded phase's frames, the camera turning
 # bytes a pixel moves (float32/int32 planes read once and written once)
 # and fp32 operations it needs (counted from tpt_torch/csrc/svgf.cu, the
 # divides as one each, so the bound stays a least time): K5 reads 12
@@ -328,12 +342,13 @@ TREELET_SEEDED_PACKETS = 128
 TREELET_PRIMARY_PACKETS = 64
 TREELET_FRAMES = 2
 TREELET_REPS = 3
-# treelet_agreement renders at depth 4, not 8: its plain 240x135 render
-# took 113-145 s at depth 8 (NVIDIA H100 80GB HBM3, 700 W), and with the
-# LBVH, BVH_XLA and CLI phases behind it a run reached 540 s of its
-# watchdog. Its sequential steps are set by the slowest packet, so a
-# slower host takes longer; at depth 4 it takes at most this long
-TREELET_AGREE_DEPTH = 4
+# treelet_agreement renders at depth 3, not 8: its plain 240x135 render
+# took 113-145 s at depth 8 and 69-91 s at depth 4 (NVIDIA H100 80GB
+# HBM3, 700 W), and with the LBVH, BVH_XLA, CLI and sharded phases behind
+# it a run at depth 4 ended at 552.7 s of its watchdog. Its sequential
+# steps are set by the slowest packet, so a slower host takes longer; at
+# depth 3 it takes at most this long
+TREELET_AGREE_DEPTH = 3
 TREELET_PLAIN_RENDER_S = 80.0
 
 # the BVH_SWEEP variants on the bench configuration: frames of each timed
@@ -716,17 +731,9 @@ def profiled_frame(label: str, fn) -> float:
 
 def zero_launches() -> tuple:
     """Set every kernel's launch counter to 0; returns the counters."""
-    from tpt_torch.bvh import packet_traverse as pt
-    from tpt_torch.bvh import sweep as sw
-    from tpt_torch.bvh import treelet_traverse as tlt
-    from tpt_torch.denoise import reproject, stencil
+    from tpt_torch.parallel.dryrun import launch_counters
 
-    counts = (pt.LAUNCHES, sw.LAUNCHES, tlt.LAUNCHES, stencil.LAUNCHES,
-              reproject.LAUNCHES)
-    for c in counts:
-        for k in c:
-            c[k] = 0
-    return counts
+    return launch_counters()
 
 
 def expect_launches(label: str, counts, want: dict,
@@ -1548,12 +1555,14 @@ def svgf_sequence(renderer, cam, frames: int) -> list:
     return out
 
 
-def carried_sequence(scene, cam, cfg, frames: int, on_frame=None) -> list:
+def carried_sequence(scene, cam, cfg, frames: int, on_frame=None,
+                     record: Optional[list] = None) -> list:
     """`frames` denoised frames with the camera turning before each after
     the first, through wavefront.trace_frame and svgf.run_svgf with the
     SVGF history carried across the moves (the motion vectors bridge
-    them, as run_svgf is built to do); on_frame(k) runs before frame k.
-    Returns the [H, W, 3] images on the device."""
+    them, as run_svgf is built to do); on_frame(k) runs before frame k;
+    `record` gets each frame's state leaves, rays and capped count so
+    far. Returns the [H, W, 3] images on the device."""
     from tpt_torch.core.vec import Vec3
     from tpt_torch.denoise import svgf
     from tpt_torch.integrators import common, wavefront
@@ -1577,6 +1586,10 @@ def carried_sequence(scene, cam, cfg, frames: int, on_frame=None) -> list:
             plane(g.depth), p3(g.normal), plane(g.mat_id), plane(g.motion_u),
             plane(g.motion_v))
         imgs.append(rgb.stacked())
+        if record is not None:
+            record.append(dict(leaves=state.leaves(),
+                               rays=int(out.rays_traced),
+                               capped=int(rc.capped)))
     return imgs
 
 
@@ -1892,6 +1905,127 @@ def svgf_phases(scene, cam, dev, agreement: bool = True) -> list:
              ms=kc["k6_ms"], plain_ms=kc["k6_plain_ms"],
              bound_ms=kc["k6_bound"], bound_by=kc["k6_by"], library_ms=None),
     ]
+
+
+def sharded_phase(host, scene, cam) -> None:
+    """The `sharded` phase: tpt_torch.parallel's sharded render with SVGF
+    over row windows, SHARDED_FRAMES denoised frames of BVH_SWEEP (depth
+    8, 1 spp, sweep_unroll 8, the scene's chunk_align-8 tables), the
+    camera turning before the second, held against carried_sequence in
+    this process: every frame's image and all 18 SVGF state leaves as bit
+    patterns, the rays summed over the ranks equal to its count, 0 capped
+    rays, and each rank launching K2, K3, K4, K1, K6 and K5 between its
+    counters' zeroing and reading. World 1 over NCCL in this process,
+    then world 2 over gloo in two spawned processes on the one card (their
+    frame times are two processes sharing one card, not a scaling
+    figure)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tpt_torch.config import RayCastBackend, RenderConfig
+    from tpt_torch.parallel import dryrun
+    from tpt_torch.parallel.sharding import make_pixel_mesh
+
+    t0 = time.perf_counter()
+    cfg = RenderConfig(backend=RayCastBackend.BVH_SWEEP, trace_depth=DEPTH,
+                       sweep_unroll=8, denoiser_on=True)
+    cams = [panned(cam, k) for k in range(SHARDED_FRAMES)]
+    ref = []
+    ref_imgs = carried_sequence(scene, cam, cfg, SHARDED_FRAMES, record=ref)
+    if ref[-1]["capped"]:
+        raise RuntimeError(f"sharded reference: {ref[-1]['capped']} capped")
+    want = dict(packet_closest_hit_wide=(1, DEPTH), dense_scan=DEPTH - 1,
+                sweep8_closest_hit=DEPTH - 1, packet_any_hit_wide=DEPTH,
+                reproject=1, atrous=cfg.svgf.atrous_iterations)
+
+    def same(label, got, want_t) -> None:
+        got = got.to(want_t.device)
+        if got.shape != want_t.shape or got.dtype != want_t.dtype or \
+                not torch.equal(bit_patterns(got), bit_patterns(want_t)):
+            raise RuntimeError(f"sharded {label} differs from "
+                               "carried_sequence")
+
+    def check(label, frames, launches, capped) -> None:
+        """frames: per frame the gathered [H, W, 3] image and 18 leaves"""
+        for k, f in enumerate(frames):
+            same(f"{label} frame {k} image", f["rgb"], ref_imgs[k])
+            for j, (a, b) in enumerate(zip(f["leaves"], ref[k]["leaves"])):
+                same(f"{label} frame {k} leaf {j}", a, b)
+        # every kernel of the path at least once a frame, no other kernel
+        expect_launches(label, (launches,), want, SHARDED_FRAMES)
+        if capped:
+            raise RuntimeError(f"{label}: {capped} capped rays")
+
+    def show(label, rank, rays, windows, frame_ms, launches, capped) -> None:
+        w0 = windows[-1]
+        print(f"  {label} rank {rank}: launches {nonzero(launches)}, capped "
+              f"{capped}, rays summed over the ranks {rays} (one process "
+              f"{[r['rays'] for r in ref]}), window rows {w0['rows']} "
+              f"{list(w0['window'])}, R {w0['R']}, M {[w['M'] for w in windows]}"
+              f", frame ms {', '.join(f'{m:.1f}' for m in frame_ms)}")
+
+    # ---- world 1 over NCCL, in this process ----------------------------
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl" if DEVICE == "cuda" else "gloo",     # gloo: a CPU rehearsal
+            init_method="file://" + os.path.join(d, "rendezvous"), rank=0,
+            world_size=1)
+        try:
+            mesh = make_pixel_mesh(device=DEVICE)
+            counts = zero_launches()
+            frames, step = dryrun.run_sequence(mesh, scene, cfg, cams,
+                                               torch.cuda.synchronize)
+            launches = {k: v for c in counts for k, v in c.items()}
+            capped = int(step.raycaster.capped)
+        finally:
+            dist.destroy_process_group()
+    rays = [f["rays"] for f in frames]
+    if rays != [r["rays"] for r in ref]:
+        raise RuntimeError(f"nccl world 1 rays {rays}, one process "
+                           f"{[r['rays'] for r in ref]}")
+    check("nccl world 1", [dict(rgb=f["rgb"].stacked(), leaves=f["leaves"])
+                           for f in frames], launches, capped)
+    show("nccl world 1", 0, rays, [f["window"] for f in frames],
+         [f["ms"] for f in frames], launches, capped)
+    nccl_ms = [f["ms"] for f in frames]
+    del frames, step
+
+    # ---- world 2 over gloo, two spawned processes on the one card --------
+    with tempfile.TemporaryDirectory() as d:
+        dryrun.spawn(dryrun.sequence_rank, 2, host,
+                     dict(with_bvh=True, sweep_chunk_align=SWEEP_ALIGN), cfg,
+                     cams, d, DEVICE)
+        gathered = torch.load(os.path.join(d, "frames.pt"))
+        stats = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                stats.append(json.load(f))
+    for st in stats:
+        if st["rays"] != [r["rays"] for r in ref]:
+            raise RuntimeError(f"gloo rank {st['rank']} rays {st['rays']}, "
+                               f"one process {[r['rays'] for r in ref]}")
+        check(f"gloo world 2 rank {st['rank']}", gathered, st["launches"],
+              st["capped"])
+        show("gloo world 2", st["rank"], st["rays"], st["windows"],
+             st["frame_ms"], st["launches"], st["capped"])
+    print(f"  sharded: {SHARDED_FRAMES} frames at {cam.resolution[0]}x"
+          f"{cam.resolution[1]}, depth {DEPTH}, BVH_SWEEP + SVGF, every image "
+          f"and SVGF state leaf bit-equal to carried_sequence at world 1 "
+          f"(nccl) and world 2 (gloo, both ranks on this one card: their "
+          f"frame times are two processes sharing it)")
+    phase("sharded", t0, frames=SHARDED_FRAMES,
+          rays=json.dumps([r["rays"] for r in ref]).replace(" ", ""),
+          nccl_frame_ms=",".join(f"{m:.1f}" for m in nccl_ms),
+          gloo_frame_ms=";".join(",".join(f"{m:.1f}" for m in st["frame_ms"])
+                                 for st in stats),
+          window_rows=",".join(str(st["windows"][-1]["rows"])
+                               for st in stats),
+          R=stats[0]["windows"][-1]["R"],
+          M=",".join(str(w["M"]) for w in stats[0]["windows"]))
 
 
 def treelet_phases(scene, cam, dev,
@@ -3322,7 +3456,9 @@ def main() -> int:
     del pack, rc, kernel_rc, plain_rc
     hero_host, hero = hero_phases(dev)
     xla_phases(host, scene, hero_host, hero, dev)
-    del scene, hero
+    del hero
+    sharded_phase(host, scene, cam)
+    del scene
 
     source = "tpt_torch/csrc/packet_wide.cu"
     kernels = [

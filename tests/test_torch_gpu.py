@@ -1583,3 +1583,40 @@ def test_cli_hero_on_card_matches_golden(cuda, tmp_path):
                                   "golden_hero_120x68.npz"))["image"]
     assert np.isclose(img, golden, atol=2 / 255.0).mean() > 0.97
     np.testing.assert_allclose(img.mean(), golden.mean(), rtol=0.02)
+
+
+def test_sharded_gloo_on_one_card_equals_one_process(cuda, tmp_path):
+    """tpt_torch.parallel at world 2 over gloo, both ranks on this one
+    card: BVH_SWEEP with SVGF over row windows at 64x64, four frames (the
+    camera turning, then a 24-px tilt) with the history carried. Every
+    frame's image and SVGF state leaf equals the one-process sequence bit
+    for bit, the rays summed over the ranks its count, and each rank
+    launches K2, K3, K4, K1, K6 and K5."""
+    import json
+    import os
+
+    import torch_parallel_workers as W
+    from tpt_torch.parallel import dryrun
+
+    spec = ((64, 64), True, dict(with_bvh=True, sweep_chunk_align=8))
+    cfg = W.SWEEP.with_(trace_depth=3, denoiser_on=True)
+    host = procedural.cornell_box(resolution=spec[0], spheres=True)
+    cams = [W.turned(host.camera, *t) for t in W.SEQ_TURNS]
+    dryrun.spawn(dryrun.sequence_rank, 2, host, spec[2], cfg, cams,
+                 str(tmp_path), "cuda")
+    ref = W.reference_sequence(cfg, W.SEQ_TURNS, spec, device=cuda)
+    frames = torch.load(str(tmp_path / "frames.pt"))
+    for k, f in enumerate(frames):
+        assert torch.equal(f["rgb"].view(torch.int32),
+                           torch.from_numpy(ref["images"][k]).view(torch.int32))
+        for got, want in zip(f["leaves"], ref["leaves"][k]):
+            want = torch.from_numpy(want)
+            assert got.dtype == want.dtype
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for r in range(2):
+        with open(os.path.join(tmp_path, f"rank{r}.json")) as fh:
+            st = json.load(fh)
+        assert st["rays"] == ref["rays"] and st["capped"] == 0
+        for k in ("packet_closest_hit_wide", "dense_scan", "sweep8_closest_hit",
+                  "packet_any_hit_wide", "reproject", "atrous"):
+            assert st["launches"][k] > 0, (k, st["launches"])

@@ -109,9 +109,26 @@ class SVGFState:
             out += [v.x, v.y, v.z] if isinstance(v, Vec3) else [v]
         return out
 
+    @staticmethod
+    def from_leaves(leaves: Sequence[torch.Tensor]) -> "SVGFState":
+        """The inverse of `leaves()`: 18 [H, W] tensors in tpt's order."""
+        leaves = list(leaves)
+        if len(leaves) != 18:
+            raise ValueError(f"an SVGFState has 18 leaves, got {len(leaves)}")
+        it = iter(leaves)
+        kw = {f.name: (Vec3(next(it), next(it), next(it))
+                       if f.name in _VEC3_FIELDS else next(it))
+              for f in fields(SVGFState)}
+        return SVGFState(**kw)
+
 
 _VEC3_FIELDS = ("hist_direct", "hist_indirect", "prev_normal")
 _INT_FIELDS = ("history_len", "prev_matid")
+# each leaf's dtype, in leaf order
+LEAF_DTYPES = tuple(
+    dt for f in fields(SVGFState)
+    for dt in ((torch.float32,) * 3 if f.name in _VEC3_FIELDS else
+               (torch.int32 if f.name in _INT_FIELDS else torch.float32,)))
 
 
 def svgf_state_from_numpy(arrays: Sequence[np.ndarray], device) -> SVGFState:
@@ -123,14 +140,10 @@ def svgf_state_from_numpy(arrays: Sequence[np.ndarray], device) -> SVGFState:
     shape = np.shape(arrays[0])
     if len(shape) != 2 or any(np.shape(a) != shape for a in arrays):
         raise ValueError("SVGFState leaves must be [H, W] arrays of one shape")
-    it = iter(arrays)
-    kw = {}
-    for f in fields(SVGFState):
-        dtype = np.int32 if f.name in _INT_FIELDS else np.float32
-        t = lambda: torch.from_numpy(
-            np.ascontiguousarray(next(it), dtype)).to(device)
-        kw[f.name] = Vec3(t(), t(), t()) if f.name in _VEC3_FIELDS else t()
-    return SVGFState(**kw)
+    return SVGFState.from_leaves(
+        torch.from_numpy(np.ascontiguousarray(
+            a, np.int32 if dt == torch.int32 else np.float32)).to(device)
+        for a, dt in zip(arrays, LEAF_DTYPES))
 
 
 # ---------------------------------------------------------------------------
