@@ -151,7 +151,7 @@ One line per phase (name, seconds, key numbers):
              split by CUDA events into K9 and the sort, K10, K2, K1 and
              the rest
   treelet_agreement
-             BVH_TREELET at 240x135, depth 3, both samples in one pool
+             BVH_TREELET at 240x135, depth 4, both samples in one pool
              (spp_batch 2), through the kernels, through the plain versions
              and against the BVH_PALLAS render; it refuses to start with
              less than twice its plain render's time left on the watchdog
@@ -342,13 +342,13 @@ TREELET_SEEDED_PACKETS = 128
 TREELET_PRIMARY_PACKETS = 64
 TREELET_FRAMES = 2
 TREELET_REPS = 3
-# treelet_agreement renders at depth 3, not 8: its plain 240x135 render
-# took 113-145 s at depth 8 and 69-91 s at depth 4 (NVIDIA H100 80GB
-# HBM3, 700 W), and with the LBVH, BVH_XLA, CLI and sharded phases behind
-# it a run at depth 4 ended at 552.7 s of its watchdog. Its sequential
-# steps are set by the slowest packet, so a slower host takes longer; at
-# depth 3 it takes at most this long
-TREELET_AGREE_DEPTH = 3
+# treelet_agreement renders at depth 4, not 8: its plain 240x135 render
+# took 113-145 s at depth 8 (NVIDIA H100 80GB HBM3, 700 W), and with the
+# LBVH, BVH_XLA, CLI and sharded phases behind it a run on a slow host
+# ended at 552.7 s of its watchdog. Its sequential steps are set by the
+# slowest packet, so a slower host takes longer; at depth 4 it takes at
+# most this long
+TREELET_AGREE_DEPTH = 4
 TREELET_PLAIN_RENDER_S = 80.0
 
 # the BVH_SWEEP variants on the bench configuration: frames of each timed

@@ -1620,3 +1620,14 @@ def test_sharded_gloo_on_one_card_equals_one_process(cuda, tmp_path):
         for k in ("packet_closest_hit_wide", "dense_scan", "sweep8_closest_hit",
                   "packet_any_hit_wide", "reproject", "atrous"):
             assert st["launches"][k] > 0, (k, st["launches"])
+
+
+def test_dryrun_multichip_on_card(cuda, capfd):
+    """The dry run's default device is the card: 2 gloo ranks, one
+    sharded BVH_SWEEP step with SVGF, a finite image of the frame's
+    shape."""
+    from tpt_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun_multichip(2)
+    assert "[dryrun_multichip] ok: 2 gloo ranks on cuda, image (64, 64, 3)" \
+        in capfd.readouterr().out

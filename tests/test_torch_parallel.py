@@ -29,7 +29,8 @@ HERE = os.path.dirname(__file__)
 GOLDEN = os.path.join(HERE, "golden_parallel_tpt.npz")
 
 WORLD4 = ("brute_force", "brute_force_svgf", "sweep", "svgf_sequence",
-          "svgf_sequence_short_reach", "refuse_rows")
+          "svgf_sequence_short_reach", "svgf_sequence_subgroup",
+          "refuse_rows")
 WORLD2 = ("pallas_sorted", "sweep", "cascade", "treelet", "refuse_spp_batch",
           "refuse_tables")
 
@@ -78,13 +79,16 @@ def test_render_sharded_entry_point(ranks):
     _bits_equal(res["image_render_sharded"], res["image"])
 
 
-@pytest.mark.parametrize("name", ["svgf_sequence", "svgf_sequence_short_reach"])
+@pytest.mark.parametrize("name", ["svgf_sequence", "svgf_sequence_short_reach",
+                                  "svgf_sequence_subgroup"])
 def test_svgf_row_windows_equal_one_process(ranks, name):
     """Four denoised frames with the history carried: three turning 3 px,
     then a 24-px tilt. Every frame's rgb and all 18 state leaves equal
     the one-process run_svgf sequence, and the summed rays its count. At
     4 ranks of 16 (15) rows, windows span several ranks, and the tilt's
-    motion exceeds a rank's rows."""
+    motion exceeds a rank's rows. The subgroup case renders on global
+    ranks 1-3 of the 4 (a process group that is not the default one, its
+    peers' global ranks not their group ranks), 16 rows each."""
     res = _result(ranks, 4, name)
     cfg, (w, h) = W.SEQUENCES[name]
     ref = W.reference(name)
@@ -93,7 +97,9 @@ def test_svgf_row_windows_equal_one_process(ranks, name):
         for leaf, want in zip(res["leaves"][k], ref["leaves"][k]):
             _bits_equal(leaf, want)
     assert res["rays"] == ref["rays"]
-    rows = h // 4
+    nranks = len(W.SUBGROUP) if name.endswith("_subgroup") else 4
+    assert len(res["windows"][0]) == nranks
+    rows = h // nranks
     R = halo.svgf_reach(cfg.svgf)
     for wins in res["windows"]:
         assert all(r == R for (_, _, _, r) in wins)
@@ -178,9 +184,9 @@ def test_make_pixel_mesh_needs_a_group():
 
 
 def test_dryrun_multichip(capfd):
-    dryrun_multichip(4)
-    assert "[dryrun_multichip] ok: 4 gloo ranks, image (64, 64, 3)" in \
-        capfd.readouterr().out
+    dryrun_multichip(4, device="cpu")
+    assert "[dryrun_multichip] ok: 4 gloo ranks on cpu, image (64, 64, 3)" \
+        in capfd.readouterr().out
 
 
 def tpt_references() -> dict:

@@ -63,7 +63,12 @@ SEQUENCES = {
     # change nothing
     "svgf_sequence_short_reach": (
         SEQ_CFG.with_(svgf=SVGFConfig(atrous_iterations=2)), (64, 60)),
+    # on the subgroup of global ranks SUBGROUP of the world-4 spawn: 16
+    # rows a rank, group ranks that are not the global ones
+    "svgf_sequence_subgroup": (
+        SEQ_CFG.with_(svgf=SVGFConfig(atrous_iterations=2)), (64, 48)),
 }
+SUBGROUP = (1, 2, 3)
 
 
 def scene_of(spec, device="cpu"):
@@ -203,18 +208,31 @@ def run_case(mesh, name: str) -> dict:
     return _render_case(mesh, name)
 
 
+def _try_case(mesh, name: str) -> dict:
+    try:
+        return run_case(mesh, name)
+    except Exception as e:                  # recorded; the test fails on it
+        return dict(crash=f"{type(e).__name__}: {e}")
+
+
 def _rank_main(rank: int, world: int, init: str, names, out_path: str):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=world, timeout=timedelta(seconds=120))
     try:
         mesh = sharding.make_pixel_mesh(device="cpu")
+        # every rank of the world takes part in making the subgroup
+        sub = dist.new_group(list(SUBGROUP)) if world > max(SUBGROUP) else None
         results = {}
         for name in names:
-            try:
-                results[name] = run_case(mesh, name)
-            except Exception as e:          # recorded; the test fails on it
-                results[name] = dict(crash=f"{type(e).__name__}: {e}")
+            if not name.endswith("_subgroup"):
+                results[name] = _try_case(mesh, name)
+                continue
+            # the subgroup's ranks render; its first hands rank 0 the result
+            res = [_try_case(sharding.make_pixel_mesh(sub, device="cpu"), name)
+                   if rank in SUBGROUP else None]
+            dist.broadcast_object_list(res, src=SUBGROUP[0])
+            results[name] = res[0]
         if rank == 0:
             torch.save(results, out_path)
     finally:

@@ -491,14 +491,18 @@ def finish_carry(cfg: RenderConfig, carry) -> FrameOutput:
                        gbuf=gbuf, rays_traced=rays)
 
 
-def batched_raygen(cam: Camera, cfg: RenderConfig, iteration: int, device):
+def batched_raygen(cam: Camera, cfg: RenderConfig, iteration: int, device,
+                   pix=None):
     """RayGen for one frame: cfg.spp_batch jittered samples of every pixel
-    in one pool (sample s uses iteration + s)."""
+    in one pool (sample s uses iteration + s). `pix` (1 spp only) limits
+    the pool to those pixel indices, in that order."""
     spp = cfg.spp_batch
     if spp == 1:
-        ori, direction, state = generate_camera_rays(cam, iteration,
-                                                     cfg.jitter, device=device)
+        ori, direction, state = generate_camera_rays(
+            cam, iteration, cfg.jitter, pix=pix, device=device)
         return init_carry(cfg, ori, direction, state)
+    if pix is not None:
+        raise ValueError(f"a pixel subset is 1 spp, not spp_batch={spp}")
     parts = [generate_camera_rays(cam, iteration + s, cfg.jitter, device=device)
              for s in range(spp)]
     cat3 = lambda vs: Vec3(*(torch.cat([getattr(v, ax) for v in vs])
@@ -519,15 +523,17 @@ def camera_view_proj(cam: Camera) -> np.ndarray:
 
 def trace_frame(scene: SceneData, raycaster: Raycaster, cam: Camera,
                 cfg: RenderConfig, iteration: int, view_proj=None,
-                prev_view_proj=None) -> FrameOutput:
+                prev_view_proj=None, pix=None) -> FrameOutput:
     """One wavefront frame (cfg.spp_batch samples per pixel): raygen, then
-    cfg.trace_depth bounces, then the pixel-order finish."""
+    cfg.trace_depth bounces, then the pixel-order finish. `pix` (1 spp)
+    traces only those pixels: the pool, the sort and the unsort are
+    theirs, and their RNG streams the frame's."""
     reason = _unsupported(cfg)
     if reason:
         raise NotImplementedError(f"{reason} is not ported yet")
     vp = camera_view_proj(cam) if view_proj is None else view_proj
     prev = vp if prev_view_proj is None else prev_view_proj
-    carry = batched_raygen(cam, cfg, iteration, scene.device)
+    carry = batched_raygen(cam, cfg, iteration, scene.device, pix=pix)
     for depth in range(cfg.trace_depth):
         carry = _bounce_body(scene, raycaster, cam, cfg, vp, prev, depth, carry)
     return finish_carry(cfg, carry)

@@ -2,14 +2,16 @@
 `__graft_entry__.dryrun_multichip`, and the sequence `chip_smoke.py`'s
 `sharded` phase runs in gloo processes on one card.
 
-    python -m tpt_torch.parallel.dryrun 4
+    python -m tpt_torch.parallel.dryrun 4                # on the card
+    python -m tpt_torch.parallel.dryrun 4 --device cpu   # plain versions
 
-runs `dryrun_multichip(4)`: 4 gloo processes on the CPU, each building
+runs `dryrun_multichip(4)`: 4 gloo processes, each building
 `cornell_box(resolution=(64, max(8, n) * 8), spheres=True)` with treelets
 of <= 256 triangles and running one frame of BVH_SWEEP at depth 2 with
-SVGF over its row window (the plain kernels: the CPU has no CUDA); rank 0
-checks that the gathered image has the frame's shape and is finite and
-prints one `ok` line.
+SVGF over its row window; rank 0 checks that the gathered image has the
+frame's shape and is finite and prints one `ok` line. The ranks render
+on the CUDA card (rank r on card r modulo the cards, the kernels) unless
+the caller asks for the CPU (the kernels' plain versions).
 
 The ranks are started with the spawn method (a parent with CUDA up
 cannot fork) and meet through a `file://` rendezvous in a temporary
@@ -18,15 +20,17 @@ directory, so parallel test workers never race for a TCP port.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
-import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..device import DeviceLike, resolve_device
 
 
 def spawn(fn, world: int, *args) -> None:
@@ -38,36 +42,39 @@ def spawn(fn, world: int, *args) -> None:
             + args, nprocs=world, join=True)
 
 
-def _rank(rank: int, world: int, init: str) -> None:
+def _rank(rank: int, world: int, init: str, device: str) -> None:
     from ..config import RayCastBackend, RenderConfig
     from ..scene import procedural
     from .sharding import make_pixel_mesh, render_sharded
 
     torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=world)
     try:
         h = max(8, world) * 8
         host = procedural.cornell_box(resolution=(64, h), spheres=True)
-        scene = host.build(with_bvh=True, treelet_max_tris=256, device="cpu")
+        scene = host.build(with_bvh=True, treelet_max_tris=256, device=device)
         cfg = RenderConfig(backend=RayCastBackend.BVH_SWEEP, trace_depth=2,
                            sort_bounce_rays=True, denoiser_on=True)
         img = render_sharded(scene, host.camera, cfg,
-                             make_pixel_mesh(device="cpu"), iterations=1,
+                             make_pixel_mesh(device=device), iterations=1,
                              with_svgf=True)
         if img.shape != (h, 64, 3) or not np.isfinite(img).all():
             raise RuntimeError(f"dryrun_multichip: image {img.shape}, "
                                f"finite {bool(np.isfinite(img).all())}")
         if rank == 0:
-            print(f"[dryrun_multichip] ok: {world} gloo ranks, image "
-                  f"{img.shape}, mean {img.mean():.4f}", flush=True)
+            print(f"[dryrun_multichip] ok: {world} gloo ranks on {device}, "
+                  f"image {img.shape}, mean {img.mean():.4f}", flush=True)
     finally:
         dist.destroy_process_group()
 
 
-def dryrun_multichip(n: int) -> None:
-    """Spawn n gloo processes on the CPU and run one sharded step."""
-    spawn(_rank, n)
+def dryrun_multichip(n: int, device: DeviceLike = None) -> None:
+    """Spawn n gloo processes and run one sharded step, on the CUDA card
+    unless the caller asks for the CPU (`device="cpu"`)."""
+    spawn(_rank, n, resolve_device(device).type)
 
 
 def run_sequence(mesh, scene, cfg, cams, sync=lambda: None):
@@ -148,4 +155,10 @@ def sequence_rank(rank: int, world: int, init: str, host, build_kw: dict,
 
 
 if __name__ == "__main__":
-    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4)
+    ap = argparse.ArgumentParser(description="one sharded step in N gloo "
+                                 "processes")
+    ap.add_argument("n", type=int, nargs="?", default=4)
+    ap.add_argument("--device", default=None,
+                    help="cpu for the plain versions (default: the card)")
+    args = ap.parse_args()
+    dryrun_multichip(args.n, args.device)

@@ -4,9 +4,8 @@ ranks of a process group, the scene replicated on every rank.
 Counterpart of `tpt/parallel/sharding.py`. Path tracing is parallel over
 pixels, so rank r of a world of N renders the contiguous rows
 [r * H/N, (r + 1) * H/N): it generates only those camera rays (the RNG
-streams are the frame's, keyed by the global pixel index), runs the
-one-process bounce loop (`wavefront.init_carry`, `cfg.trace_depth` calls
-of `wavefront._bounce_body`, `wavefront.finish_carry`) on its own pool,
+streams are the frame's, keyed by the global pixel index) and runs the
+one-process frame, `wavefront.trace_frame(..., pix=)`, on its own pool,
 with the coherence or bin sort and the unsort local to it as in tpt's
 `shard_map` loop, and sums the ray counter with one all_reduce. SVGF
 runs on row windows fetched from the neighbours (`halo.py`). The image
@@ -44,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import RenderConfig
-from ..core.camera import Camera, generate_camera_rays
+from ..core.camera import Camera
 from ..core.vec import Vec3
 from ..denoise.svgf import SVGFState
 from ..device import DeviceLike, resolve_device
@@ -182,14 +181,9 @@ class ShardedStep:
                              f"step's {self.cam.resolution}")
         cfg, w = self.cfg, cam.resolution[0]
         acc_d, acc_i, state = carry
-        vp = wavefront.camera_view_proj(cam)
-        ori, direction, seed = generate_camera_rays(cam, iteration,
-                                                    cfg.jitter, pix=self.pix)
-        bc = wavefront.init_carry(cfg, ori, direction, seed)
-        for depth in range(cfg.trace_depth):
-            bc = wavefront._bounce_body(self.scene, self.raycaster, cam, cfg,
-                                        vp, prev_vp, depth, bc)
-        out = wavefront.finish_carry(cfg, bc)
+        out = wavefront.trace_frame(self.scene, self.raycaster, cam, cfg,
+                                    iteration, wavefront.camera_view_proj(cam),
+                                    prev_vp, pix=self.pix)
         self.rays = self.mesh.all_reduce(out.rays_traced.reshape(1))[0]
         acc_d = acc_d + out.direct
         acc_i = acc_i + out.indirect
