@@ -3134,6 +3134,7 @@ def xla_phases(fire_host, fire, hero_host, hero, dev) -> None:
     import torch
 
     from tpt_torch import Renderer
+    from tpt_torch import trace as tpt_trace
     from tpt_torch.bvh import traverse
     from tpt_torch.bvh.build import build_lbvh
     from tpt_torch.bvh.validate import validate_lbvh
@@ -3200,14 +3201,14 @@ def xla_phases(fire_host, fire, hero_host, hero, dev) -> None:
                         env_nee=True)
     pcfg = xcfg.with_(backend=RayCastBackend.BVH_PALLAS)
     rc = common.make_raycaster(hero, xcfg)
-    traverse.STATS.update(walks=0, steps=0)
     counts = zero_launches()
     tr = time.perf_counter()
     img_x = wavefront.render(hero, hcam, xcfg, iterations=1,
                              start_iter=XLA_ITER, raycaster=rc)
     frame_ms = (time.perf_counter() - tr) * 1e3
     launches = expect_launches("hero BVH_XLA", counts, {})
-    walks, steps = traverse.STATS["walks"], traverse.STATS["steps"]
+    walk = tpt_trace.frame_counters()
+    walks, steps = walk["walk.walks"], walk["walk.steps"]
     img_p = wavefront.render(hero, hcam, pcfg, iterations=1,
                              start_iter=XLA_ITER)
     close, _, max_abs = golden_agree("hero BVH_XLA vs BVH_PALLAS", img_x,

@@ -1,8 +1,9 @@
 """tpt_torch's command line (`cli.py`), its OBJ writer (`io/objwriter.py`)
-and its profiling helpers (`utils/profiling.py`), as tests/test_cli.py,
-tests/test_hero.py and tests/test_profiling.py hold tpt's. Every run
-passes `--device cpu` (without it the port asks for the CUDA card and
-raises here: there is no silent fallback).
+and its stage spans (`trace.py`, the counterpart of tpt's profiling
+helpers), as tests/test_cli.py, tests/test_hero.py and
+tests/test_profiling.py hold tpt's. Every run passes `--device cpu`
+(without it the port asks for the CUDA card and raises here: there is
+no silent fallback).
 
 - The CLI on a tiny Cornell scene written by the port's OBJ writer:
   wavefront, `-mega`, `--backend bvh --depth 1`, `--warmup`, `-vis`;
@@ -238,33 +239,52 @@ def test_objwriter_round_trip(tmp_path):
                                   emits(scene, mesh)[key(b)])
 
 
-def test_stage_timer():
-    from tpt_torch.core.vec import Vec3
-    from tpt_torch.utils.profiling import StageTimer
+def test_stage_timer(tmp_path):
+    """The port's stage spans (`trace.span`, `trace.wait`) land in the
+    profiler's Chrome trace, nested and timed on its clock; a wait also
+    counts a sync. With no profiler recording they are one no-op."""
+    from tpt_torch import trace
 
-    t = StageTimer()
-    with t.stage("a"):
-        time.sleep(0.01)
-    with t.stage("b", result=Vec3.ones((8,), "cpu")):
-        time.sleep(0.005)
-    with t.stage("a") as h:
-        h["result"] = {"x": torch.ones(4), "y": (torch.zeros(()),)}
-        time.sleep(0.01)
-    assert t.counts == {"a": 2, "b": 1}
-    assert t.totals["a"] > 0.015 and t.totals["b"] > 0.004
-    rep = t.report()
-    assert rep.splitlines()[0].startswith("a") and "%" in rep
-    assert json.loads(t.as_json()).keys() == {"a", "b"}
+    assert trace.span("a") is trace.wait("b")
+    trace.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with trace.span("a"):
+            time.sleep(0.01)
+            with trace.wait("b"):
+                torch.ones(4).sum()
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    with open(tmp_path / "t.json") as f:
+        ev = {e["name"]: e for e in json.load(f)["traceEvents"]
+              if e.get("cat") == "user_annotation"}
+    a, b = ev["tpt_torch.a"], ev["tpt_torch.wait.b"]
+    assert a["dur"] > 10_000 and a["ts"] <= b["ts"]
+    assert b["ts"] + b["dur"] <= a["ts"] + a["dur"]
+    assert trace.frame_counters() == {"syncs": 1}
 
 
 def test_device_trace_and_throughput(tmp_path):
-    from tpt_torch.utils.profiling import device_trace, force_sync, throughput
+    """A frame profiled as the trace module's docstring says gives a Chrome
+    trace with the frame's spans, and the Renderer's Mrays/s is the
+    frame's counted rays over its time."""
+    from tpt_torch import Renderer, trace
+    from tpt_torch.config import RayCastBackend, RenderConfig
 
-    force_sync({"x": torch.arange(16), "y": [torch.ones(())], "z": None})
-    with device_trace(str(tmp_path / "trace")) as d:
-        _ = torch.arange(128).sum()
-    assert os.path.exists(os.path.join(d, "trace.json"))
-    r = throughput(2_000_000, 8_000_000, 0.5)
-    assert abs(r["mpaths_per_sec"] - 4.0) < 1e-9
-    assert abs(r["mrays_per_sec"] - 16.0) < 1e-9
-    assert abs(r["ms_per_frame"] - 500.0) < 1e-9
+    scene = procedural.cornell_box(resolution=(24, 24), spheres=False)
+    r = Renderer(scene.build(device="cpu"), scene.camera,
+                 RenderConfig(backend=RayCastBackend.BRUTE_FORCE,
+                              trace_depth=2))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        r.frame()
+    path = str(tmp_path / "frame.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    assert names.count("tpt_torch.frame") == 1
+    assert names.count("tpt_torch.bounce") == 2
+    c = trace.frame_counters()
+    rays = c["live"] + c["shadow"]
+    assert rays > 0
+    assert abs(r.gui.mrays_per_sec * r.gui.frame_ms * 1e3 - rays) < 1e-6 * rays

@@ -46,6 +46,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .. import trace
 from ..core.vec import Vec3
 from ..integrators.intersect import FLT_MAX, HitRecord
 from . import packet_traverse, sweep
@@ -100,23 +101,30 @@ def _tail_compact_cast(pack: PacketBVH, ori: Vec3, d: Vec3, hit: HitRecord,
                        ) -> Tuple[HitRecord, torch.Tensor]:
     """K2 over exactly the unresolved lanes, winners scattered back into
     the caller's lane order. Returns (HitRecord, capped int32 count)."""
-    idx = torch.nonzero(~resolved).squeeze(1)
-    if idx.numel() == 0:
-        return hit, torch.zeros((), dtype=torch.int32, device=ori.x.device)
-    g = lambda a: a[idx]
-    th, capped = packet_traverse.packet_closest_hit_wide(
-        pack, Vec3(g(ori.x), g(ori.y), g(ori.z)), Vec3(g(d.x), g(d.y), g(d.z)),
-        g(tail_tm))
-    win = th.tri >= 0
-    w = idx[win]
+    with trace.span("cast.tail"):
+        with trace.wait("tail"):
+            idx = torch.nonzero(~resolved).squeeze(1)
+            m = idx.numel()
+        if m == 0:
+            return hit, torch.zeros((), dtype=torch.int32,
+                                    device=ori.x.device)
+        g = lambda a: a[idx]
+        th, capped = packet_traverse.packet_closest_hit_wide(
+            pack, Vec3(g(ori.x), g(ori.y), g(ori.z)),
+            Vec3(g(d.x), g(d.y), g(d.z)), g(tail_tm))
+        win = th.tri >= 0
+        # each boolean-mask gather waits for its count on the host
+        with trace.wait("merge"):
+            w = idx[win]
 
-    def merge(cur, new):
-        out = cur.clone()
-        out[w] = new[win]
-        return out
+        def merge(cur, new):
+            out = cur.clone()
+            with trace.wait("merge"):
+                out[w] = new[win]
+            return out
 
-    return HitRecord(t=merge(hit.t, th.t), tri=merge(hit.tri, th.tri),
-                     u=merge(hit.u, th.u), v=merge(hit.v, th.v)), capped
+        return HitRecord(t=merge(hit.t, th.t), tri=merge(hit.tri, th.tri),
+                         u=merge(hit.u, th.u), v=merge(hit.v, th.v)), capped
 
 
 def _sweep(tables: SweepTables, ori: Vec3, d: Vec3, t_max: torch.Tensor,
@@ -152,7 +160,8 @@ def cascade_phase1(tables: SweepTables, ori: Vec3, d: Vec3,
     best1 = torch.where(hit1.tri >= 0, hit1.t, FLT_MAX)
     bound = torch.minimum(s_t[2], thr)
     resolved1 = (bound >= _INF) | (best1 <= bound)
-    ti = torch.nonzero(~resolved1).squeeze(1)
+    with trace.wait("cascade"):
+        ti = torch.nonzero(~resolved1).squeeze(1)
     g = lambda a: a[..., ti].contiguous()
     d2 = Vec3(g(d.x), g(d.y), g(d.z))
     so2, st2 = g(torch.stack(list(s_o[2:]))), g(torch.stack(list(s_t[2:])))
@@ -182,18 +191,21 @@ def cascade_phase2(pack: PacketBVH, tables: SweepTables, ori: Vec3, d: Vec3,
                                     Vec3(dx, dy, dz), tm2, so2, st2,
                                     unroll=unroll, use_groups=groups)
     win = hit2.tri >= 0
-    w = ti[win]
+    with trace.wait("merge"):
+        w = ti[win]
 
     def merge(cur, new):
         out = cur.clone()
-        out[w] = new[win]
+        with trace.wait("merge"):
+            out[w] = new[win]
         return out
 
     hit = HitRecord(t=merge(hit1.t, hit2.t), tri=merge(hit1.tri, hit2.tri),
                     u=merge(hit1.u, hit2.u), v=merge(hit1.v, hit2.v))
     # every lane of the bundle has now swept all its slots
     completed = torch.zeros_like(resolved1)
-    completed[ti[tm2 > 0]] = True
+    with trace.wait("cascade"):
+        completed[ti[tm2 > 0]] = True
     r, best = resolved_lanes(hit, thr)
     resolved = resolved1 | (completed & r)
     tail_tm = torch.where(resolved, 0.0, torch.minimum(best, t_max))
@@ -240,15 +252,19 @@ def sweep_any_hit(pack: PacketBVH, tables: SweepTables, ori: Vec3, d: Vec3,
     live = t_max > 0
     occ = live & (hit.tri >= 0) & (hit.t < t_max - 1e-3)
     resolved = occ | (thr >= t_max - 1e-3) | ~live
-    idx = torch.nonzero(~resolved).squeeze(1)
-    if idx.numel() == 0:
-        return occ, torch.zeros((), dtype=torch.int32, device=ori.x.device)
-    g = lambda a: a[idx]
-    to, capped = packet_traverse.packet_any_hit_wide(
-        pack, Vec3(g(ori.x), g(ori.y), g(ori.z)), Vec3(g(d.x), g(d.y), g(d.z)),
-        g(t_max))
-    occ[idx] = to
-    return occ, capped
+    with trace.span("cast.tail"):
+        with trace.wait("tail"):
+            idx = torch.nonzero(~resolved).squeeze(1)
+            m = idx.numel()
+        if m == 0:
+            return occ, torch.zeros((), dtype=torch.int32,
+                                    device=ori.x.device)
+        g = lambda a: a[idx]
+        to, capped = packet_traverse.packet_any_hit_wide(
+            pack, Vec3(g(ori.x), g(ori.y), g(ori.z)),
+            Vec3(g(d.x), g(d.y), g(d.z)), g(t_max))
+        occ[idx] = to
+        return occ, capped
 
 
 def sweep_cast(pack: PacketBVH, tables: SweepTables, ori: Vec3, d: Vec3,

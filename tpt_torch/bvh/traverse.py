@@ -11,7 +11,9 @@ A lane that has finished takes no further step, so two things change
 nothing in the results: the host looks at the live lanes only every
 `STEP_CHECK` steps (on the card each look is a sync), and once fewer
 than half the lanes of the walk are live it gathers them and goes on
-with those alone. `STATS` counts the walks and their loop iterations.
+with those alone. Each walk counts itself and its loop iterations into
+the frame's `walk.walks` and `walk.steps` (`tpt_torch.trace`), and each
+look at the live lanes is a `wait.walk`.
 
 tpt drops the far child when a lane's stack is full; so does the port,
 and it also counts those lanes, which the caller adds to
@@ -25,12 +27,12 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from ..core.vec import Vec3
 from ..integrators.intersect import FLT_MAX, HitRecord, moller_trumbore
 from ..scene.structs import LBVHData, MeshData
 
 STEP_CHECK = 8
-STATS = {"walks": 0, "steps": 0}
 
 
 @dataclass(frozen=True)
@@ -104,14 +106,15 @@ class _Walk:
         self.steps = 0
 
     def run(self, step, live_key: str, live_fn) -> dict:
-        STATS["walks"] += 1
+        trace.count("walk.walks", 1)
         while True:
             for _ in range(STEP_CHECK):
                 step(self.state)
                 self.steps += 1
             live = live_fn(self.state[live_key])
-            idx = torch.nonzero(live).squeeze(1)
-            m = int(idx.shape[0])
+            with trace.wait("walk"):
+                idx = torch.nonzero(live).squeeze(1)
+                m = int(idx.shape[0])
             if m == 0:
                 break
             if 2 * m <= int(self.lane.shape[0]):
@@ -119,7 +122,7 @@ class _Walk:
                 self.state = {k: v[idx] for k, v in self.state.items()}
                 self.lane = self.lane[idx]
         self._store()
-        STATS["steps"] += self.steps
+        trace.count("walk.steps", self.steps)
         return self.out
 
     def _store(self):

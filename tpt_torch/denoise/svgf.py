@@ -23,6 +23,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import SVGFConfig
 from ..core.vec import Vec3, where as vwhere
 
@@ -350,75 +351,93 @@ def run_svgf(cfg: SVGFConfig, state: SVGFState,
 
     Returns (final rgb Vec3[H, W], next SVGFState). K6 and K5 run through
     their wrappers, looked up here at call time."""
+    with trace.span("svgf"):
+        return _svgf_stages(cfg, state, raw_direct, raw_indirect, albedo,
+                            depth, normal, matid, motion_u, motion_v)
+
+
+def _svgf_stages(cfg: SVGFConfig, state: SVGFState, raw_direct: Vec3,
+                 raw_indirect: Vec3, albedo: Vec3, depth: torch.Tensor,
+                 normal: Vec3, matid: torch.Tensor, motion_u: torch.Tensor,
+                 motion_v: torch.Tensor) -> Tuple[Vec3, SVGFState]:
     from . import reproject, stencil
 
-    sky = depth < 0.0
-
     # 1. demodulation
-    ill_d = _demodulate(raw_direct, albedo, sky, cfg.demodulate_threshold)
-    ill_i = _demodulate(raw_indirect, albedo, sky, cfg.demodulate_threshold)
+    with trace.span("svgf.demodulate"):
+        sky = depth < 0.0
+        ill_d = _demodulate(raw_direct, albedo, sky, cfg.demodulate_threshold)
+        ill_i = _demodulate(raw_indirect, albedo, sky,
+                            cfg.demodulate_threshold)
 
     # 2. temporal reprojection (K6) + EMA
-    lum_d = _luminance(ill_d)
-    lum_i = _luminance(ill_i)
-    m1d_c, m1i_c = lum_d, lum_i
-    m2d_c, m2i_c = lum_d * lum_d, lum_i * lum_i
+    with trace.span("svgf.temporal"):
+        lum_d = _luminance(ill_d)
+        lum_i = _luminance(ill_i)
+        m1d_c, m1i_c = lum_d, lum_i
+        m2d_c, m2i_c = lum_d * lum_d, lum_i * lum_i
 
-    sums, wsum = reproject.reproject(state, motion_u, motion_v, normal,
-                                     depth, matid)
-    valid = (wsum > 1e-4) & ~sky
-    inv_w = 1.0 / torch.clamp_min(wsum, 1e-8)
+        sums, wsum = reproject.reproject(state, motion_u, motion_v, normal,
+                                         depth, matid)
+        valid = (wsum > 1e-4) & ~sky
+        inv_w = 1.0 / torch.clamp_min(wsum, 1e-8)
 
-    hist_len = torch.where(valid, state.history_len + 1, 0)
-    alpha = torch.clamp_min(
-        1.0 / torch.clamp_min(hist_len.to(torch.float32), 1.0),
-        cfg.temporal_alpha_min)
+        hist_len = torch.where(valid, state.history_len + 1, 0)
+        alpha = torch.clamp_min(
+            1.0 / torch.clamp_min(hist_len.to(torch.float32), 1.0),
+            cfg.temporal_alpha_min)
 
-    def ema(prev_sum, cur):
-        prev = prev_sum * inv_w
-        mixed = prev + (cur - prev) * alpha
-        return torch.where(valid, mixed, cur)
+        def ema(prev_sum, cur):
+            prev = prev_sum * inv_w
+            mixed = prev + (cur - prev) * alpha
+            return torch.where(valid, mixed, cur)
 
-    ill_d = Vec3(ema(sums["dir_r"], ill_d.x), ema(sums["dir_g"], ill_d.y),
-                 ema(sums["dir_b"], ill_d.z))
-    ill_i = Vec3(ema(sums["ind_r"], ill_i.x), ema(sums["ind_g"], ill_i.y),
-                 ema(sums["ind_b"], ill_i.z))
-    m1d = ema(sums["m1d"], m1d_c)
-    m1i = ema(sums["m1i"], m1i_c)
-    m2d = ema(sums["m2d"], m2d_c)
-    m2i = ema(sums["m2i"], m2i_c)
+        ill_d = Vec3(ema(sums["dir_r"], ill_d.x), ema(sums["dir_g"], ill_d.y),
+                     ema(sums["dir_b"], ill_d.z))
+        ill_i = Vec3(ema(sums["ind_r"], ill_i.x), ema(sums["ind_g"], ill_i.y),
+                     ema(sums["ind_b"], ill_i.z))
+        m1d = ema(sums["m1d"], m1d_c)
+        m1i = ema(sums["m1i"], m1i_c)
+        m2d = ema(sums["m2d"], m2d_c)
+        m2i = ema(sums["m2i"], m2i_c)
 
-    enough_history = valid & (hist_len >= cfg.history_threshold)
-    var_d = torch.where(enough_history,
-                        torch.clamp_min(m2d - m1d * m1d, 0.0), 1.0)
-    var_i = torch.where(enough_history,
-                        torch.clamp_min(m2i - m1i * m1i, 0.0), 1.0)
-    var_d = torch.where(sky, 1.0, var_d)
-    var_i = torch.where(sky, 1.0, var_i)
+    with trace.span("svgf.variance"):
+        enough_history = valid & (hist_len >= cfg.history_threshold)
+        var_d = torch.where(enough_history,
+                            torch.clamp_min(m2d - m1d * m1d, 0.0), 1.0)
+        var_i = torch.where(enough_history,
+                            torch.clamp_min(m2i - m1i * m1i, 0.0), 1.0)
+        var_d = torch.where(sky, 1.0, var_d)
+        var_i = torch.where(sky, 1.0, var_i)
 
-    # 3. spatial variance fallback for short history, only when some pixel
-    # needs it (tpt's lax.cond; the selected values are the same either
-    # way, because need_spatial masks every pixel the fallback writes)
-    need_spatial = ~enough_history & ~sky
-    if bool(need_spatial.any()):
-        sp_var_d, sp_var_i = _spatial_variance(m1d, m1i, m2d, m2i, depth,
-                                               normal, cfg)
-        var_d = torch.where(need_spatial, sp_var_d, var_d)
-        var_i = torch.where(need_spatial, sp_var_i, var_i)
+        # 3. spatial variance fallback for short history, only when some
+        # pixel needs it (tpt's lax.cond; the selected values are the same
+        # either way, because need_spatial masks every pixel the fallback
+        # writes)
+        need_spatial = ~enough_history & ~sky
+        with trace.wait("history"):
+            spatial = bool(need_spatial.any())
+        if spatial:
+            sp_var_d, sp_var_i = _spatial_variance(m1d, m1i, m2d, m2i, depth,
+                                                   normal, cfg)
+            var_d = torch.where(need_spatial, sp_var_d, var_d)
+            var_i = torch.where(need_spatial, sp_var_i, var_i)
 
     # 4. gaussian blur on variance
-    var_d = _gaussian3(var_d)
-    var_i = _gaussian3(var_i)
+    with trace.span("svgf.blur"):
+        var_d = _gaussian3(var_d)
+        var_i = _gaussian3(var_i)
 
     # 5. a-trous passes (K5); the reference's history tap is the output of
     # pass index iterations - 2 (the buffer last written to the ping slot)
-    (ill_d, var_d, ill_i, var_i), hist_tap = stencil.atrous_passes(
-        ill_d, var_d, ill_i, var_i, depth, normal, cfg.atrous_iterations,
-        cfg.sigma_z, cfg.sigma_n, cfg.sigma_l)
+    with trace.span("svgf.atrous"):
+        (ill_d, var_d, ill_i, var_i), hist_tap = stencil.atrous_passes(
+            ill_d, var_d, ill_i, var_i, depth, normal, cfg.atrous_iterations,
+            cfg.sigma_z, cfg.sigma_n, cfg.sigma_l)
 
     # 6. modulation (+ sky passthrough of indirect)
-    rgb = (ill_d + ill_i) * albedo
-    rgb = vwhere(sky, ill_i, rgb)
+    with trace.span("svgf.modulate"):
+        rgb = (ill_d + ill_i) * albedo
+        rgb = vwhere(sky, ill_i, rgb)
 
     new_state = SVGFState(
         hist_direct=hist_tap[0], hist_direct_var=hist_tap[1],

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import trace
 from .config import DisplayMode, RenderConfig, RenderMode
 from .core.camera import Camera
 from .core.vec import Vec3
@@ -148,38 +149,42 @@ class Renderer:
         step = 1 if self.mega else max(1, self.cfg.spp_batch)
         self._ensure_state()
         it = self.iteration + 1
-        self.iteration += step
-        h, w = self._shape
-        t0 = time.perf_counter()
+        with trace.span("frame", str(it)):
+            self.iteration += step
+            h, w = self._shape
+            t0 = time.perf_counter()
 
-        if self.mega:
-            self.acc_mega = self._mega_step(it, self.acc_mega, cam=self.cam)
-            img_dev = (self.acc_mega * (1.0 / self.iteration)).stacked()
-            rays = self.cam.num_pixels * self.cfg.trace_depth
-        else:
-            img_dev, rays = self._wavefront_frame(it)
-        # the heatmap comes back as host numpy and stays float
-        if (self.display_u8 and isinstance(img_dev, torch.Tensor)
-                and img_dev.dtype != torch.uint8):
-            img_dev = self._u8(img_dev)
+            if self.mega:
+                self.acc_mega = self._mega_step(it, self.acc_mega,
+                                                cam=self.cam)
+                img_dev = (self.acc_mega * (1.0 / self.iteration)).stacked()
+                rays = self.cam.num_pixels * self.cfg.trace_depth
+            else:
+                img_dev, rays = self._wavefront_frame(it)
+            # the heatmap comes back as host numpy and stays float
+            if (self.display_u8 and isinstance(img_dev, torch.Tensor)
+                    and img_dev.dtype != torch.uint8):
+                img_dev = self._u8(img_dev)
 
-        if self.pipeline:
-            # return the previous frame; this one stays in flight until
-            # the next call fetches it
-            prev = self._pending
-            self._pending = (img_dev, rays, (h, w))
-            if prev is not None:
-                img_dev, rays, (h, w) = prev
-        img = (img_dev if isinstance(img_dev, np.ndarray)
-               else img_dev.cpu().numpy())
-        if not self.pipeline and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            if self.pipeline:
+                # return the previous frame; this one stays in flight until
+                # the next call fetches it
+                prev = self._pending
+                self._pending = (img_dev, rays, (h, w))
+                if prev is not None:
+                    img_dev, rays, (h, w) = prev
+            with trace.wait("fetch"):
+                img = (img_dev if isinstance(img_dev, np.ndarray)
+                       else img_dev.cpu().numpy())
+                if not self.pipeline and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                dt = time.perf_counter() - t0
+                rays = int(rays)
 
-        dt = time.perf_counter() - t0
-        self.gui.frame_ms = dt * 1000.0
-        self.gui.mrays_per_sec = int(rays) / dt / 1e6
-        self.gui.traced_depth = self.cfg.trace_depth
-        return img.reshape(h, w, 3)
+            self.gui.frame_ms = dt * 1000.0
+            self.gui.mrays_per_sec = rays / dt / 1e6
+            self.gui.traced_depth = self.cfg.trace_depth
+            return img.reshape(h, w, 3)
 
     def _wavefront_frame(self, it: int):
         """One wavefront frame at iteration `it` (accumulated, or denoised

@@ -47,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..bvh.sweep import MAX_SLOTS
 from ..bvh.treelet_traverse import MAX_SLOTS as TREELET_MAX_SLOTS
 from ..config import RayCastBackend, RenderConfig
@@ -262,26 +263,28 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
     n = ori.shape[0]
     dev = ori.device
     first = depth == 0
+    trace.count("lanes", n)
 
     cast_kw = {}
     if do_sort and not first:
-        pool = (ori, direction, throughput, last_pdf, state, alive, direct,
-                indirect, pixel_idx)
-        if cfg.backend == RayCastBackend.BVH_SWEEP:
-            keys, slots_raw = _sweep_scan_keys(scene, cfg, pool)
-            pool, cast_kw["sweep_slots"] = _sweep_bin_sort(cfg, pool, keys,
-                                                           slots_raw)
-            cast_kw["cascade"] = _cascade_on(cfg)
-        elif cfg.backend == RayCastBackend.BVH_TREELET:
-            pool, cast_kw["seed"], hard, capped = _treelet_seed_sort(
-                scene, cfg, pool)
-            raycaster.capped.add_(capped)
-            if cfg.treelet_hybrid:
-                cast_kw["hard"] = hard
-        else:
-            pool = _sort_pool(scene, cfg, pool)
-        (ori, direction, throughput, last_pdf, state, alive, direct,
-         indirect, pixel_idx) = pool
+        with trace.span("sort"):
+            pool = (ori, direction, throughput, last_pdf, state, alive,
+                    direct, indirect, pixel_idx)
+            if cfg.backend == RayCastBackend.BVH_SWEEP:
+                keys, slots_raw = _sweep_scan_keys(scene, cfg, pool)
+                pool, cast_kw["sweep_slots"] = _sweep_bin_sort(
+                    cfg, pool, keys, slots_raw)
+                cast_kw["cascade"] = _cascade_on(cfg)
+            elif cfg.backend == RayCastBackend.BVH_TREELET:
+                pool, cast_kw["seed"], hard, capped = _treelet_seed_sort(
+                    scene, cfg, pool)
+                raycaster.capped.add_(capped)
+                if cfg.treelet_hybrid:
+                    cast_kw["hard"] = hard
+            else:
+                pool = _sort_pool(scene, cfg, pool)
+            (ori, direction, throughput, last_pdf, state, alive, direct,
+             indirect, pixel_idx) = pool
 
     if first and cfg.backend in (RayCastBackend.BVH_TREELET,
                                  RayCastBackend.BVH_SWEEP):
@@ -291,141 +294,160 @@ def _bounce_body(scene: SceneData, raycaster: Raycaster, cam: Camera,
             # pool, no bin sort (G-buffers need pixel order)
             from ..bvh.sweep import dense_scan
 
-            s_t, s_o, thr = dense_scan(scene.sweep, ori, direction,
-                                       torch.where(alive, 3.4e38, -1.0),
-                                       slots=cfg.sweep_slots)
+            with trace.span("sort"):
+                s_t, s_o, thr = dense_scan(scene.sweep, ori, direction,
+                                           torch.where(alive, 3.4e38, -1.0),
+                                           slots=cfg.sweep_slots)
             cast_kw["sweep_slots"] = (s_o, s_t, thr)
 
     # ---- TraceExtensionRay stage: dead lanes get t_max = -1 -------------
-    if cfg.nearfield_frac > 0.0 and cfg.backend == RayCastBackend.BVH_PALLAS:
-        hit = _nearfield_cast(scene, raycaster, cfg, ori, direction, alive)
-    else:
-        ext_tmax = torch.where(alive, 3.4e38, -1.0)
-        hit = raycaster.closest_hit(ori, direction, ext_tmax, **cast_kw)
-    rays = rays + alive.sum()
+    with trace.span("cast.ext"):
+        if (cfg.nearfield_frac > 0.0
+                and cfg.backend == RayCastBackend.BVH_PALLAS):
+            hit = _nearfield_cast(scene, raycaster, cfg, ori, direction,
+                                  alive)
+        else:
+            ext_tmax = torch.where(alive, 3.4e38, -1.0)
+            hit = raycaster.closest_hit(ori, direction, ext_tmax, **cast_kw)
+        live = alive.sum()
+        trace.count("live", live)
+        rays = rays + live
 
     # ---- Logic stage ------------------------------------------------------
-    wo = -1.0 * direction
-    (mats, n_sh, ng_raw, ng, hit_matid, uu, vv) = fetch_hit_surface(
-        scene, hit.tri, hit.u, hit.v, wo)
-    point = ori + direction * hit.t
-    miss = alive & ~hit.hit_mask
-    zero3 = Vec3.zeros((n,), dev)
+    with trace.span("logic"):
+        wo = -1.0 * direction
+        (mats, n_sh, ng_raw, ng, hit_matid, uu, vv) = fetch_hit_surface(
+            scene, hit.tri, hit.u, hit.v, wo)
+        point = ori + direction * hit.t
+        miss = alive & ~hit.hit_mask
+        zero3 = Vec3.zeros((n,), dev)
 
-    # miss -> environment into indirect; BSDF-sampled env hits are MIS
-    # weighted only when the env NEE estimator runs beside them
-    if scene.env.enabled:
-        env_l = envmod.env_radiance(scene.env, direction)
-        if cfg.env_nee:
-            pdf_env = envmod.env_pdf(scene.env, direction)
-            w_mis = torch.where((last_pdf > DELTA_THRESHOLD) | first, 1.0,
-                                power_heuristic(last_pdf, pdf_env))
-        else:
-            w_mis = 1.0
-        indirect = indirect + vwhere(miss, throughput * env_l * w_mis, zero3)
+        # miss -> environment into indirect; BSDF-sampled env hits are MIS
+        # weighted only when the env NEE estimator runs beside them
+        if scene.env.enabled:
+            env_l = envmod.env_radiance(scene.env, direction)
+            if cfg.env_nee:
+                pdf_env = envmod.env_pdf(scene.env, direction)
+                w_mis = torch.where((last_pdf > DELTA_THRESHOLD) | first, 1.0,
+                                    power_heuristic(last_pdf, pdf_env))
+            else:
+                w_mis = 1.0
+            indirect = indirect + vwhere(miss, throughput * env_l * w_mis,
+                                         zero3)
 
-    if first:
-        # G-buffers are per pixel: sample batch 0 is the raster-order
-        # prefix of the (not yet sorted) pool
-        npx = gbuf.depth.shape[0]
-        pre = lambda a: a[:npx]
-        vpre = lambda v: v.map(lambda c: c[:npx])
-        sky = pre(miss)
-        u_c, v_c, ok_c = project_to_screen_uv(vpre(point), view_proj)
-        u_p, v_p, ok_p = project_to_screen_uv(vpre(point), prev_view_proj)
-        moving = ~sky & ok_c & ok_p
-        gbuf = GBuffers(
-            depth=torch.where(sky, -1000.0, pre(hit.t)),
-            normal=vwhere(sky, Vec3.zeros((npx,), dev), vpre(ng_raw)),
-            mat_id=torch.where(sky, -1, pre(hit_matid)),
-            albedo=vwhere(sky, Vec3.ones((npx,), dev), vpre(mats.basecolor)),
-            motion_u=torch.where(moving, (u_c - u_p) * w, 0.0),
-            motion_v=torch.where(moving, (v_c - v_p) * h, 0.0))
-    alive = alive & hit.hit_mask
+        if first:
+            # G-buffers are per pixel: sample batch 0 is the raster-order
+            # prefix of the (not yet sorted) pool
+            npx = gbuf.depth.shape[0]
+            pre = lambda a: a[:npx]
+            vpre = lambda v: v.map(lambda c: c[:npx])
+            sky = pre(miss)
+            u_c, v_c, ok_c = project_to_screen_uv(vpre(point), view_proj)
+            u_p, v_p, ok_p = project_to_screen_uv(vpre(point), prev_view_proj)
+            moving = ~sky & ok_c & ok_p
+            gbuf = GBuffers(
+                depth=torch.where(sky, -1000.0, pre(hit.t)),
+                normal=vwhere(sky, Vec3.zeros((npx,), dev), vpre(ng_raw)),
+                mat_id=torch.where(sky, -1, pre(hit_matid)),
+                albedo=vwhere(sky, Vec3.ones((npx,), dev),
+                              vpre(mats.basecolor)),
+                motion_u=torch.where(moving, (u_c - u_p) * w, 0.0),
+                motion_v=torch.where(moving, (v_c - v_p) * h, 0.0))
+        alive = alive & hit.hit_mask
 
-    # emissive hit -> MIS -> indirect, kill
-    emissive = alive & (mats.emittance > 0.0)
-    cos_light = torch.clamp_min(n_sh.dot(wo), 0.0)
-    pdf_la = 1.0 / torch.clamp_min(scene.lights.total_area, 1e-20)
-    pdf_lsa = pdf_la * (hit.t * hit.t) / torch.clamp_min(cos_light, 1e-20)
-    no_mis = (last_pdf > 0.9 * PDF_DIRAC_DELTA) | first | (not has_lights)
-    w_emis = torch.where(
-        no_mis, 1.0,
-        torch.where(cos_light > EPSILON, power_heuristic(last_pdf, pdf_lsa), 0.0))
-    indirect = indirect + vwhere(
-        emissive, throughput * mats.basecolor * (mats.emittance * w_emis), zero3)
-    alive = alive & ~emissive
+        # emissive hit -> MIS -> indirect, kill
+        emissive = alive & (mats.emittance > 0.0)
+        cos_light = torch.clamp_min(n_sh.dot(wo), 0.0)
+        pdf_la = 1.0 / torch.clamp_min(scene.lights.total_area, 1e-20)
+        pdf_lsa = pdf_la * (hit.t * hit.t) / torch.clamp_min(cos_light, 1e-20)
+        no_mis = (last_pdf > 0.9 * PDF_DIRAC_DELTA) | first | (not has_lights)
+        w_emis = torch.where(
+            no_mis, 1.0,
+            torch.where(cos_light > EPSILON,
+                        power_heuristic(last_pdf, pdf_lsa), 0.0))
+        indirect = indirect + vwhere(
+            emissive, throughput * mats.basecolor * (mats.emittance * w_emis),
+            zero3)
+        alive = alive & ~emissive
 
     # ---- Shade stage: NEE -> TraceShadowRay --------------------------------
-    if has_lights:
-        state, lp, ln, pdf_area, ltri, le = sample_light(
-            scene.mesh, scene.lights, state)
-        # geometry measured from the OFFSET shadow origin (a shorter
-        # segment would let the light occlude its own shadow ray)
-        shadow_ori = point + ng * EPSILON
-        to_l = lp - shadow_ori
-        dist = to_l.length()
-        wi_l = to_l * (1.0 / torch.clamp_min(dist, 1e-20))
-        dist_sq = torch.clamp_min(dist * dist, 1e-6)
-        cos_surf = torch.clamp_min(n_sh.dot(wi_l), 0.0)
-        cos_l = torch.clamp_min(ln.dot(-1.0 * wi_l), 0.0)
-        front = ng.dot(wi_l) > 0.0
-        if le is None:
-            lmat = bsdf.gather_materials(scene.materials,
-                                         scene.mesh.material_ids[ltri])
-            le = lmat.basecolor * lmat.emittance
-        f = bsdf.eval_bsdf(wo, wi_l, n_sh, mats)
-        pdf_b = bsdf.pdf_bsdf(wo, wi_l, n_sh, mats)
-        pdf_l_sa = pdf_area * dist_sq / torch.clamp_min(cos_l, 1e-20)
-        w_nee = power_heuristic(pdf_l_sa, pdf_b)
-        contrib = throughput * le * f * (
-            cos_surf * cos_l / dist_sq * w_nee / pdf_area)
-        is_delta = (mats.mtype == 2) | (mats.mtype == 3)
-        nee_mask = (alive & front & ~is_delta & (cos_surf > 0.0)
-                    & (cos_l > 0.0) & (contrib.length_sq() > 0.0))
-        shadow_t = torch.where(nee_mask, dist, -1.0)  # dead shadow lanes
-        if cfg.debug_no_shadow:
-            # tpt's timing diagnostic: no shadow cast, nothing occluded
-            occluded = torch.zeros((n,), dtype=torch.bool, device=dev)
+    with trace.span("shade.nee"):
+        if has_lights:
+            state, lp, ln, pdf_area, ltri, le = sample_light(
+                scene.mesh, scene.lights, state)
+            # geometry measured from the OFFSET shadow origin (a shorter
+            # segment would let the light occlude its own shadow ray)
+            shadow_ori = point + ng * EPSILON
+            to_l = lp - shadow_ori
+            dist = to_l.length()
+            wi_l = to_l * (1.0 / torch.clamp_min(dist, 1e-20))
+            dist_sq = torch.clamp_min(dist * dist, 1e-6)
+            cos_surf = torch.clamp_min(n_sh.dot(wi_l), 0.0)
+            cos_l = torch.clamp_min(ln.dot(-1.0 * wi_l), 0.0)
+            front = ng.dot(wi_l) > 0.0
+            if le is None:
+                lmat = bsdf.gather_materials(scene.materials,
+                                             scene.mesh.material_ids[ltri])
+                le = lmat.basecolor * lmat.emittance
+            f = bsdf.eval_bsdf(wo, wi_l, n_sh, mats)
+            pdf_b = bsdf.pdf_bsdf(wo, wi_l, n_sh, mats)
+            pdf_l_sa = pdf_area * dist_sq / torch.clamp_min(cos_l, 1e-20)
+            w_nee = power_heuristic(pdf_l_sa, pdf_b)
+            contrib = throughput * le * f * (
+                cos_surf * cos_l / dist_sq * w_nee / pdf_area)
+            is_delta = (mats.mtype == 2) | (mats.mtype == 3)
+            nee_mask = (alive & front & ~is_delta & (cos_surf > 0.0)
+                        & (cos_l > 0.0) & (contrib.length_sq() > 0.0))
+            shadow_t = torch.where(nee_mask, dist, -1.0)  # dead shadow lanes
+            if cfg.debug_no_shadow:
+                # tpt's timing diagnostic: no shadow cast, nothing occluded
+                occluded = torch.zeros((n,), dtype=torch.bool, device=dev)
+            else:
+                with trace.span("cast.shadow"):
+                    occluded = raycaster.any_hit(shadow_ori, wi_l, shadow_t)
+            shadow = nee_mask.sum()
+            trace.count("shadow", shadow)
+            rays = rays + shadow
+            direct = direct + vwhere(nee_mask & ~occluded, contrib, zero3)
         else:
-            occluded = raycaster.any_hit(shadow_ori, wi_l, shadow_t)
-        rays = rays + nee_mask.sum()
-        direct = direct + vwhere(nee_mask & ~occluded, contrib, zero3)
-    else:
-        state, _ = rng.rand_float(state)
-        state, _ = rng.rand_float(state)
-        state, _ = rng.rand_float(state)
+            state, _ = rng.rand_float(state)
+            state, _ = rng.rand_float(state)
+            state, _ = rng.rand_float(state)
 
     # direct environment sampling through the alias table
     if scene.env.enabled and cfg.env_nee:
-        state, env_contrib = compute_env_nee(scene, cfg, raycaster, state,
-                                             point, n_sh, ng, wo, mats,
-                                             throughput, alive)
-        direct = direct + env_contrib
-        rays = rays + alive.sum()
+        with trace.span("shade.env"):
+            state, env_contrib = compute_env_nee(scene, cfg, raycaster, state,
+                                                 point, n_sh, ng, wo, mats,
+                                                 throughput, alive)
+            direct = direct + env_contrib
+            env = alive.sum()
+            trace.count("env", env)
+            rays = rays + env
 
     # ---- BSDF sample + path update -----------------------------------------
-    state, smp = bsdf.sample_bsdf(wo, n_sh, mats, state)
-    if cfg.heavy_shading_iters:
-        smp = bsdf.BSDFSample(
-            wi=smp.wi, pdf=smp.pdf,
-            attenuation=smp.attenuation * heavy_shading_factor(
-                hit.u, cfg.heavy_shading_iters),
-            is_transmission=smp.is_transmission)
-    valid = (smp.pdf > 0.0) & (smp.attenuation.length_sq() > 0.0)
-    exiting = smp.wi.dot(ng) > 0.0
-    valid = valid & (exiting | smp.is_transmission)
-    bias_n = vwhere(exiting, ng, -1.0 * ng)
+    with trace.span("shade.bsdf"):
+        state, smp = bsdf.sample_bsdf(wo, n_sh, mats, state)
+        if cfg.heavy_shading_iters:
+            smp = bsdf.BSDFSample(
+                wi=smp.wi, pdf=smp.pdf,
+                attenuation=smp.attenuation * heavy_shading_factor(
+                    hit.u, cfg.heavy_shading_iters),
+                is_transmission=smp.is_transmission)
+        valid = (smp.pdf > 0.0) & (smp.attenuation.length_sq() > 0.0)
+        exiting = smp.wi.dot(ng) > 0.0
+        valid = valid & (exiting | smp.is_transmission)
+        bias_n = vwhere(exiting, ng, -1.0 * ng)
 
-    upd = alive & valid
-    throughput = vwhere(upd, throughput * smp.attenuation, throughput)
-    ori = vwhere(upd, point + bias_n * EPSILON, ori)
-    direction = vwhere(upd, smp.wi, direction)
-    last_pdf = torch.where(upd, smp.pdf, last_pdf)
-    alive = upd
+        upd = alive & valid
+        throughput = vwhere(upd, throughput * smp.attenuation, throughput)
+        ori = vwhere(upd, point + bias_n * EPSILON, ori)
+        direction = vwhere(upd, smp.wi, direction)
+        last_pdf = torch.where(upd, smp.pdf, last_pdf)
+        alive = upd
 
-    throughput, alive, state = apply_russian_roulette(
-        cfg, depth, throughput, alive, state)
+        throughput, alive, state = apply_russian_roulette(
+            cfg, depth, throughput, alive, state)
 
     return (ori, direction, throughput, last_pdf, state, alive,
             direct, indirect, pixel_idx, gbuf, rays)
@@ -533,10 +555,15 @@ def trace_frame(scene: SceneData, raycaster: Raycaster, cam: Camera,
         raise NotImplementedError(f"{reason} is not ported yet")
     vp = camera_view_proj(cam) if view_proj is None else view_proj
     prev = vp if prev_view_proj is None else prev_view_proj
-    carry = batched_raygen(cam, cfg, iteration, scene.device, pix=pix)
+    trace.reset()
+    with trace.span("raygen"):
+        carry = batched_raygen(cam, cfg, iteration, scene.device, pix=pix)
     for depth in range(cfg.trace_depth):
-        carry = _bounce_body(scene, raycaster, cam, cfg, vp, prev, depth, carry)
-    return finish_carry(cfg, carry)
+        with trace.span("bounce"):
+            carry = _bounce_body(scene, raycaster, cam, cfg, vp, prev, depth,
+                                 carry)
+    with trace.span("finish"):
+        return finish_carry(cfg, carry)
 
 
 def render(scene: SceneData, cam: Camera, cfg: RenderConfig,
